@@ -1,0 +1,58 @@
+"""Kernel dispatch by the device of the inputs.
+
+A CPU tensor goes to the kernel's plain version (``repro_torch.kernels.ref``);
+a CUDA tensor goes to the hand-written kernel, which launches or raises.
+There is no mode variable and no fallback: the device is the only switch,
+so the CPU tests exercise the plain versions and a run on the card
+exercises the kernels.
+
+Each kernel wrapper counts its launches; ``launch_counts`` and
+``reset_launch_counts`` let a caller show that a run went through them.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import fused_retrieve as _fr
+from repro_torch.kernels import ref
+from repro_torch.kernels import topk_search as _ts
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: "
+                         f"{sorted(str(d) for d in devices)}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def topk_search(q, vecs, live, k: int):
+    """Exact top-k; see ``ref.topk_search`` for the contract."""
+    if _on_cuda(q, vecs, live):
+        return _ts.topk_search_cuda(q, vecs, live, k)
+    return ref.topk_search(q, vecs, live, k)
+
+
+def ivf_topk(q, cent, packed_vecs, packed_slot, packed_ok, nprobe: int,
+             k: int):
+    """IVF over the packed mirror; see ``ref.ivf_topk`` for the contract."""
+    if _on_cuda(q, cent, packed_vecs, packed_slot, packed_ok):
+        return _fr.ivf_topk_cuda(q, cent, packed_vecs, packed_slot,
+                                 packed_ok, nprobe, k)
+    return ref.ivf_topk(q, cent, packed_vecs, packed_slot, packed_ok,
+                        nprobe, k)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per kernel since the last reset."""
+    return {"topk_search": _ts.launches, "ivf_topk": _fr.launches}
+
+
+def reset_launch_counts() -> None:
+    _ts.launches = 0
+    _fr.launches = 0

@@ -1,0 +1,90 @@
+"""Plain PyTorch versions of the port's kernels (the allclose targets).
+
+Each function computes on any device, with ordinary tensor ops, what its
+hand-written kernel computes. The CPU tests hold them against the JAX
+package; on the card they are the reference the kernels are held against.
+
+Tie order follows ``lax.top_k``: among equal scores the lower position
+comes first, so every top-k here is a stable descending sort cut to ``k``
+(``torch.topk`` leaves the order of ties unspecified on CUDA).
+"""
+from __future__ import annotations
+
+import torch
+
+NEG = -3.0e38
+
+
+def stable_topk(scores: torch.Tensor, k: int):
+    """Top-``k`` along dim 1 in ``lax.top_k`` order; pads with
+    ``(NEG, position)`` when the row is shorter than ``k``."""
+    n = scores.shape[1]
+    if n < k:
+        pad = scores.new_full((scores.shape[0], k - n), NEG)
+        scores = torch.cat([scores, pad], dim=1)
+    top, pos = torch.sort(scores, dim=1, descending=True, stable=True)
+    return top[:, :k], pos[:, :k]
+
+
+def _sentinel(top: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Ids whose score is at or below ``NEG/2`` (dead or padding) -> -1."""
+    return torch.where(top <= NEG / 2, torch.full_like(idx, -1), idx)
+
+
+def topk_search(q, vecs, live, k: int):
+    """Exact inner-product top-k. q:[nq,d] vecs:[N,d] f32, live:[N] bool.
+
+    Returns ``(scores [nq,k] f32, idx [nq,k] int32)``; rows with fewer than
+    ``k`` live entries pad with ``(NEG, -1)``.
+    """
+    scores = torch.where(live.bool()[None, :], q @ vecs.T,
+                         torch.tensor(NEG, dtype=q.dtype, device=q.device))
+    top, idx = stable_topk(scores, k)
+    return top, _sentinel(top, idx.int())
+
+
+def merge_candidates(cand_s, cand_i, k: int):
+    """Global top-k over per-tile / per-bucket candidates ``[nq, C]`` laid
+    out tile-major, rank-minor (so ties resolve as a top-k over the whole
+    score matrix would). Pads with ``(NEG, -1)`` when ``C < k``."""
+    top, pos = stable_topk(cand_s, k)
+    c = cand_i.shape[1]
+    if c < k:
+        cand_i = torch.cat([cand_i, cand_i.new_full(
+            (cand_i.shape[0], k - c), -1)], dim=1)
+    return top, _sentinel(top, torch.gather(cand_i, 1, pos))
+
+
+def probe(q, cent, nprobe: int):
+    """Centroid scores -> the top-``nprobe`` bucket ids ``[nq, nprobe]``
+    int32 (the same arithmetic as the unfused IVF search's probe)."""
+    return stable_topk(q @ cent.T, nprobe)[1].int()
+
+
+def ivf_topk(q, cent, packed_vecs, packed_slot, packed_ok, nprobe: int,
+             k: int):
+    """IVF probe -> bucket score -> select over the packed mirror.
+
+    q:[nq,d]; cent:[nlist,d]; packed_vecs:[nlist*cap_b,d];
+    packed_slot/packed_ok:[nlist*cap_b] (slot id / liveness of each packed
+    row). Each probed bucket yields its own top-k as slot ids; the
+    ``[nq, nprobe*k]`` candidates merge probe-major.
+    """
+    nq, d = q.shape
+    nlist = cent.shape[0]
+    cap_b = packed_vecs.shape[0] // nlist
+    probes = probe(q, cent, nprobe).long()
+    pv = packed_vecs.view(nlist, cap_b, d)
+    ps = packed_slot.view(nlist, cap_b)
+    po = packed_ok.view(nlist, cap_b).bool()
+    kt = min(k, cap_b)
+    neg = torch.tensor(NEG, dtype=q.dtype, device=q.device)
+    cs, ci = [], []
+    for p in range(nprobe):
+        b = probes[:, p]
+        s = torch.bmm(pv[b], q[:, :, None])[:, :, 0]      # [nq, cap_b]
+        ts, tp = stable_topk(torch.where(po[b], s, neg), kt)
+        cs.append(ts)
+        ci.append(torch.gather(ps[b], 1, tp))
+    return merge_candidates(torch.stack(cs, 1).reshape(nq, nprobe * kt),
+                            torch.stack(ci, 1).reshape(nq, nprobe * kt), k)

@@ -15,3 +15,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running serving/stress test (excluded from "
                    "the tier-1 fast gate)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips without one); run "
+                   "them there with `pytest -m cuda tests/test_torch_*.py`")

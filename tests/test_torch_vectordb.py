@@ -1,0 +1,275 @@
+"""The port's vector DB against the JAX package's, on the CPU.
+
+State is carried across with ``repro_torch.convert`` (the two packages'
+random draws differ), then both DBs answer the same seeded queries, before
+and after the same mutations. Tolerance (``repro_torch.kernels.parity``):
+scores within 1e-5 (fp32, the summation order differs), ids equal outside
+groups of near-tied scores. TF32 is off for every fp32 product.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# small shapes; the suite runs several workers at once, so one intra-op
+# thread each keeps torch from crowding the timing-sensitive tests
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.interfaces import Chunk as JChunk  # noqa: E402
+from repro.core.vectordb import DBConfig as JDBConfig  # noqa: E402
+from repro.core.vectordb import JaxVectorDB  # noqa: E402
+from repro.core.vectordb import kmeans as jax_kmeans  # noqa: E402
+from repro.core.vectordb import merge_topk as jax_merge_topk  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.core import registry  # noqa: E402
+from repro_torch.core.interfaces import Chunk  # noqa: E402
+from repro_torch.core.vectordb import (DBConfig, TorchVectorDB,  # noqa: E402
+                                       _flat_search, assign, fill_buckets,
+                                       kmeans, merge_topk)
+from repro_torch.kernels.parity import compare_topk  # noqa: E402
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+DIM = 16
+N = 192
+
+
+def _corpus(n=N, seed=0):
+    rng = np.random.default_rng(seed)
+    vecs = rng.standard_normal((n, DIM)).astype(np.float32)
+    return vecs / np.linalg.norm(vecs, axis=1, keepdims=True)
+
+
+def _chunks(cls, n, doc0=0):
+    return [cls(chunk_id=-1, doc_id=doc0 + i // 4, text=f"c{i}")
+            for i in range(n)]
+
+
+def _queries(nq=8, seed=1):
+    rng = np.random.default_rng(seed)
+    return (_corpus()[:nq] + 0.02 * rng.standard_normal(
+        (nq, DIM))).astype(np.float32)
+
+
+def _jax_db(index_type, use_kernel, n=N, **kw):
+    cfg = dict(index_type=index_type, dim=DIM, capacity=n + 96, nlist=4,
+               nprobe=2, flat_capacity=48, use_kernel=use_kernel)
+    cfg.update(kw)
+    db = JaxVectorDB(JDBConfig(**cfg))
+    db.insert(_corpus(n), _chunks(JChunk, n))
+    db.build_index()
+    return db
+
+
+def _assert_same(jdb, tdb, q, k=5):
+    js, ji = jdb._search_arrays(jnp.asarray(q), k)
+    ts, ti = tdb.search_arrays(torch.from_numpy(q), k)
+    got = compare_topk(np.asarray(js), np.asarray(ji), ts, ti)
+    assert got["violations"] == 0, got
+
+
+@pytest.mark.parametrize("index_type", ["flat", "ivf"])
+@pytest.mark.parametrize("rung", ["off", "fused"])
+def test_matches_jax_db_before_and_after_mutation(index_type, rung,
+                                                  monkeypatch):
+    monkeypatch.setenv("REPRO_KERNEL_MODE", "interpret")
+    jdb = _jax_db(index_type, False if rung == "off" else rung)
+    tdb = convert.db_from_jax(jdb, device="cpu")
+    assert tdb._kernel == rung
+    assert (tdb.packed is not None) == (rung == "fused" and index_type == "ivf")
+    q = _queries()
+    _assert_same(jdb, tdb, q)
+    fresh = _corpus(10, seed=3)
+    for db, cls in ((jdb, JChunk), (tdb, Chunk)):
+        assert db.remove(2) == 4
+        db.remove(31)
+        db.insert(fresh.copy(), _chunks(cls, 10, doc0=900))
+    assert tdb.stats()["fresh"] == jdb.stats()["fresh"] == 10
+    _assert_same(jdb, tdb, q)
+    # the port's fused rung against its own plain rung on the same state
+    s_off, i_off = tdb.search_arrays(torch.from_numpy(q), 5, rung="off")
+    s_k, i_k = tdb.search_arrays(torch.from_numpy(q), 5)
+    assert compare_topk(s_off, i_off, s_k, i_k)["violations"] == 0
+
+
+@pytest.mark.parametrize("index_type", ["flat", "ivf"])
+def test_hybrid_lists_are_disjoint_and_merge_as_jax(index_type):
+    """The main index and the freshness buffer never return the same slot,
+    so the port's merge (a stable sort, no dedup) equals the reference's
+    ``merge_topk`` on the same two lists, ties included."""
+    tdb = TorchVectorDB(DBConfig(index_type=index_type, dim=DIM,
+                                 capacity=N + 96, nlist=4, nprobe=4,
+                                 flat_capacity=48), device="cpu")
+    base = _corpus()
+    tdb.insert(base, _chunks(Chunk, N))
+    tdb.build_index()
+    tdb.remove(3)
+    tdb.insert(base[:20].copy(), _chunks(Chunk, 20, doc0=700))  # exact ties
+    snap = tdb._snapshot()
+    q = torch.from_numpy(_queries())
+    main = tdb._search_main(q, snap["live"] & snap["indexed"], 6, snap, "off")
+    fresh = _flat_search(q, snap["vectors"],
+                         tdb._mask(snap["live"] & ~snap["indexed"]), 6)
+    for r in range(q.shape[0]):
+        a, b = main[1][r], fresh[1][r]
+        assert not set(a[a >= 0].tolist()) & set(b[b >= 0].tolist())
+    ts, ti = merge_topk(*main, *fresh, 6)
+    js, ji = jax_merge_topk(*(t.numpy() for t in (*main, *fresh)), 6)
+    assert (ti.numpy() == ji).all()
+    np.testing.assert_array_equal(ts.numpy(), js)
+    # each query's own row and its fresh copy come first; on an exact tie
+    # (the flat index scores both in one product) the main index's wins
+    for r in range(q.shape[0]):
+        assert sorted(ti[r, :2].tolist()) == [r, r + N]
+        if ts[r, 0] == ts[r, 1]:
+            assert ti[r, 0] == r
+    if index_type == "flat":
+        assert (ts[:, 0] == ts[:, 1]).all()
+
+
+def test_cold_start_matches_jax():
+    """Before any build_index every rung brute-forces the live rows."""
+    jdb = JaxVectorDB(JDBConfig(dim=DIM, capacity=64, nlist=4))
+    tdb = TorchVectorDB(DBConfig(dim=DIM, capacity=64, nlist=4,
+                                 use_kernel="fused"), device="cpu")
+    jdb.insert(_corpus(40), _chunks(JChunk, 40))
+    tdb.insert(torch.from_numpy(_corpus(40)), _chunks(Chunk, 40))
+    _assert_same(jdb, tdb, _queries(4), k=6)
+
+
+def test_threshold_rebuild_refreshes_packed_mirror():
+    """Inserts past the buffer threshold rebuild the index and the packed
+    mirror; the kernel rung still agrees with the plain rung."""
+    tdb = TorchVectorDB(DBConfig(dim=DIM, capacity=N + 96, nlist=4, nprobe=2,
+                                 flat_capacity=48, use_kernel="fused"),
+                        device="cpu")
+    tdb.insert(_corpus(), _chunks(Chunk, N))
+    tdb.build_index()
+    slot0 = tdb.packed["slot"].clone()
+    tdb.insert(_corpus(30, seed=9), _chunks(Chunk, 30, doc0=500))
+    assert tdb.counters["rebuilds"] == 1 and tdb.stats()["fresh"] == 30
+    tdb.insert(_corpus(10, seed=8), _chunks(Chunk, 10, doc0=600))   # 40 >= 36
+    assert tdb.counters["rebuilds"] == 2
+    assert tdb.stats()["fresh"] == 0 and tdb.counters["flat_fill"] >= 0.75
+    assert not torch.equal(tdb.packed["slot"], slot0)
+    assert int((tdb.packed["slot"] >= 0).sum()) == N + 40
+    q = torch.from_numpy(_queries())
+    assert compare_topk(*tdb.search_arrays(q, 5, rung="off"),
+                        *tdb.search_arrays(q, 5))["violations"] == 0
+
+
+def test_capacity_overflow_raises_memory_error():
+    tdb = TorchVectorDB(DBConfig(dim=DIM, capacity=8), device="cpu")
+    tdb.insert(_corpus(6), _chunks(Chunk, 6))
+    with pytest.raises(MemoryError, match="vector store full"):
+        tdb.insert(_corpus(3), _chunks(Chunk, 3))
+    assert tdb.stats()["slots"] == 6
+
+
+def test_bucket_spill_matches_jax_and_overflow_raises():
+    """Full buckets spill to the least-full one exactly as the reference
+    does; when every bucket is full the build raises MemoryError."""
+    jdb = _jax_db("ivf", False, bucket_cap=52)     # 192 rows, 4 x 52 slots
+    cent = torch.from_numpy(np.array(jdb.centroids))
+    live = torch.from_numpy(np.nonzero(jdb.live)[0])
+    x = torch.from_numpy(_corpus())
+    asg = assign(x, cent, rows=live)
+    assert int(torch.bincount(asg, minlength=4).max()) > 52   # spills happen
+    buckets, overflow = fill_buckets(live, asg, 4, 52)
+    assert overflow == 0
+    assert (buckets.numpy() == jdb.buckets).all()
+    # no spill: the vectorized path lays rows out as the sequential rule
+    buckets, _ = fill_buckets(live, asg, 4, 128)
+    ref = np.full((4, 128), -1, np.int32)
+    for b in range(4):
+        rows = live.numpy()[asg.numpy() == b]
+        ref[b, :len(rows)] = rows
+    assert (buckets.numpy() == ref).all()
+    tdb = TorchVectorDB(DBConfig(dim=DIM, capacity=N, nlist=4, bucket_cap=40),
+                        device="cpu")
+    tdb.insert(_corpus(), _chunks(Chunk, N))
+    with pytest.raises(MemoryError, match="overflowed IVF buckets"):
+        tdb.build_index()
+
+
+def test_set_nprobe_matches_jax():
+    jdb = _jax_db("ivf", False)
+    tdb = convert.db_from_jax(jdb, use_kernel="fused", device="cpu")
+    q = _queries()
+    for nprobe in (1, 3, 99):        # 99: clamped to nlist at search time
+        jdb.set_nprobe(nprobe)
+        tdb.set_nprobe(nprobe)
+        assert tdb.cfg.nprobe == nprobe
+        _assert_same(jdb, tdb, q)
+    tdb.set_nprobe(0)
+    assert tdb.cfg.nprobe == 1
+
+
+def test_stats_and_counters_match_jax():
+    jdb = _jax_db("ivf", "fused")
+    tdb = TorchVectorDB(DBConfig(dim=DIM, capacity=N + 96, nlist=4, nprobe=2,
+                                 flat_capacity=48, use_kernel="fused"),
+                        device="cpu")
+    tdb.insert(_corpus(), _chunks(Chunk, N))
+    tdb.build_index()
+    q = _queries()
+    jdb.search(q, 5)
+    res = tdb.search(q, 5)
+    assert len(res) == len(q) and res[0].chunk_ids.dtype == np.int32
+    js, ts = jdb.stats(), tdb.stats()
+    assert set(js) == set(ts)
+    for key in ("live", "slots", "vector_bytes", "index_bytes", "fresh",
+                "inserts", "removals", "searches", "rebuilds",
+                "fused_searches"):
+        assert js[key] == ts[key], key
+    assert tdb.get_chunk(5).text == "c5"
+    assert [c.text for c in tdb.get_chunks([1, 2])] == ["c1", "c2"]
+
+
+def test_kmeans_matches_jax_on_injected_init():
+    """From the reference's initial draw, the port's Lloyd iterations give
+    the same assignment, except for rows whose two best centroids are
+    within 1e-6 (a near tie the summation order may flip)."""
+    x = _corpus(256, seed=4)
+    k, iters = 4, 8
+    idx = jax.random.choice(jax.random.PRNGKey(0), 256, (k,), replace=False)
+    cent_j = np.asarray(jax_kmeans(jnp.asarray(x), k, iters))
+    cent_t = kmeans(torch.from_numpy(x), k, iters,
+                    init=torch.from_numpy(x[np.asarray(idx)]))
+    np.testing.assert_allclose(cent_t.numpy(), cent_j, atol=1e-5)
+    scores = x @ cent_j.T
+    top2 = np.sort(scores, axis=1)[:, -2:]
+    clear = top2[:, 1] - top2[:, 0] >= 1e-6
+    a_j = scores.argmax(1)
+    a_t = assign(torch.from_numpy(x), cent_t).numpy()
+    assert clear.mean() > 0.9
+    assert (a_j[clear] == a_t[clear]).all()
+
+
+def test_torch_db_draws_its_own_centroids():
+    """Without injected state the port trains its own index (torch RNG):
+    every live row lands in exactly one bucket."""
+    tdb = TorchVectorDB(DBConfig(dim=DIM, capacity=N, nlist=4), device="cpu")
+    tdb.insert(_corpus(), _chunks(Chunk, N))
+    tdb.build_index()
+    members = tdb.buckets[tdb.bucket_live]
+    assert sorted(members.tolist()) == list(range(N))
+    norms = torch.linalg.norm(tdb.centroids, dim=1)
+    assert torch.allclose(norms, torch.ones(4), atol=1e-5)
+
+
+def test_registry_names_and_unported_quant():
+    db = registry.create("vectordb", "torch_fused", dim=DIM, capacity=32,
+                         nlist=2, device="cpu")
+    assert db._kernel == "fused"
+    assert registry.create("vectordb", "torch", dim=DIM, capacity=32,
+                           device="cpu")._kernel == "off"
+    with pytest.raises(ValueError, match="requires use_kernel='fused'"):
+        registry.create("vectordb", "torch_fused", dim=DIM, use_kernel="op",
+                        device="cpu")
+    for quant in ("sq8", "pq"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TorchVectorDB(DBConfig(dim=DIM, quant=quant), device="cpu")
