@@ -3,23 +3,31 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-Phases, each of which raises on failure:
+Phases, each of which raises on failure and prints its wall seconds:
 
 1. the card: ``nvidia-smi`` name and power limit, the torch version;
 2. build: every CUDA kernel of ``src/repro_torch/csrc`` with nvcc, one
    process per source, all at once;
-3. kernels against their plain versions, on the card, at the edge-case
-   shapes and at the deployment shapes (64 queries; 1,048,576 x 384 fp32
-   rows; IVF with 1024 lists of 4096 slots, nprobe 16; k 16), with the
-   median time of the kernel's wrapper, its plain version and one PyTorch
-   yardstick over 20 runs (CUDA events), and its bound on this card;
-4. the vector DB at deployment size (``TorchVectorDB``, ``torch_fused``
-   rung): 1,048,576 clustered unit rows, IVF build, 32,768 fresh rows in the
-   freshness buffer, 1% of the documents removed, 20 batches of 64 queries.
-   The results must equal the plain ``off`` rung on the same state; the
-   launch counts of this run show it went through both kernels;
-5. serve: ``repro_torch.launch.serve`` on ``src/repro_torch/specs/fused_ivf.json``
-   must answer its requests through both kernels with a quality report.
+3. kernels against their plain versions, on the card: tie order on
+   exact-arithmetic inputs (ids and scores equal), the edge-case shapes and
+   the deployment shapes (64 queries; 1,048,576 x 384 fp32 rows or int8
+   codes; IVF with 1024 lists of 4096 slots, nprobe 16, PQ with 48
+   subspaces; k 16), with the median time of the kernel's wrapper, its
+   plain version and one PyTorch yardstick over 20 runs (CUDA events), and
+   its bound on this card. topk_search and ivf_topk, then quant_score,
+   sq8_topk and pq_topk;
+4. the vector DB at deployment size (``TorchVectorDB``), three
+   configurations built one after the other from one seeded row set:
+   1,048,576 clustered unit rows, the index build, 32,768 fresh rows in the
+   freshness buffer, 1% of the documents removed, 20 batches of 64 queries:
+   IVF1024 (``fused`` rung: ivf_topk + topk_search), flat + SQ8 (``fused``
+   rung: sq8_topk + topk_search; ``op`` rung: quant_score + topk_search)
+   and IVF1024 + PQ48 (``fused`` rung: pq_topk + topk_search). Every rung's
+   results must equal the plain ``off`` rung on the same state; the launch
+   counts of each rung's run show it went through its kernels;
+5. serve: ``repro_torch.launch.serve`` on each spec of
+   ``src/repro_torch/specs`` must answer its requests through its kernels
+   with a quality report.
 
 The last lines are one JSON object on the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a card, or run
@@ -44,6 +52,7 @@ RUNS = 20                  # timed runs per measurement (median reported)
 
 NQ, N, DIM, K = 64, 1 << 20, 384, 16
 NLIST, CAP_B, NPROBE = 1024, 4096, 16
+PQ_M = 48                  # FAISS IVF1024,PQ48: 48 sub-quantizers of 8 bits
 DB_CAPACITY, FLAT_CAPACITY, N_FRESH = 1_114_112, 65_536, 32_768
 DEVICE = "cuda"
 
@@ -82,6 +91,15 @@ def check(name, got, what) -> dict:
     return got
 
 
+def errors(worst) -> dict:
+    """The record's error keys: ``max_abs_diff`` (the name of the parity
+    rule) and ``max_abs_err`` (the same number under the name the smoke
+    line's readers take), plus the id mismatches."""
+    return dict(max_abs_diff=worst["max_abs_diff"],
+                max_abs_err=worst["max_abs_diff"],
+                id_mismatches=worst["id_mismatches"])
+
+
 def check_ties(torch, name, want, got) -> None:
     """On exact scores with repeated rows, ids and scores must equal the
     plain version's: equal scores keep the lower row first, as
@@ -92,10 +110,13 @@ def check_ties(torch, name, want, got) -> None:
     say(f"{name}: ids equal the plain version's, tie order included")
 
 
-def phase_kernels(torch, ops, ref, compare_topk):
-    """Every kernel against its plain version; returns the kernel records."""
+def draws(torch, seed):
+    """Seeded input makers on the card: the generator, unit rows, live
+    masks, and grid rows, whose entries in {-0.5, ..., 0.5} by 0.25 make
+    every dot product exact in fp32 in any summation order, so equal
+    scores are real ties."""
     dev = torch.device(DEVICE)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     def unit(n, d):
         return torch.nn.functional.normalize(
@@ -104,12 +125,18 @@ def phase_kernels(torch, ops, ref, compare_topk):
     def live_mask(n, p):
         return torch.rand(n, generator=gen, device=dev) < p
 
-    records = {}
     def grid(n, d):
-        """Entries in {-0.5, ..., 0.5} by 0.25: every dot product is exact
-        in fp32 in any summation order, so equal scores are real ties."""
         return torch.randint(-2, 3, (n, d), generator=gen,
                              device=dev).float() / 4
+
+    return gen, unit, live_mask, grid
+
+
+def phase_kernels(torch, ops, ref, compare_topk):
+    """Every kernel against its plain version; returns the kernel records."""
+    dev = torch.device(DEVICE)
+    gen, unit, live_mask, grid = draws(torch, 0)
+    records = {}
 
     # -- topk_search: tie order on rows repeated across sub-tiles and tiles
     base = grid(1000, 32)
@@ -147,7 +174,7 @@ def phase_kernels(torch, ops, ref, compare_topk):
         source="src/repro_torch/csrc/topk_search.cu",
         replaces="src/repro/kernels/topk_search.py:73",
         jax="src/repro/kernels/topk_search.py:topk_search_pallas",
-        max_abs_err=worst["max_abs_diff"], id_mismatches=worst["id_mismatches"],
+        **errors(worst),
         bound_ms=bms, bound_by=by, **t)
     say(f"topk_search at nq={NQ} N={N} d={DIM} k={K} ({n_live} live): "
         f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.topk "
@@ -228,7 +255,7 @@ def phase_kernels(torch, ops, ref, compare_topk):
         name="ivf_topk", route="cuda", source="src/repro_torch/csrc/ivf_topk.cu",
         replaces="src/repro/kernels/fused_retrieve.py:264",
         jax="src/repro/kernels/fused_retrieve.py:ivf_topk_pallas",
-        max_abs_err=worst["max_abs_diff"], id_mismatches=worst["id_mismatches"],
+        **errors(worst),
         bound_ms=bms, bound_by=by, **t)
     say(f"ivf_topk at nq={NQ} nlist={NLIST} cap_b={CAP_B} d={DIM} "
         f"nprobe={NPROBE} k={K} ({len(buckets)} buckets probed): kernel "
@@ -237,128 +264,455 @@ def phase_kernels(torch, ops, ref, compare_topk):
     return records
 
 
-def phase_db(torch, ops, ref, compare_topk):
-    """The vector DB at deployment size; returns the launch counts of its
-    searches."""
+def phase_quant_kernels(torch, ops, ref, compare_topk):
+    """quant_score, sq8_topk and pq_topk against their plain versions;
+    returns the kernel records."""
+    dev = torch.device(DEVICE)
+    gen, unit, live_mask, grid = draws(torch, 3)
+
+    def sq8(n, d):
+        """Codes and scale of unit rows, as ``_train_sq`` makes them."""
+        x = unit(n, d)
+        scale = x.abs().amax(0) / 127.0 + 1e-12
+        return torch.round(x / scale).clamp(-127, 127).to(torch.int8), scale
+
+    records = {}
+    neg = torch.tensor(ref.NEG, device=dev)
+
+    # -- quant_score and sq8_topk: tie order on exact scores. Small integer
+    # codes, a scale of 0.5 and query entries by 0.25: every dot product is
+    # exact in fp32, every code row appears three times across sub-tiles
+    # and corpus tiles
+    base = torch.randint(-3, 4, (1000, 32), generator=gen,
+                         device=dev).to(torch.int8)
+    codes = torch.cat([base, base, base.flip(0)])
+    scale = torch.full((32,), 0.5, device=dev)
+    for k in (7, 128):
+        q, live = grid(6, 32), live_mask(3000, 0.9)
+        check_ties(torch, f"sq8_topk ties k={k}",
+                   ref.sq8_topk(q, codes, scale, live, k),
+                   ops.sq8_topk(q, codes, scale, live, k))
+    if not torch.equal(ops.quant_score(q, codes, scale),
+                       ref.quant_score(q, codes, scale)):
+        raise AssertionError("quant_score: exact scores differ from the "
+                             "plain version's")
+    say("quant_score ties: scores equal the plain version's")
+
+    # -- quant_score: edge cases, then the deployment shapes (every element)
+    worst = {"max_abs_diff": 0.0, "id_mismatches": 0}
+    for nq, n, d in [(3, 100, 32), (1, 5, 8), (65, 1025, 24),
+                     (70, 3000, 48), (NQ, N, DIM)]:
+        q = unit(nq, d)
+        codes, scale = sq8(n, d)
+        got, want = ops.quant_score(q, codes, scale), ref.quant_score(
+            q, codes, scale)
+        diff = float((got - want).abs().max())
+        say(f"quant_score nq={nq} N={n} d={d}: max|dscore| {diff:.3g}")
+        if not diff <= TOL or got.shape != want.shape:
+            raise AssertionError(f"quant_score nq={nq} N={n} d={d} "
+                                 f"disagrees with plain: {diff}")
+        worst["max_abs_diff"] = max(worst["max_abs_diff"], diff)
+        del got, want
+    t = {"ms": median_ms(lambda: ops.quant_score(q, codes, scale), torch),
+         "plain_ms": median_ms(lambda: ref.quant_score(q, codes, scale),
+                               torch),
+         "library_ms": median_ms(
+             lambda: (q * scale) @ codes.float().T, torch)}
+    # bytes: the codes, the query block, the scale, the [nq, N] output;
+    # FLOP: one d-long dot product per (query, row)
+    bms, by = bound(N * DIM + NQ * DIM * 4 + DIM * 4 + NQ * N * 4,
+                    2.0 * NQ * N * DIM)
+    records["quant_score"] = dict(
+        name="quant_score", route="cuda",
+        source="src/repro_torch/csrc/quant_score.cu",
+        replaces="src/repro/kernels/quant_score.py:40",
+        jax="src/repro/kernels/quant_score.py:quant_score_pallas",
+        **errors(worst), bound_ms=bms, bound_by=by, **t)
+    say(f"quant_score at nq={NQ} N={N} d={DIM}: kernel {t['ms']:.4f} ms, "
+        f"plain {t['plain_ms']:.4f} ms, (q*scale)@codes.T "
+        f"{t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+
+    # -- sq8_topk: edge cases, then the deployment shapes
+    worst = {"max_abs_diff": 0.0, "id_mismatches": 0}
+    for nq, n, d, k, p in [(3, 32, 8, 8, 1.0), (2, 64, 8, 6, 0.05),
+                           (1, 5, 8, 8, 1.0), (1, 129, 24, 4, 0.0),
+                           (7, 1000, 64, 5, 0.8), (5, 4101, 48, 16, 0.8),
+                           (70, 3000, 32, 128, 0.9),
+                           (NQ, N, DIM, K, 0.99)]:
+        q, live = unit(nq, d), live_mask(n, p)
+        codes, scale = sq8(n, d)
+        got = check(f"sq8_topk nq={nq} N={n} d={d} k={k}",
+                    compare_topk(*ref.sq8_topk(q, codes, scale, live, k),
+                                 *ops.sq8_topk(q, codes, scale, live, k)),
+                    "plain")
+        say(f"sq8_topk nq={nq} N={n} d={d} k={k} live={p}: max|dscore| "
+            f"{got['max_abs_diff']:.3g}, id mismatches {got['id_mismatches']}")
+        worst["max_abs_diff"] = max(worst["max_abs_diff"], got["max_abs_diff"])
+        worst["id_mismatches"] += got["id_mismatches"]
+    n_live = int(live.sum())
+    t = {"ms": median_ms(lambda: ops.sq8_topk(q, codes, scale, live, K),
+                         torch),
+         "plain_ms": median_ms(lambda: ref.sq8_topk(q, codes, scale, live, K),
+                               torch),
+         "library_ms": median_ms(lambda: torch.topk(torch.where(
+             live[None, :], (q * scale) @ codes.float().T, neg), K), torch)}
+    # bytes: the live rows' codes, the liveness bytes, the query block, the
+    # scale, the outputs; FLOP: one d-long dot product per (query, live row)
+    bms, by = bound(n_live * DIM + N + NQ * DIM * 4 + DIM * 4 + NQ * K * 8,
+                    2.0 * NQ * n_live * DIM)
+    records["sq8_topk"] = dict(
+        name="sq8_topk", route="cuda", source="src/repro_torch/csrc/sq8_topk.cu",
+        replaces="src/repro/kernels/fused_retrieve.py:122",
+        jax="src/repro/kernels/fused_retrieve.py:sq8_topk_pallas",
+        **errors(worst), bound_ms=bms, bound_by=by, **t)
+    say(f"sq8_topk at nq={NQ} N={N} d={DIM} k={K} ({n_live} live): kernel "
+        f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.topk "
+        f"{t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+    del q, codes, scale, live
+
+    # -- pq_topk
+    def packed(nlist, cap_b, d, m, fill_lo, fill_hi):
+        """Buckets filled from the front, 1% tombstones, random codes."""
+        cent = unit(nlist, d)
+        fill = torch.randint(fill_lo, fill_hi + 1, (nlist,), generator=gen,
+                             device=dev)
+        pos = torch.arange(cap_b, device=dev)
+        member = (pos[None, :] < fill[:, None]).reshape(-1)
+        ok = member & live_mask(nlist * cap_b, 0.99)
+        codes = torch.randint(0, 256, (nlist * cap_b, m), generator=gen,
+                              device=dev, dtype=torch.int32)
+        slot = torch.where(member, torch.randperm(
+            nlist * cap_b, generator=gen, device=dev).int(), -1).int()
+        codebook = 0.3 * torch.randn(m, 256, d // m, generator=gen,
+                                     device=dev)
+        return cent, codebook, codes, slot, ok
+
+    # tie order: every even packed row's codes repeated in the next one;
+    # the sum is the plain version's, in order, so scores are equal
+    for nq, nlist, cap_b, d, m, nprobe, k in [(5, 4, 24, 16, 4, 3, 6),
+                                              (9, 16, 256, 48, 48, 5, 128)]:
+        cent, codebook, codes, slot, ok = packed(nlist, cap_b, d, m, 0, cap_b)
+        codes[1::2] = codes[0::2]
+        args = (unit(nq, d), codebook, cent, codes, slot, ok, nprobe, k)
+        check_ties(torch, f"pq_topk ties nq={nq} cap_b={cap_b} m={m} k={k}",
+                   ref.pq_topk(*args), ops.pq_topk(*args))
+
+    worst = {"max_abs_diff": 0.0, "id_mismatches": 0}
+    for nq, nlist, cap_b, d, m, nprobe, k, lo, hi in [
+            (3, 4, 64, 16, 4, 2, 8, 8, 40), (1, 4, 16, 8, 2, 4, 32, 0, 16),
+            (5, 8, 100, 24, 3, 3, 5, 0, 0),
+            (9, 16, 256, 64, 16, 5, 128, 50, 256),
+            (NQ, NLIST, CAP_B, DIM, PQ_M, NPROBE, K, 512, 1536)]:
+        cent, codebook, codes, slot, ok = packed(nlist, cap_b, d, m, lo, hi)
+        q = torch.nn.functional.normalize(
+            cent[torch.randint(nlist, (nq,), generator=gen, device=dev)]
+            + 0.5 * unit(nq, d), dim=1)
+        args = (q, codebook, cent, codes, slot, ok, nprobe, k)
+        got = check(f"pq_topk nq={nq} nlist={nlist} cap_b={cap_b} m={m}",
+                    compare_topk(*ref.pq_topk(*args), *ops.pq_topk(*args)),
+                    "plain")
+        say(f"pq_topk nq={nq} nlist={nlist} cap_b={cap_b} d={d} m={m} "
+            f"nprobe={nprobe} k={k}: max|dscore| {got['max_abs_diff']:.3g}, "
+            f"id mismatches {got['id_mismatches']}")
+        worst["max_abs_diff"] = max(worst["max_abs_diff"], got["max_abs_diff"])
+        worst["id_mismatches"] += got["id_mismatches"]
+    pc3, ok2 = codes.view(NLIST, CAP_B, PQ_M), ok.view(NLIST, CAP_B)
+    offs = torch.arange(PQ_M, device=dev) * 256
+
+    def library():
+        lut = torch.einsum("qms,mcs->qmc", q.view(NQ, PQ_M, -1), codebook)
+        probe = torch.topk(q @ cent.T, NPROBE).indices
+        fidx = (pc3[probe].long() + offs).view(NQ, -1)
+        s = torch.gather(lut.reshape(NQ, -1), 1, fidx).view(
+            NQ, NPROBE * CAP_B, PQ_M).sum(-1)
+        return torch.topk(torch.where(ok2[probe].view(NQ, -1), s, neg), K)
+
+    t = {"ms": median_ms(lambda: ops.pq_topk(*args), torch),
+         "plain_ms": median_ms(lambda: ref.pq_topk(*args), torch),
+         "library_ms": median_ms(library, torch)}
+    # the kernel alone, its wrapper's probe, tables and merge done once
+    from repro_torch.kernels import _build
+    lib, fn = _build.entry("pq_topk", 7, 5)
+    lut = ref.pq_lut(q, codebook).contiguous()
+    probes = ref.probe(q, cent, NPROBE)
+    out_s = torch.empty((NQ, NPROBE, K), device=dev)
+    out_i = torch.empty((NQ, NPROBE, K), dtype=torch.int32, device=dev)
+    launch = [lut.data_ptr(), codes.data_ptr(), slot.data_ptr(),
+              ok.view(torch.uint8).data_ptr(), probes.data_ptr(),
+              out_s.data_ptr(), out_i.data_ptr(), NQ, PQ_M, CAP_B, NPROBE, K,
+              torch.cuda.current_stream(dev).cuda_stream]
+    _build.check(lib, "pq_topk", fn(*launch))
+    t["kernel_only_ms"] = median_ms(lambda: fn(*launch), torch)
+    # bytes: every probed bucket's ok bytes and its ok rows' codes once, the
+    # slot ids of the rows a (query, probe) emits, the query block, the
+    # centroids, the codebook, the outputs; operations: m table adds per
+    # (query, probed ok row), the probe's centroid scores and the tables
+    probe = ref.probe(q, cent, NPROBE).long()
+    ok_rows = ok2.sum(1)
+    buckets = torch.unique(probe)
+    n_bytes = (int(ok_rows[buckets].sum()) * PQ_M * 4 + len(buckets) * CAP_B
+               + int(ok_rows[probe].clamp(max=K).sum()) * 4
+               + NQ * DIM * 4 + NLIST * DIM * 4 + codebook.numel() * 4
+               + NQ * K * 8)
+    n_ops = (float(int(ok_rows[probe].sum()) * PQ_M)
+             + 2.0 * NQ * DIM * (NLIST + 256))
+    bms, by = bound(n_bytes, n_ops)
+    records["pq_topk"] = dict(
+        name="pq_topk", route="cuda", source="src/repro_torch/csrc/pq_topk.cu",
+        replaces="src/repro/kernels/fused_retrieve.py:376",
+        jax="src/repro/kernels/fused_retrieve.py:pq_topk_pallas",
+        **errors(worst), bound_ms=bms, bound_by=by, **t)
+    say(f"pq_topk at nq={NQ} nlist={NLIST} cap_b={CAP_B} m={PQ_M} "
+        f"nprobe={NPROBE} k={K} ({len(buckets)} buckets probed, "
+        f"{int(ok_rows[probe].sum())} (query, ok row) pairs): kernel "
+        f"{t['ms']:.4f} ms (the kernel alone {t['kernel_only_ms']:.4f} ms), "
+        f"plain {t['plain_ms']:.4f} ms, "
+        f"gather+sum+topk {t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+    return records
+
+
+def make_rows(torch):
+    """One seeded row set for the three DB phases: N clustered unit rows,
+    N_FRESH fresh rows, the removed documents (1% of them; row s belongs to
+    document s // 4) and 20 batches of NQ queries near surviving rows."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    centers = torch.nn.functional.normalize(
+        torch.randn(4096, DIM, generator=gen, device=dev), dim=1)
+    pick = torch.randint(4096, (N + N_FRESH,), generator=gen, device=dev)
+    rows = torch.nn.functional.normalize(
+        centers[pick] + 0.6 * torch.nn.functional.normalize(
+            torch.randn(N + N_FRESH, DIM, generator=gen, device=dev), dim=1),
+        dim=1)
+    n_docs = (N + N_FRESH) // 4
+    gone = torch.randperm(n_docs, generator=torch.Generator().manual_seed(2))[
+        :n_docs // 100]
+    live = torch.ones(N + N_FRESH, dtype=torch.bool, device=dev)
+    live[(gone[:, None] * 4 + torch.arange(4)).reshape(-1).to(dev)] = False
+    picks = torch.nonzero(live)[:, 0]
+    batches = []
+    for _ in range(20):
+        at = picks[torch.randint(len(picks), (NQ,), generator=gen, device=dev)]
+        batches.append(torch.nn.functional.normalize(
+            rows[at] + 0.1 * torch.randn(NQ, DIM, generator=gen, device=dev),
+            dim=1))
+    return {"rows": rows, "gone": gone.tolist(), "batches": batches}
+
+
+def run_db(torch, ops, ref, compare_topk, data, name, cfg, rungs, kernels,
+           off_chunk):
+    """Build a ``TorchVectorDB`` at deployment size from ``data``, mutate
+    it, and search it on each of ``rungs`` ({rung: kernels it must
+    launch}); every rung must equal the plain ``off`` rung (compared
+    ``off_chunk`` queries at a time). ``kernels(db, q, main_live)`` gives
+    the main index's kernel calls to time alone. Returns the launch counts
+    of each rung's 20 searches."""
     import numpy as np
 
     from repro_torch.core.interfaces import Chunk
     from repro_torch.core.vectordb import DBConfig, TorchVectorDB
 
     dev = torch.device(DEVICE)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    centers = torch.nn.functional.normalize(
-        torch.randn(4096, DIM, generator=gen, device=dev), dim=1)
-
-    def clustered(n):
-        pick = torch.randint(4096, (n,), generator=gen, device=dev)
-        noise = torch.nn.functional.normalize(
-            torch.randn(n, DIM, generator=gen, device=dev), dim=1)
-        return torch.nn.functional.normalize(centers[pick] + 0.6 * noise,
-                                             dim=1)
-
+    rows, batches = data["rows"], data["batches"]
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    db = TorchVectorDB(DBConfig(
-        index_type="ivf", dim=DIM, capacity=DB_CAPACITY, nlist=NLIST,
-        nprobe=NPROBE, flat_capacity=FLAT_CAPACITY, bucket_cap=CAP_B,
-        use_kernel="fused"), device=DEVICE)
+    db = TorchVectorDB(DBConfig(dim=DIM, capacity=DB_CAPACITY,
+                                flat_capacity=FLAT_CAPACITY, **cfg),
+                       device=DEVICE)
     t0 = time.perf_counter()
     step = min(1 << 17, N)
     for lo in range(0, N, step):
-        db.insert(clustered(step), [Chunk(-1, (lo + i) // 4, "")
-                                    for i in range(step)])
+        db.insert(rows[lo:lo + step], [Chunk(-1, (lo + i) // 4, "")
+                                       for i in range(step)])
     t1 = time.perf_counter()
     db.build_index()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    db.insert(clustered(N_FRESH), [Chunk(-1, (N + i) // 4, "")
-                                   for i in range(N_FRESH)])
-    n_docs = (N + N_FRESH) // 4
-    gone = torch.randperm(n_docs, generator=torch.Generator().manual_seed(2))
-    removed = sum(db.remove(int(d)) for d in gone[:n_docs // 100])
+    # a flat index counts as built from the start, so its bulk inserts
+    # already fold the buffer in; what matters is that the fresh rows stay
+    rebuilds = db.counters["rebuilds"]
+    db.insert(rows[N:], [Chunk(-1, (N + i) // 4, "") for i in range(N_FRESH)])
+    removed = sum(db.remove(d) for d in data["gone"])
     st = db.stats()
-    say(f"db: inserted {N} rows in {t1 - t0:.1f} s, build_index "
-        f"{t2 - t1:.1f} s (max bucket fill "
-        f"{int(db.bucket_live.sum(1).max())} of {CAP_B}), {N_FRESH} fresh "
-        f"rows, {removed} rows of {n_docs // 100} docs removed; live "
-        f"{int(st['live'])}, fresh {int(st['fresh'])}, rebuilds "
-        f"{int(st['rebuilds'])}")
-    if st["rebuilds"] != 1 or st["fresh"] == 0:
+    fill = (f" (max bucket fill {int(db.bucket_live.sum(1).max())} of "
+            f"{CAP_B})" if db.bucket_live is not None else "")
+    say(f"{name}: inserted {N} rows in {t1 - t0:.1f} s, build_index "
+        f"{t2 - t1:.1f} s{fill}, {N_FRESH} fresh rows, {removed} rows of "
+        f"{len(data['gone'])} docs removed; live {int(st['live'])}, fresh "
+        f"{int(st['fresh'])}, rebuilds {int(st['rebuilds'])}, index_bytes "
+        f"{int(st['index_bytes'])}")
+    if st["rebuilds"] != rebuilds or st["fresh"] == 0:
         raise AssertionError("the freshness buffer was folded in: no scan")
 
+    results, launches = {}, {}
+    for rung, need in rungs.items():
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        if rung == db._kernel:     # the configured rung: the user's call
+            res = [db.search(q.cpu().numpy(), K) for q in batches]
+            out = [(torch.from_numpy(np.stack([r.scores for r in b])),
+                    torch.from_numpy(np.stack([r.chunk_ids for r in b])))
+                   for b in res]
+            how = "search() entry to numpy results"
+        else:
+            out = [tuple(t.cpu() for t in db.search_arrays(q, K, rung=rung))
+                   for q in batches]
+            how = "search_arrays(rung) to host tensors"
+        ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+        launches[rung] = ops.launch_counts()
+        say(f"{name}: {rung} rung, 20 batches of {NQ} queries at k={K}: "
+            f"{ms:.3f} ms per batch (host clock, {how}); launches "
+            f"{launches[rung]}")
+        for kname in need:
+            if launches[rung][kname] == 0:
+                raise AssertionError(f"{name}: the {rung} rung never "
+                                     f"launched {kname}")
+        results[rung] = [(s.to(dev), i.to(dev)) for s, i in out]
+
     live_rows = torch.from_numpy(db.live).to(dev)
-    picks = torch.nonzero(live_rows)[:, 0]
-    batches = []
-    for _ in range(20):
-        rows = picks[torch.randint(len(picks), (NQ,), generator=gen,
-                                   device=dev)]
-        batches.append(torch.nn.functional.normalize(
-            db.vectors[rows] + 0.1 * torch.randn(NQ, DIM, generator=gen,
-                                                 device=dev), dim=1))
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    results = [db.search(q.cpu().numpy(), K) for q in batches]
-    ms_per_batch = 1e3 * (time.perf_counter() - t0) / len(batches)
-    launches = ops.launch_counts()
-    say(f"db: 20 batches of {NQ} queries at k={K}: {ms_per_batch:.3f} ms per "
-        f"batch (host clock, search() entry to numpy results); launches "
-        f"{launches}")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"the DB search never launched {name}")
-
-    worst, hits = 0.0, 0
-    for q, res in zip(batches, results):
-        ids = torch.from_numpy(np.stack([r.chunk_ids for r in res])).to(dev)
-        scores = torch.from_numpy(np.stack([r.scores for r in res])).to(dev)
-        for lo in range(0, NQ, 8):       # the off rung gathers per query
-            s_off, i_off = db.search_arrays(q[lo:lo + 8], K, rung="off")
-            got = check("db fused rung", compare_topk(
-                s_off, i_off, scores[lo:lo + 8], ids[lo:lo + 8]), "off rung")
-            worst = max(worst, got["max_abs_diff"])
+    worst, hits = 0.0, {rung: 0 for rung in rungs}
+    for b, q in enumerate(batches):
+        for lo in range(0, NQ, off_chunk):
+            s_off, i_off = db.search_arrays(q[lo:lo + off_chunk], K,
+                                            rung="off")
+            for rung in rungs:
+                s, i = results[rung][b]
+                got = check(f"{name} {rung} rung", compare_topk(
+                    s_off, i_off, s[lo:lo + off_chunk],
+                    i[lo:lo + off_chunk]), "off rung")
+                worst = max(worst, got["max_abs_diff"])
         _, exact = ref.topk_search(q, db.vectors, live_rows, K)
-        hits += sum(len(set(a.tolist()) & set(b.tolist()))
-                    for a, b in zip(ids, exact))
-    recall = hits / (len(batches) * NQ * K)
-    say(f"db: fused rung equals the off rung (max|dscore| {worst:.3g}); "
-        f"recall@{K} against exact search {recall:.4f}; "
-        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        f" GiB")
+        for rung in rungs:
+            ids = results[rung][b][1]
+            hits[rung] += sum(len(set(a.tolist()) & set(e.tolist()))
+                              for a, e in zip(ids, exact))
+    recall = {rung: h / (len(batches) * NQ * K) for rung, h in hits.items()}
+    say(f"{name}: {', '.join(rungs)} equal the off rung (max|dscore| "
+        f"{worst:.3g}); recall@{K} against exact fp32 search "
+        + ", ".join(f"{r} {v:.4f}" for r, v in recall.items())
+        + f"; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # where a search's time goes: each kernel alone at the DB's shapes,
-    # the device-side search, the whole search() call (CUDA events)
+    # where a search's time goes: the main index's kernels alone, the
+    # freshness scan alone, the device-side search, search() (CUDA events)
     q = batches[0]
     main_live = torch.from_numpy(db.live & db.indexed).to(dev)
     fresh = torch.from_numpy(db.live & ~db.indexed).to(dev)
-    slot = db.packed["slot"]
-    ok = (slot >= 0) & main_live[slot.clamp(min=0)]
     q_np = q.cpu().numpy()
-    parts = {
-        "ivf_topk": median_ms(lambda: ops.ivf_topk(
-            q, db.centroids, db.packed["vecs"], slot, ok, NPROBE, K), torch),
-        "freshness topk_search": median_ms(
-            lambda: ops.topk_search(q, db.vectors, fresh, K), torch),
-        "search_arrays": median_ms(lambda: db.search_arrays(q, K), torch),
-        "search": median_ms(lambda: db.search(q_np, K), torch)}
-    say("db: per batch of 64 queries (ms, median of 20): "
-        + ", ".join(f"{name} {t:.4f}" for name, t in parts.items()))
+    parts = {part: median_ms(fn, torch)
+             for part, fn in kernels(db, q, main_live).items()}
+    parts["freshness topk_search"] = median_ms(
+        lambda: ops.topk_search(q, db.vectors, fresh, K), torch)
+    for rung in rungs:
+        parts[f"search_arrays {rung}"] = median_ms(
+            lambda: db.search_arrays(q, K, rung=rung), torch)
+    parts["search"] = median_ms(lambda: db.search(q_np, K), torch)
+    say(f"{name}: per batch of {NQ} queries (ms, median of {RUNS}): "
+        + ", ".join(f"{part} {t:.4f}" for part, t in parts.items()))
+    del db
+    torch.cuda.empty_cache()
     return launches
+
+
+def phase_dbs(torch, ops, ref, compare_topk):
+    """The three deployment-size DBs from one row set, each freed before
+    the next; returns each kernel's launches in the DB run that drives
+    it."""
+    data = make_rows(torch)
+
+    def packed_ok(db, main_live):
+        slot = db.packed["slot"]
+        return slot, (slot >= 0) & main_live[slot.clamp(min=0)]
+
+    def ivf_kernels(db, q, main_live):
+        slot, ok = packed_ok(db, main_live)
+        return {"ivf_topk": lambda: ops.ivf_topk(
+            q, db.centroids, db.packed["vecs"], slot, ok, NPROBE, K)}
+
+    def sq8_kernels(db, q, main_live):
+        return {"sq8_topk": lambda: ops.sq8_topk(
+                    q, db.sq_codes, db.sq_scale, main_live, K),
+                "quant_score": lambda: ops.quant_score(
+                    q, db.sq_codes, db.sq_scale),
+                "quant_score + stable top-k": lambda: ref.masked_topk(
+                    ops.quant_score(q, db.sq_codes, db.sq_scale), main_live,
+                    K)}
+
+    def pq_kernels(db, q, main_live):
+        slot, ok = packed_ok(db, main_live)
+        return {"pq_topk": lambda: ops.pq_topk(
+            q, db.pq_codebook, db.centroids, db.packed["codes"], slot, ok,
+            NPROBE, K)}
+
+    ivf = dict(index_type="ivf", nlist=NLIST, nprobe=NPROBE, bucket_cap=CAP_B)
+    launches = {}
+    t0 = time.perf_counter()
+    got = run_db(torch, ops, ref, compare_topk, data, "db ivf", dict(
+        ivf, use_kernel="fused"), {"fused": ("ivf_topk", "topk_search")},
+        ivf_kernels, off_chunk=8)
+    launches.update(topk_search=got["fused"]["topk_search"],
+                    ivf_topk=got["fused"]["ivf_topk"])
+    say(f"db ivf: phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    got = run_db(torch, ops, ref, compare_topk, data, "db flat+sq8", dict(
+        index_type="flat", quant="sq8", use_kernel="fused"),
+        {"fused": ("sq8_topk", "topk_search"),
+         "op": ("quant_score", "topk_search")}, sq8_kernels, off_chunk=NQ)
+    launches.update(sq8_topk=got["fused"]["sq8_topk"],
+                    quant_score=got["op"]["quant_score"])
+    say(f"db flat+sq8: phase {time.perf_counter() - t0:.1f} s")
+
+    from repro_torch.core import vectordb
+
+    t0 = time.perf_counter()
+    pq_s = []
+    train = vectordb.TorchVectorDB._train_pq
+
+    def timed_train(self, live_idx):   # PQ training's share of the build
+        t = time.perf_counter()
+        train(self, live_idx)
+        torch.cuda.synchronize()
+        pq_s.append(time.perf_counter() - t)
+
+    vectordb.TorchVectorDB._train_pq = timed_train
+    try:
+        got = run_db(torch, ops, ref, compare_topk, data, "db ivf+pq", dict(
+            ivf, quant="pq", pq_m=PQ_M, use_kernel="fused"),
+            {"fused": ("pq_topk", "topk_search")}, pq_kernels, off_chunk=8)
+    finally:
+        vectordb.TorchVectorDB._train_pq = train
+    launches.update(pq_topk=got["fused"]["pq_topk"])
+    say(f"db ivf+pq: PQ training {sum(pq_s):.1f} s (within build_index); "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+SERVE_SPECS = {          # spec -> the kernels its run must launch
+    "fused_ivf": ("ivf_topk", "topk_search"),
+    "fused_flat_sq8": ("sq8_topk", "topk_search"),
+    "op_flat_sq8": ("quant_score", "topk_search"),
+    "fused_ivf_pq": ("pq_topk", "topk_search"),
+}
 
 
 def phase_serve(torch, ops):
     from repro_torch.launch import serve
 
-    ops.reset_launch_counts()
-    doc = serve.main(["--config", str(SRC / "repro_torch" / "specs" /
-                                      "fused_ivf.json"),
-                      "--mode", "sync", "--docs", "256", "--requests", "64",
-                      "--device", DEVICE])
-    launches = ops.launch_counts()
-    say(f"serve: launches {launches}")
-    if not doc["quality"] or min(launches.values()) == 0:
-        raise AssertionError(f"serve did not run both kernels with a quality "
-                             f"report: {launches} {doc['quality']}")
-    return launches
+    for spec, need in SERVE_SPECS.items():
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        doc = serve.main(["--config", str(SRC / "repro_torch" / "specs" /
+                                          f"{spec}.json"),
+                          "--mode", "sync", "--docs", "256", "--requests",
+                          "64", "--device", DEVICE])
+        launches = ops.launch_counts()
+        say(f"serve {spec}: {time.perf_counter() - t0:.1f} s, launches "
+            f"{launches}, db index_bytes {int(doc['db']['index_bytes'])}")
+        if not doc["quality"] or min(launches[k] for k in need) == 0:
+            raise AssertionError(f"serve {spec} did not run {need} with a "
+                                 f"quality report: {launches} "
+                                 f"{doc['quality']}")
 
 
 def main() -> int:
@@ -389,11 +743,22 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 say(f"  {name}: {line.strip()}")
 
+    timings = {"build": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     records = phase_kernels(torch, ops, ref, compare_topk)
+    timings["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    records.update(phase_quant_kernels(torch, ops, ref, compare_topk))
+    timings["quantized kernels"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
-    db_launches = phase_db(torch, ops, ref, compare_topk)
-    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    db_launches = phase_dbs(torch, ops, ref, compare_topk)
+    timings["dbs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     phase_serve(torch, ops)
+    timings["serve"] = time.perf_counter() - t0
+    say("phase wall seconds: " + ", ".join(
+        f"{name} {sec:.1f}" for name, sec in timings.items()))
 
     kernels = []
     for name, rec in records.items():

@@ -8,8 +8,9 @@ the same state, the reference's state goes across as numpy arrays:
 * ``embedder_from_jax`` — a ``repro`` ``HashEmbedder``'s table into the
   port's ``HashEmbedder``;
 * ``db_state`` / ``db_from_jax`` — a ``repro`` ``JaxVectorDB``'s vectors,
-  masks, payloads, centroids and buckets into a ``TorchVectorDB``, which then
-  builds its own packed mirror.
+  masks, payloads, centroids, buckets and quantized state (sq8 codes and
+  scale, PQ codes and codebook) into a ``TorchVectorDB``, which then builds
+  its own packed mirror (fp32 rows, or PQ codes).
 
 The arguments are read by attribute only: this module imports nothing of the
 JAX package.
@@ -38,6 +39,10 @@ def _chunk(c) -> Chunk:
                  start=c.start, end=c.end, version=c.version)
 
 
+def _array(a, dtype):
+    return None if a is None else np.array(a, dtype)
+
+
 def db_state(jax_db) -> Dict[str, object]:
     """A ``JaxVectorDB``'s index state as numpy arrays and port payloads
     (the argument of ``TorchVectorDB.load_state``)."""
@@ -50,12 +55,13 @@ def db_state(jax_db) -> Dict[str, object]:
             "chunks": {int(s): _chunk(c) for s, c in jax_db.chunks.items()},
             "doc_slots": {int(d): [int(s) for s in slots]
                           for d, slots in jax_db.doc_slots.items()},
-            "centroids": (None if jax_db.centroids is None
-                          else np.array(jax_db.centroids, np.float32)),
-            "buckets": (None if jax_db.buckets is None
-                        else np.array(jax_db.buckets, np.int32)),
-            "bucket_live": (None if jax_db.bucket_live is None
-                            else np.array(jax_db.bucket_live, bool)),
+            "centroids": _array(jax_db.centroids, np.float32),
+            "buckets": _array(jax_db.buckets, np.int32),
+            "bucket_live": _array(jax_db.bucket_live, bool),
+            "sq_codes": _array(jax_db.sq_codes, np.int8),
+            "sq_scale": _array(jax_db.sq_scale, np.float32),
+            "pq_codes": _array(jax_db.pq_codes, np.int32),
+            "pq_codebook": _array(jax_db.pq_codebook, np.float32),
         }
 
 

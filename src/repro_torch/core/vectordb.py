@@ -1,22 +1,37 @@
 """PyTorch vector database: the port of ``repro.core.vectordb`` (paper §3.3.2).
 
 Index families: Flat (exact scan) and IVF (k-means partitions, ``nprobe``
-probing, fixed-capacity buckets). Inserts land in a hybrid flat freshness
-buffer that queries scan alongside the main index until ``_maybe_rebuild``
-folds it in; removals are tombstones until the next rebuild. The quantized
-variants (sq8, pq) are not ported yet (ROADMAP.md queue 1 item 4).
+probing, fixed-capacity buckets), each with ``quant`` none, sq8 (int8 codes
+and a per-dimension scale) or pq (``pq_m`` subspaces of 256 k-means codes
+each). Inserts land in a hybrid flat freshness buffer that queries scan
+alongside the main index until ``_maybe_rebuild`` folds it in; removals are
+tombstones until the next rebuild.
+
+The quantized variants keep the reference's behaviour, quirks included:
+codes are made only at ``build_index`` (rows inserted later keep code 0
+until the next rebuild); the main index searches sq8 codes only on a flat
+index and PQ codes only on IVF (IVF + sq8 and flat + pq train codes but
+search the fp32 vectors); the freshness buffer and the cold start always
+scan the fp32 vectors.
 
 State lives where it is used: the corpus ``vectors``, the centroids, the
-buckets and the bucket-contiguous packed mirror stay on the device
-(inserted rows are copied in under the lock, so a search never re-uploads
-the corpus); payloads, id maps and the ``live``/``indexed`` bit masks are
-host-side bookkeeping, copied per search snapshot and uploaded as masks.
+buckets, the codes, scale and codebook, and the bucket-contiguous packed
+mirror stay on the device (inserted rows are copied in under the lock, so a
+search never re-uploads the corpus); payloads, id maps and the
+``live``/``indexed`` bit masks are host-side bookkeeping, copied per search
+snapshot and uploaded as masks.
 
-The ``use_kernel`` ladder picks how the search runs: ``off`` is plain tensor
-ops, ``op`` sends flat scans through the ``topk_search`` kernel, ``fused``
-also sends the IVF main index through the ``ivf_topk`` kernel over the
-packed mirror. On CPU tensors every rung runs the kernels' plain versions
-(``repro_torch.kernels.ops``).
+The ``use_kernel`` ladder picks how the search runs. ``off`` is the plain
+ladder the kernel rungs are held against: plain tensor ops throughout. The
+reference's ``off`` rung already calls ``quant_score`` for flat + sq8; the
+port routes it to the plain version on purpose (both compute the same
+function), so that ``off`` runs no kernel. ``op`` sends flat scans through
+the ``topk_search`` kernel and flat + sq8 through the ``quant_score``
+kernel (then a stable top-k); ``fused`` sends flat + sq8 through
+``sq8_topk`` and the IVF main index through ``ivf_topk`` (fp32 rows) or
+``pq_topk`` (PQ codes) over the packed mirror. IVF + pq on ``off``/``op``
+is the plain ``_pq_ivf_search``. On CPU tensors every rung runs the
+kernels' plain versions (``repro_torch.kernels.ops``).
 """
 from __future__ import annotations
 
@@ -35,6 +50,7 @@ from repro_torch.kernels import ref as kref
 from repro_torch.kernels.ref import NEG, stable_topk
 
 KERNEL_LADDER = ("off", "op", "fused")
+QUANTS = ("none", "sq8", "pq")
 
 # rows per centroid-assignment product: [ASSIGN_CHUNK, nlist] scores at a
 # time instead of one [n, nlist] matrix (4 GB at 1M rows x 1024 lists)
@@ -181,6 +197,44 @@ def _ivf_search(q, vecs, live, cent, buckets, bucket_live, nprobe: int,
                                  cand_safe.reshape(nq, -1).int(), k)
 
 
+def _sq8_flat_search(q, codes, scale, live, k: int, rung: str = "off"):
+    """Scalar-quantized exact search. codes:[cap,d] int8, scale:[d],
+    live:[cap] bool -> [nq,k] ``(scores, idx)`` with ``(NEG, -1)`` padding.
+
+    ``off`` and ``op`` score the whole corpus (``[nq, cap]``, the plain
+    ``quant_score`` or its kernel) and take a stable top-k afterwards;
+    ``fused`` selects inside the ``sq8_topk`` kernel.
+    """
+    if rung == "fused":
+        return kops.sq8_topk(q, codes, scale, live, k)
+    score = kref.quant_score if rung == "off" else kops.quant_score
+    return kref.masked_topk(score(q, codes, scale), live, k)
+
+
+def _pq_ivf_search(q, codes, codebook, live, cent, buckets, bucket_live,
+                   nprobe: int, k: int):
+    """Unfused PQ asymmetric-distance search inside the probed buckets.
+
+    codes:[cap,m] int32 in [0,256); codebook:[m,256,dsub]. Gathers every
+    probed member's codes (``[nq, nprobe, cap_b, m]``), sums its LUT
+    entries with ``sum(-1)`` as the reference does, one top-k over
+    ``[nq, nprobe*cap_b]``.
+    """
+    nq = q.shape[0]
+    m = codebook.shape[0]
+    flat_lut = kref.pq_lut(q, codebook).reshape(nq, m * 256)
+    probe = kref.probe(q, cent, nprobe).long()           # [nq, nprobe]
+    cand = buckets[probe]                                 # [nq, np, cap_b]
+    cand_safe = cand.clamp(min=0).long()
+    ok = bucket_live[probe] & (cand >= 0) & live[cand_safe]
+    offs = torch.arange(m, device=q.device) * 256
+    fidx = (codes[cand_safe].long() + offs).reshape(nq, -1)
+    scores = torch.gather(flat_lut, 1, fidx).view(*cand.shape, m).sum(-1)
+    scores = torch.where(ok, scores, torch.tensor(NEG, device=q.device))
+    return kref.merge_candidates(scores.reshape(nq, -1),
+                                 cand_safe.reshape(nq, -1).int(), k)
+
+
 def merge_topk(scores_a, idx_a, scores_b, idx_b, k: int):
     """Merge two top-k lists (hybrid main + flat freshness buffer) into one,
     by descending score, ``a`` first on equal scores.
@@ -205,13 +259,13 @@ def merge_topk(scores_a, idx_a, scores_b, idx_b, k: int):
 @dataclass
 class DBConfig:
     index_type: str = "ivf"          # flat | ivf
-    quant: str = "none"              # none (sq8 | pq: not ported yet)
+    quant: str = "none"              # none | sq8 | pq
     dim: int = 384
     capacity: int = 1 << 16
     nlist: int = 64
     nprobe: int = 8
     bucket_cap: int = 0              # 0 -> auto: 4 * capacity / nlist
-    pq_m: int = 8                    # PQ subspaces (for config parity)
+    pq_m: int = 8                    # PQ subspaces
     kmeans_iters: int = 8
     use_hybrid: bool = True          # temp flat buffer for fresh inserts
     flat_capacity: int = 4096
@@ -222,7 +276,8 @@ class DBConfig:
 
 
 class TorchVectorDB(DBInstance):
-    """Flat/IVF vector DB with hybrid updates, on ``device`` (None: cuda).
+    """Flat/IVF x {none, sq8, pq} vector DB with hybrid updates, on
+    ``device`` (None: cuda).
 
     Thread-safety contract (as the reference's): all mutations
     (insert/remove/update/build_index/load_state) serialize on one
@@ -234,11 +289,12 @@ class TorchVectorDB(DBInstance):
     """
 
     def __init__(self, cfg: DBConfig, device=None):
-        if cfg.quant != "none":
-            raise NotImplementedError(
-                f"quant={cfg.quant!r} is not ported yet (ROADMAP.md queue 1 "
-                f"item 4: the sq8/pq DB, with sq8_topk, quant_score and "
-                f"pq_topk from queue 2)")
+        if cfg.quant not in QUANTS:
+            raise ValueError(f"quant must be one of {', '.join(QUANTS)}, "
+                             f"got {cfg.quant!r}")
+        if cfg.quant == "pq" and cfg.dim % cfg.pq_m:
+            raise ValueError(f"dim={cfg.dim} is not a multiple of "
+                             f"pq_m={cfg.pq_m}")
         if cfg.index_type not in ("flat", "ivf"):
             raise ValueError(f"index_type must be flat or ivf, got "
                              f"{cfg.index_type!r}")
@@ -258,9 +314,15 @@ class TorchVectorDB(DBInstance):
         self.buckets: Optional[torch.Tensor] = None      # guarded-by: _mu
         self.bucket_live: Optional[torch.Tensor] = None  # guarded-by: _mu
         self.indexed = np.zeros((cap,), dtype=bool)      # guarded-by: _mu
-        # bucket-contiguous mirror for the ivf_topk kernel: row b*cap_b+j
-        # holds bucket b's j-th member (slot map + gathered vectors);
-        # rebuilt wholesale with the buckets, rows immutable in between
+        # quantized state (device tensors), made at build_index
+        self.sq_codes: Optional[torch.Tensor] = None     # guarded-by: _mu
+        self.sq_scale: Optional[torch.Tensor] = None     # guarded-by: _mu
+        self.pq_codes: Optional[torch.Tensor] = None     # guarded-by: _mu
+        self.pq_codebook: Optional[torch.Tensor] = None  # guarded-by: _mu
+        # bucket-contiguous mirror for the ivf_topk / pq_topk kernels: row
+        # b*cap_b+j holds bucket b's j-th member (slot map + gathered
+        # vectors, or PQ codes); rebuilt wholesale with the buckets, rows
+        # immutable in between
         self.packed: Optional[Dict[str, torch.Tensor]] = None  # guarded-by: _mu
         # profiling counters (read by the monitor)
         self.counters: Dict[str, float] = {   # guarded-by: _mu
@@ -326,9 +388,12 @@ class TorchVectorDB(DBInstance):
 
         ``state`` holds numpy arrays ``vectors [cap,d]``, ``live``,
         ``indexed``, ``centroids``, ``buckets``, ``bucket_live`` (the last
-        three None when no IVF index is built), the int ``n_slots`` and the
-        dicts ``chunks`` (slot -> Chunk) and ``doc_slots``. The packed
-        mirror is rebuilt from them on the ``fused`` rung.
+        three None when no IVF index is built), ``sq_codes [cap,d]`` int8,
+        ``sq_scale [d]``, ``pq_codes [cap,m]`` int32 and ``pq_codebook
+        [m,256,dsub]`` (each None, or absent, when not trained), the int
+        ``n_slots`` and the dicts ``chunks`` (slot -> Chunk) and
+        ``doc_slots``. The packed mirror is rebuilt from them on the
+        ``fused`` rung.
         """
         cap, d = self.cfg.capacity, self.cfg.dim
         if np.shape(state["vectors"]) != (cap, d):
@@ -350,6 +415,10 @@ class TorchVectorDB(DBInstance):
             self.centroids = dev(state["centroids"], torch.float32)
             self.buckets = dev(state["buckets"], torch.int32)
             self.bucket_live = dev(state["bucket_live"], torch.bool)
+            self.sq_codes = dev(state.get("sq_codes"), torch.int8)
+            self.sq_scale = dev(state.get("sq_scale"), torch.float32)
+            self.pq_codes = dev(state.get("pq_codes"), torch.int32)
+            self.pq_codebook = dev(state.get("pq_codebook"), torch.float32)
             self.packed = None
             if self._kernel == "fused" and self.buckets is not None:
                 self._build_packed_locked()
@@ -367,6 +436,10 @@ class TorchVectorDB(DBInstance):
         t0 = time.perf_counter()
         cfg = self.cfg
         live_idx = np.nonzero(self.live)[0]
+        if cfg.quant == "sq8":
+            self._train_sq(live_idx)
+        if cfg.quant == "pq":
+            self._train_pq(live_idx)
         if cfg.index_type == "ivf" and len(live_idx):
             sample = live_idx
             if len(live_idx) > cfg.train_sample:
@@ -392,15 +465,66 @@ class TorchVectorDB(DBInstance):
         self.counters["build_time_s"] += time.perf_counter() - t0
 
     def _build_packed_locked(self) -> None:  # locked-by: _mu
-        """Rebuild the bucket-contiguous mirror for the ``ivf_topk`` kernel.
+        """Rebuild the bucket-contiguous mirror for the fused IVF kernels.
 
         ``slot`` maps packed row -> original slot id (-1 pad); the gathered
-        vector rows are copies, so later tombstones only affect the
+        vector rows (``ivf_topk``) or PQ code rows (``pq_topk``, int32 as in
+        the reference) are copies, so later tombstones only affect the
         search-time ``ok`` mask, never the mirrored data.
         """
         slot = self.buckets.reshape(-1).contiguous()
-        self.packed = {"slot": slot,
-                       "vecs": self.vectors[slot.clamp(min=0).long()]}
+        safe = slot.clamp(min=0).long()
+        if self.cfg.quant == "pq" and self.pq_codes is not None:
+            self.packed = {"slot": slot, "codes": self.pq_codes[safe]}
+        else:
+            self.packed = {"slot": slot, "vecs": self.vectors[safe]}
+
+    def _train_sq(self, live_idx: np.ndarray) -> None:  # locked-by: _mu
+        """Per-dimension scale ``max|x| / 127 + 1e-12`` over the live rows
+        and int8 codes ``clamp(round(x / scale), -127, 127)`` of every slot
+        used so far, ``ASSIGN_CHUNK`` rows at a time (the reference's
+        ``_train_sq``, in fp32 on the device)."""
+        cfg = self.cfg
+        x = self.vectors[: self.n_slots]
+        live_t = torch.as_tensor(live_idx).to(self.device)
+        if len(live_idx):
+            amax = torch.zeros(cfg.dim, dtype=torch.float32,
+                               device=self.device)
+            for lo in range(0, len(live_idx), ASSIGN_CHUNK):
+                rows = x[live_t[lo:lo + ASSIGN_CHUNK]]
+                amax = torch.maximum(amax, rows.abs().amax(0))
+            scale = amax / 127.0 + 1e-12
+        else:
+            scale = torch.ones(cfg.dim, dtype=torch.float32,
+                               device=self.device)
+        codes = torch.zeros((cfg.capacity, cfg.dim), dtype=torch.int8,
+                            device=self.device)
+        for lo in range(0, self.n_slots, ASSIGN_CHUNK):
+            hi = min(lo + ASSIGN_CHUNK, self.n_slots)
+            codes[lo:hi] = torch.round(x[lo:hi] / scale).clamp(
+                -127, 127).to(torch.int8)
+        self.sq_scale = scale
+        self.sq_codes = codes
+
+    def _train_pq(self, live_idx: np.ndarray) -> None:  # locked-by: _mu
+        """One 256-centroid ``kmeans`` per subspace (seed = subspace) over
+        the live rows; a live row's code is its nearest centroid, others
+        keep code 0 (the reference's ``_train_pq``)."""
+        cfg = self.cfg
+        m, dsub = cfg.pq_m, cfg.dim // cfg.pq_m
+        live_t = torch.as_tensor(live_idx).to(self.device)
+        x = self.vectors[live_t] if len(live_idx) else self.vectors[:1]
+        cb = torch.zeros((m, 256, dsub), dtype=torch.float32,
+                         device=self.device)
+        codes = torch.zeros((cfg.capacity, m), dtype=torch.int32,
+                            device=self.device)
+        for j in range(m):
+            sub = x[:, j * dsub:(j + 1) * dsub].contiguous()
+            cb[j] = kmeans(sub, 256, cfg.kmeans_iters, seed=j)
+            if len(live_idx):
+                codes[live_t, j] = assign(sub, cb[j]).int()
+        self.pq_codebook = cb
+        self.pq_codes = codes
 
     def _maybe_rebuild(self):  # locked-by: _mu
         # only called with self._mu held (insert path)
@@ -442,6 +566,8 @@ class TorchVectorDB(DBInstance):
                 "centroids": self.centroids,
                 "buckets": self.buckets,
                 "bucket_live": self.bucket_live,
+                "sq_codes": self.sq_codes, "sq_scale": self.sq_scale,
+                "pq_codes": self.pq_codes, "pq_codebook": self.pq_codebook,
                 "packed": self.packed,
                 "nprobe": self.cfg.nprobe,
             }
@@ -484,6 +610,9 @@ class TorchVectorDB(DBInstance):
         cfg = self.cfg
         live = self._mask(main_live)
         if cfg.index_type == "flat":
+            if cfg.quant == "sq8" and snap["sq_codes"] is not None:
+                return _sq8_flat_search(q, snap["sq_codes"], snap["sq_scale"],
+                                        live, k, rung)
             return _flat_search(q, snap["vectors"], live, k, rung)
         nprobe = min(int(snap["nprobe"]), cfg.nlist)
         packed = snap["packed"]
@@ -492,8 +621,15 @@ class TorchVectorDB(DBInstance):
             # mask: a tombstone lands as ok=0 on its packed row
             slot = packed["slot"]
             ok = (slot >= 0) & live[slot.clamp(min=0)]
+            if cfg.quant == "pq" and "codes" in packed:
+                return kops.pq_topk(q, snap["pq_codebook"], snap["centroids"],
+                                    packed["codes"], slot, ok, nprobe, k)
             return kops.ivf_topk(q, snap["centroids"], packed["vecs"], slot,
                                  ok, nprobe, k)
+        if cfg.quant == "pq" and snap["pq_codes"] is not None:
+            return _pq_ivf_search(q, snap["pq_codes"], snap["pq_codebook"],
+                                  live, snap["centroids"], snap["buckets"],
+                                  snap["bucket_live"], nprobe, k)
         return _ivf_search(q, snap["vectors"], live, snap["centroids"],
                            snap["buckets"], snap["bucket_live"], nprobe, k)
 
@@ -517,6 +653,12 @@ class TorchVectorDB(DBInstance):
         index_bytes = 0
         if self.centroids is not None:
             index_bytes += (self.centroids.nbytes + self.buckets.nbytes)
+        # the reference's formulas (bytes as it counts them, not the
+        # tensors' sizes)
+        if self.sq_codes is not None:
+            index_bytes += self.n_slots * cfg.dim
+        if self.pq_codes is not None:
+            index_bytes += self.n_slots * cfg.pq_m + self.pq_codebook.nbytes
         return {
             "live": float(self.live.sum()),
             "slots": float(self.n_slots),
@@ -538,8 +680,9 @@ def make_db(index_type: str = "ivf", quant: str = "none", dim: int = 384,
 def make_fused_db(index_type: str = "ivf", quant: str = "none",
                   dim: int = 384, device=None, **kw) -> TorchVectorDB:
     """``vectordb:torch`` pinned to the ``fused`` rung: one retrieve
-    micro-batch is one ``ivf_topk`` launch for the main index (plus one
-    ``topk_search`` launch while the freshness buffer holds rows)."""
+    micro-batch is one main-index launch (``ivf_topk``, ``pq_topk`` for IVF
+    + pq, ``sq8_topk`` for flat + sq8, ``topk_search`` for flat) plus one
+    ``topk_search`` launch while the freshness buffer holds rows."""
     kw.setdefault("use_kernel", "fused")
     if kernel_ladder(kw["use_kernel"]) != "fused":
         raise ValueError(

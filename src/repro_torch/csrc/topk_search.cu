@@ -25,14 +25,14 @@
 //    all past nq skip the FMAs, so a small batch costs only its bytes.
 //  * A finished BQ x BN score tile goes to shared memory, dead rows set to
 //    NEG, and one warp per query row folds it into that row's running
-//    top-k (topk_list.cuh): only scores above the list's k-th enter, in
-//    row order, so equal scores keep the lower row.
+//    top-k (scan_tile.cuh, topk_list.cuh): only scores above the list's
+//    k-th enter, in row order, so equal scores keep the lower row.
 //  * Output [nq, n_tiles, k] candidates; the caller merges them with a
 //    stable sort, as the JAX package merges with lax.top_k.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "topk_list.cuh"
+#include "scan_tile.cuh"
 
 namespace {
 
@@ -45,24 +45,6 @@ constexpr int TILE_N = 1024;     // corpus rows per block
 constexpr int NSUB = TILE_N / BN;
 constexpr int THREADS = 256;     // 16 x 16: 4 queries x 8 rows per thread
 constexpr int WARPS = THREADS / 32;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_0() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 size_t smem_bytes(int k) {
   return sizeof(float) * (2 * BQ * DKP + 2 * BN * DKP + BQ * BNP) +
@@ -90,26 +72,8 @@ topk_tile_kernel(const float* __restrict__ q, const float* __restrict__ vecs,
   const int q0 = blockIdx.y * BQ;
   const long long tile_base = static_cast<long long>(tile) * TILE_N;
 
-  for (int r = tid; r < TILE_N; r += THREADS) {
-    const long long g = tile_base + r;
-    rowok[r] = (g < n && live[g] != 0) ? 1 : 0;
-  }
   list_clear(lsb, lib, BQ * k, tid, THREADS);
-  __syncthreads();
-  if (tid < NSUB) {
-    const uint32_t* w = reinterpret_cast<const uint32_t*>(rowok + tid * BN);
-    uint32_t any = 0;
-    for (int r = 0; r < BN / 4; ++r) any |= w[r];
-    subs[1 + tid] = any != 0;
-  }
-  __syncthreads();
-  if (tid == 0) {   // compact to the list of sub-tiles holding a live row
-    int m = 0;
-    for (int s = 0; s < NSUB; ++s)
-      if (subs[1 + s]) subs[1 + m++] = s;
-    subs[0] = m;
-  }
-  __syncthreads();
+  live_subtiles<TILE_N, BN, THREADS>(live, tile_base, n, rowok, subs, tid);
 
   const int nchunk = (d + DK - 1) / DK;
   const int nsteps = subs[0] * nchunk;
@@ -161,29 +125,9 @@ topk_tile_kernel(const float* __restrict__ q, const float* __restrict__ vecs,
       cp_async_wait_0();
     }
     __syncthreads();
-    if (active) {
-      const float* qb = qs + buf * BQ * DKP;
-      const float* vb = vs + buf * BN * DKP;
-#pragma unroll
-      for (int kk = 0; kk < DK; kk += 4) {
-        float4 a[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          a[i] = *reinterpret_cast<const float4*>(qb + (ty * 4 + i) * DKP + kk);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float4 b =
-              *reinterpret_cast<const float4*>(vb + (tx + 16 * j) * DKP + kk);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
-            acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
-            acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
-            acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
-          }
-        }
-      }
-    }
+    if (active)
+      fma_chunk<DK, DKP>(acc, qs + buf * BQ * DKP, vs + buf * BN * DKP, tx,
+                         ty);
     if (step % nchunk == nchunk - 1) {   // sub-tile finished: select
       const int st = subs[1 + step / nchunk];
 #pragma unroll
@@ -196,36 +140,14 @@ topk_tile_kernel(const float* __restrict__ q, const float* __restrict__ vecs,
           acc[i][j] = 0.f;
         }
       __syncthreads();
-      const int row0 = static_cast<int>(tile_base) + st * BN;
-      for (int qq = warp; qq < BQ && q0 + qq < nq; qq += WARPS) {
-        float* ls = lsb + qq * k;
-        int* li = lib + qq * k;
-        float thr = ls[k - 1];
-#pragma unroll
-        for (int c = 0; c < BN / 32; ++c) {
-          const float s = sc[qq * BNP + c * 32 + lane];
-          unsigned m = __ballot_sync(FULL_MASK, s > thr);
-          while (m) {
-            const int src = __ffs(m) - 1;
-            const float cs = __shfl_sync(FULL_MASK, s, src);
-            warp_list_insert(ls, li, k, cs, row0 + c * 32 + src, lane);
-            thr = ls[k - 1];
-            m &= m - 1;
-            m &= __ballot_sync(FULL_MASK, s > thr);
-          }
-        }
-      }
+      fold_tile<BQ, BN, BNP, WARPS>(sc, lsb, lib, k, q0, nq,
+                                    static_cast<int>(tile_base) + st * BN,
+                                    warp, lane);
     }
     __syncthreads();
   }
-
-  for (int qq = warp; qq < BQ && q0 + qq < nq; qq += WARPS) {
-    const size_t o = (static_cast<size_t>(q0 + qq) * n_tiles + tile) * k;
-    for (int e = lane; e < k; e += 32) {
-      out_s[o + e] = lsb[qq * k + e];
-      out_i[o + e] = lib[qq * k + e];
-    }
-  }
+  write_lists<BQ, WARPS>(lsb, lib, out_s, out_i, k, q0, nq, tile, n_tiles,
+                         warp, lane);
 }
 
 }  // namespace

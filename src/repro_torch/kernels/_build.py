@@ -13,6 +13,7 @@ once. Nothing here runs at import: the CPU tests import every module.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -24,7 +25,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # <repo>/build/kernels: src/repro_torch/kernels/_build.py -> parents[3]
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("topk_search", "ivf_topk")
+SOURCES = ("topk_search", "ivf_topk", "quant_score", "sq8_topk", "pq_topk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -89,6 +90,28 @@ def library(name: str) -> ctypes.CDLL:
                 build_all([name])
             _libs[name] = ctypes.CDLL(str(path))
         return _libs[name]
+
+
+@functools.lru_cache(maxsize=None)
+def entry(name: str, n_ptr: int, n_int: int):
+    """``(library, C entry point <name>_f32)`` of ``csrc/<name>.cu``, typed
+    as taking ``n_ptr`` pointers, ``n_int`` ints and the stream and
+    returning the CUDA error code."""
+    lib = library(name)
+    fn = getattr(lib, f"{name}_f32")
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+@functools.lru_cache(maxsize=None)
+def tile_rows(name: str) -> int:
+    """Corpus rows per block of a tile scan (``<name>_tile_rows``): its
+    output holds one top-k list per tile."""
+    fn = getattr(library(name), f"{name}_tile_rows")
+    fn.restype = ctypes.c_int
+    return fn()
 
 
 def require(t, name: str, dtypes, ndim: int, device) -> None:

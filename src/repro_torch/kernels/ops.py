@@ -16,6 +16,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import fused_retrieve as _fr
+from repro_torch.kernels import quant_score as _qs
 from repro_torch.kernels import ref
 from repro_torch.kernels import topk_search as _ts
 
@@ -48,11 +49,39 @@ def ivf_topk(q, cent, packed_vecs, packed_slot, packed_ok, nprobe: int,
                         nprobe, k)
 
 
+def quant_score(q, codes, scale):
+    """SQ-int8 score matrix; see ``ref.quant_score`` for the contract."""
+    if _on_cuda(q, codes, scale):
+        return _qs.quant_score_cuda(q, codes, scale)
+    return ref.quant_score(q, codes, scale)
+
+
+def sq8_topk(q, codes, scale, live, k: int):
+    """SQ-int8 exact top-k; see ``ref.sq8_topk`` for the contract."""
+    if _on_cuda(q, codes, scale, live):
+        return _fr.sq8_topk_cuda(q, codes, scale, live, k)
+    return ref.sq8_topk(q, codes, scale, live, k)
+
+
+def pq_topk(q, codebook, cent, packed_codes, packed_slot, packed_ok,
+            nprobe: int, k: int):
+    """PQ-ADC over the packed bucket codes; see ``ref.pq_topk`` for the
+    contract."""
+    if _on_cuda(q, codebook, cent, packed_codes, packed_slot, packed_ok):
+        return _fr.pq_topk_cuda(q, codebook, cent, packed_codes, packed_slot,
+                                packed_ok, nprobe, k)
+    return ref.pq_topk(q, codebook, cent, packed_codes, packed_slot,
+                       packed_ok, nprobe, k)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    return {"topk_search": _ts.launches, "ivf_topk": _fr.launches}
+    return {"topk_search": _ts.launches, "quant_score": _qs.launches,
+            **_fr.launches}
 
 
 def reset_launch_counts() -> None:
     _ts.launches = 0
-    _fr.launches = 0
+    _qs.launches = 0
+    for name in _fr.launches:
+        _fr.launches[name] = 0

@@ -31,16 +31,36 @@ def _sentinel(top: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(top <= NEG / 2, torch.full_like(idx, -1), idx)
 
 
+def masked_topk(scores, live, k: int):
+    """Top-``k`` of ``scores [nq, N]`` over the ``live [N]`` columns, as
+    ``(scores [nq,k] f32, idx [nq,k] int32)`` with ``(NEG, -1)`` padding."""
+    scores = torch.where(live.bool()[None, :], scores,
+                         torch.tensor(NEG, dtype=scores.dtype,
+                                      device=scores.device))
+    top, idx = stable_topk(scores, k)
+    return top, _sentinel(top, idx.int())
+
+
 def topk_search(q, vecs, live, k: int):
     """Exact inner-product top-k. q:[nq,d] vecs:[N,d] f32, live:[N] bool.
 
     Returns ``(scores [nq,k] f32, idx [nq,k] int32)``; rows with fewer than
     ``k`` live entries pad with ``(NEG, -1)``.
     """
-    scores = torch.where(live.bool()[None, :], q @ vecs.T,
-                         torch.tensor(NEG, dtype=q.dtype, device=q.device))
-    top, idx = stable_topk(scores, k)
-    return top, _sentinel(top, idx.int())
+    return masked_topk(q @ vecs.T, live, k)
+
+
+def quant_score(q, codes, scale):
+    """SQ-int8 scores ``[nq, N]`` f32: ``(q * scale) @ codes.T`` with the
+    int8 ``codes [N, d]`` upcast to f32. No live mask: every row is scored.
+    """
+    return (q * scale[None, :]) @ codes.float().T
+
+
+def sq8_topk(q, codes, scale, live, k: int):
+    """SQ-int8 exact top-k: the top-``k`` of ``quant_score`` over the live
+    rows, with ``(NEG, -1)`` padding (the contract of ``topk_search``)."""
+    return masked_topk(quant_score(q, codes, scale), live, k)
 
 
 def merge_candidates(cand_s, cand_i, k: int):
@@ -83,6 +103,58 @@ def ivf_topk(q, cent, packed_vecs, packed_slot, packed_ok, nprobe: int,
     for p in range(nprobe):
         b = probes[:, p]
         s = torch.bmm(pv[b], q[:, :, None])[:, :, 0]      # [nq, cap_b]
+        ts, tp = stable_topk(torch.where(po[b], s, neg), kt)
+        cs.append(ts)
+        ci.append(torch.gather(ps[b], 1, tp))
+    return merge_candidates(torch.stack(cs, 1).reshape(nq, nprobe * kt),
+                            torch.stack(ci, 1).reshape(nq, nprobe * kt), k)
+
+
+def pq_lut(q, codebook):
+    """Per-query ADC lookup tables ``[nq, m, 256]``: each query subspace
+    against its codebook ``[m, 256, dsub]``."""
+    m, _, dsub = codebook.shape
+    return torch.einsum("qms,mcs->qmc", q.reshape(q.shape[0], m, dsub),
+                        codebook)
+
+
+def adc_sum(gath):
+    """Sum over the trailing subspace axis in order ``t = 0 .. m-1`` with
+    plain adds, so rows with equal codes score bit-identically, here and
+    in the ``pq_topk`` kernel."""
+    out = gath[..., 0]
+    for t in range(1, gath.shape[-1]):
+        out = out + gath[..., t]
+    return out
+
+
+def pq_topk(q, codebook, cent, packed_codes, packed_slot, packed_ok,
+            nprobe: int, k: int):
+    """PQ-ADC probe -> LUT score -> select over the packed bucket codes.
+
+    q:[nq,d]; codebook:[m,256,dsub]; cent:[nlist,d];
+    packed_codes:[nlist*cap_b, m] int32 in [0, 256);
+    packed_slot/packed_ok:[nlist*cap_b]. A row scores
+    ``adc_sum(LUT[t, code_t])``; each probed bucket yields its own top-k as
+    slot ids and the ``[nq, nprobe*k]`` candidates merge probe-major.
+    """
+    nq = q.shape[0]
+    m = codebook.shape[0]
+    nlist = cent.shape[0]
+    cap_b = packed_codes.shape[0] // nlist
+    flat_lut = pq_lut(q, codebook).reshape(nq, m * 256)
+    probes = probe(q, cent, nprobe).long()
+    pc = packed_codes.view(nlist, cap_b, m).long()
+    ps = packed_slot.view(nlist, cap_b)
+    po = packed_ok.view(nlist, cap_b).bool()
+    offs = torch.arange(m, device=q.device) * 256
+    kt = min(k, cap_b)
+    neg = torch.tensor(NEG, dtype=q.dtype, device=q.device)
+    cs, ci = [], []
+    for p in range(nprobe):
+        b = probes[:, p]
+        fidx = (pc[b] + offs).reshape(nq, cap_b * m)
+        s = adc_sum(torch.gather(flat_lut, 1, fidx).view(nq, cap_b, m))
         ts, tp = stable_topk(torch.where(po[b], s, neg), kt)
         cs.append(ts)
         ci.append(torch.gather(ps[b], 1, tp))

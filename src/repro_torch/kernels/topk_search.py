@@ -10,9 +10,6 @@ between them by the device of the inputs.
 """
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from repro_torch.kernels import _build
@@ -20,17 +17,6 @@ from repro_torch.kernels.ref import merge_candidates
 
 MAX_K = 128
 launches = 0   # kernel launches since the last ops.reset_launch_counts()
-
-
-@functools.lru_cache(maxsize=None)
-def _entry():
-    lib = _build.library("topk_search")
-    fn = lib.topk_search_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    lib.topk_search_tile_rows.restype = ctypes.c_int
-    return lib, fn, lib.topk_search_tile_rows()
 
 
 def topk_search_cuda(q: torch.Tensor, vecs: torch.Tensor, live: torch.Tensor,
@@ -52,8 +38,8 @@ def topk_search_cuda(q: torch.Tensor, vecs: torch.Tensor, live: torch.Tensor,
     if d % 4 or not 1 <= k <= MAX_K:
         raise ValueError(f"need d % 4 == 0 and 1 <= k <= {MAX_K}, got "
                          f"d={d} k={k}")
-    lib, fn, tile_rows = _entry()
-    n_tiles = -(-n // tile_rows)
+    lib, fn = _build.entry("topk_search", 5, 4)
+    n_tiles = -(-n // _build.tile_rows("topk_search"))
     out_s = torch.empty((nq, n_tiles, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, n_tiles, k), dtype=torch.int32, device=dev)
     err = fn(q.data_ptr(), vecs.data_ptr(), live.view(torch.uint8).data_ptr(),

@@ -25,6 +25,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.topk_search import topk_search_pallas  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import fused_retrieve as tfr  # noqa: E402
+from repro_torch.kernels import quant_score as tqs  # noqa: E402
 from repro_torch.kernels import topk_search as tts  # noqa: E402
 from repro_torch.kernels.parity import compare_topk  # noqa: E402
 
@@ -204,7 +205,18 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="must be on"):
         tfr.ivf_topk_cuda(q, torch.zeros(2, 8), v, torch.zeros(4, dtype=torch.int32),
                           live, 1, 2)
-    assert ops.launch_counts() == {"topk_search": 0, "ivf_topk": 0}
+    codes, scale = torch.zeros(4, 8, dtype=torch.int8), torch.ones(8)
+    with pytest.raises(ValueError, match="must be on"):
+        tqs.quant_score_cuda(q, codes, scale)
+    with pytest.raises(ValueError, match="must be on"):
+        tfr.sq8_topk_cuda(q, codes, scale, live, 2)
+    with pytest.raises(ValueError, match="must be on"):
+        tfr.pq_topk_cuda(q, torch.zeros(2, 256, 4), torch.zeros(2, 8),
+                         torch.zeros(4, 2, dtype=torch.int32),
+                         torch.zeros(4, dtype=torch.int32), live, 1, 2)
+    assert ops.launch_counts() == {"topk_search": 0, "quant_score": 0,
+                                   "ivf_topk": 0, "sq8_topk": 0,
+                                   "pq_topk": 0}
 
 
 def test_compare_topk_flags_a_wrong_id():

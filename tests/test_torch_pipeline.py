@@ -42,19 +42,34 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
-SPEC = os.path.join(ROOT, "src", "repro_torch", "specs", "fused_ivf.json")
+SPECS = os.path.join(ROOT, "src", "repro_torch", "specs")
+SPEC = os.path.join(SPECS, "fused_ivf.json")
+# the quantized DB's specs: flat + sq8 (sq8_topk / quant_score), IVF + PQ
+QUANT_SPECS = ["fused_flat_sq8", "op_flat_sq8", "fused_ivf_pq"]
 
 
 def _jax_twin(spec_dict):
     d = json.loads(json.dumps(spec_dict))
-    d["vectordb"]["component"] = "fused"
+    d["vectordb"]["component"] = {"torch_fused": "fused",
+                                  "torch": "jax"}[d["vectordb"]["component"]]
     return JaxSpec.from_dict(d)
 
 
 def test_slice_matches_jax_request_by_request(monkeypatch):
+    _assert_slice_matches_jax(SPEC, monkeypatch)
+
+
+@pytest.mark.parametrize("name", QUANT_SPECS)
+def test_quant_slice_matches_jax_request_by_request(name, monkeypatch):
+    """The same replay on the quantized DB; its codes, scale and PQ
+    codebook go across with the rest of the reference's DB state."""
+    _assert_slice_matches_jax(os.path.join(SPECS, f"{name}.json"),
+                              monkeypatch)
+
+
+def _assert_slice_matches_jax(spec_path, monkeypatch):
     monkeypatch.setenv("REPRO_KERNEL_MODE", "xla")
-    spec = PipelineSpec.from_file(SPEC)
-    assert spec.vectordb.component == "torch_fused"
+    spec = PipelineSpec.from_file(spec_path)
     jpipe = jax_build(_jax_twin(spec.to_dict()))
     tpipe = build(spec, embedder=convert.embedder_from_jax(jpipe.embedder),
                   device="cpu")
@@ -83,6 +98,21 @@ def test_slice_matches_jax_request_by_request(monkeypatch):
         assert abs(tres.quality[key] - val) <= 1e-9, key
     assert tpipe.db.counters["fused_searches"] == \
         jpipe.db.counters["fused_searches"]
+
+
+@pytest.mark.parametrize("name", QUANT_SPECS)
+def test_serve_main_runs_quant_specs_on_cpu(name):
+    """Each quantized spec serves through its rung, and the DB stats of the
+    run document carry the quantized index bytes."""
+    spec = os.path.join(SPECS, f"{name}.json")
+    doc = serve.main(["--config", spec, "--docs", "24", "--requests", "16",
+                      "--device", "cpu"])
+    db = PipelineSpec.from_file(spec).vectordb
+    assert doc["quality"] and doc["db"]["searches"] > 0
+    # code bytes per row: dim (384, the DB default) for sq8, pq_m for PQ
+    per_row = 384 if db.options["quant"] == "sq8" else db.options["pq_m"]
+    assert doc["db"]["index_bytes"] >= doc["db"]["slots"] * per_row > 0
+    assert (doc["db"]["fused_searches"] > 0) == (db.component == "torch_fused")
 
 
 def test_serve_main_runs_on_cpu(tmp_path):

@@ -56,7 +56,7 @@ def _queries(nq=8, seed=1):
 
 def _jax_db(index_type, use_kernel, n=N, **kw):
     cfg = dict(index_type=index_type, dim=DIM, capacity=n + 96, nlist=4,
-               nprobe=2, flat_capacity=48, use_kernel=use_kernel)
+               nprobe=2, flat_capacity=48, pq_m=4, use_kernel=use_kernel)
     cfg.update(kw)
     db = JaxVectorDB(JDBConfig(**cfg))
     db.insert(_corpus(n), _chunks(JChunk, n))
@@ -71,15 +71,30 @@ def _assert_same(jdb, tdb, q, k=5):
     assert got["violations"] == 0, got
 
 
-@pytest.mark.parametrize("index_type", ["flat", "ivf"])
-@pytest.mark.parametrize("rung", ["off", "fused"])
-def test_matches_jax_db_before_and_after_mutation(index_type, rung,
+# (index, quant) x rung; the quant="none" cases keep their original ids
+DB_CASES = [
+    pytest.param(rung, index_type, quant, id="-".join(
+        [rung, index_type] + ([quant] if quant != "none" else [])))
+    for index_type, quant in [("flat", "none"), ("ivf", "none"),
+                              ("flat", "sq8"), ("ivf", "pq"),
+                              ("ivf", "sq8"), ("flat", "pq")]
+    for rung in ("off", "op", "fused")]
+
+
+@pytest.mark.parametrize("rung,index_type,quant", DB_CASES)
+def test_matches_jax_db_before_and_after_mutation(rung, index_type, quant,
                                                   monkeypatch):
+    """Every (index, quant) pair on every rung. The quantized state (sq8
+    codes and scale, PQ codes and codebook) goes across with the rest: the
+    reference's PQ codebook comes from ``jax.random``."""
     monkeypatch.setenv("REPRO_KERNEL_MODE", "interpret")
-    jdb = _jax_db(index_type, False if rung == "off" else rung)
+    jdb = _jax_db(index_type, False if rung == "off" else rung, quant=quant)
     tdb = convert.db_from_jax(jdb, device="cpu")
-    assert tdb._kernel == rung
+    assert tdb._kernel == rung and tdb.cfg.quant == quant
     assert (tdb.packed is not None) == (rung == "fused" and index_type == "ivf")
+    if tdb.packed is not None:   # PQ mirrors codes, the others fp32 rows
+        assert set(tdb.packed) == {"slot", "codes" if quant == "pq"
+                                   else "vecs"}
     q = _queries()
     _assert_same(jdb, tdb, q)
     fresh = _corpus(10, seed=3)
@@ -262,6 +277,8 @@ def test_torch_db_draws_its_own_centroids():
 
 
 def test_registry_names_and_unported_quant():
+    """Both backends build every quant; an unknown quant and a dim that
+    the PQ subspaces do not divide raise ValueError."""
     db = registry.create("vectordb", "torch_fused", dim=DIM, capacity=32,
                          nlist=2, device="cpu")
     assert db._kernel == "fused"
@@ -271,5 +288,111 @@ def test_registry_names_and_unported_quant():
         registry.create("vectordb", "torch_fused", dim=DIM, use_kernel="op",
                         device="cpu")
     for quant in ("sq8", "pq"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TorchVectorDB(DBConfig(dim=DIM, quant=quant), device="cpu")
+        assert registry.create("vectordb", "torch_fused", quant=quant,
+                               dim=DIM, pq_m=4, device="cpu").cfg.quant == quant
+    with pytest.raises(ValueError, match="quant must be one of"):
+        TorchVectorDB(DBConfig(dim=DIM, quant="opq"), device="cpu")
+    with pytest.raises(ValueError, match="not a multiple of pq_m"):
+        TorchVectorDB(DBConfig(dim=DIM, quant="pq", pq_m=5), device="cpu")
+
+
+# -- the quantized DB ------------------------------------------------------------
+
+
+def _mutate_and_rebuild_free(db, cls):
+    db.remove(5)
+    db.insert(_corpus(12, seed=6), _chunks(cls, 12, doc0=800))
+
+
+def test_sq8_training_matches_jax_without_injection():
+    """``_train_sq`` in fp32 torch gives the reference's scale and codes bit
+    for bit: the scale from the live rows only, codes for every used slot,
+    code 0 for slots never filled. No state is carried across."""
+    jdb = JaxVectorDB(JDBConfig(index_type="flat", quant="sq8", dim=DIM,
+                                capacity=N + 96, flat_capacity=48))
+    tdb = TorchVectorDB(DBConfig(index_type="flat", quant="sq8", dim=DIM,
+                                 capacity=N + 96, flat_capacity=48),
+                        device="cpu")
+    for db, cls in ((jdb, JChunk), (tdb, Chunk)):
+        assert db.sq_codes is None
+        db.insert(_corpus(), _chunks(cls, N))
+        db.remove(7)                       # dead rows: no part in the scale
+        db.build_index()
+    assert tdb.sq_codes.dtype == torch.int8 and tdb.sq_scale.dtype == \
+        torch.float32
+    np.testing.assert_array_equal(tdb.sq_scale.numpy(), jdb.sq_scale)
+    np.testing.assert_array_equal(tdb.sq_codes.numpy(), jdb.sq_codes)
+    assert not tdb.sq_codes[N:].any()
+    _assert_same(jdb, tdb, _queries())
+
+
+@pytest.mark.parametrize("rung", ["off", "op", "fused"])
+def test_sq8_without_hybrid_scores_late_rows_as_code_zero(rung,
+                                                          monkeypatch):
+    """Without the freshness buffer, rows inserted after the build are live
+    in the main index with code 0, so the flat sq8 search scores them 0,
+    as the reference does."""
+    monkeypatch.setenv("REPRO_KERNEL_MODE", "interpret")
+    jdb = _jax_db("flat", False if rung == "off" else rung, quant="sq8",
+                  use_hybrid=False)
+    tdb = convert.db_from_jax(jdb, device="cpu")
+    for db, cls in ((jdb, JChunk), (tdb, Chunk)):
+        _mutate_and_rebuild_free(db, cls)
+    q = np.concatenate([_queries(4), _corpus(12, seed=6)[:4]])
+    _assert_same(jdb, tdb, q, k=N)          # every row, the late ones at 0
+    s, i = tdb.search_arrays(torch.from_numpy(q), N)
+    late = (i >= N) & (i < N + 12)
+    assert late.any() and (s[late] == 0).all()
+
+
+def test_threshold_rebuild_refreshes_pq_packed_mirror():
+    """Inserts past the buffer threshold retrain the PQ codebook, recode
+    the live rows and rebuild the packed codes; the ``pq_topk`` rung still
+    agrees with the plain rung, and the late rows now have codes."""
+    tdb = TorchVectorDB(DBConfig(dim=DIM, quant="pq", pq_m=4, capacity=N + 96,
+                                 nlist=4, nprobe=2, flat_capacity=48,
+                                 use_kernel="fused"), device="cpu")
+    tdb.insert(_corpus(), _chunks(Chunk, N))
+    tdb.build_index()
+    codes0, cb0 = tdb.packed["codes"].clone(), tdb.pq_codebook.clone()
+    assert tdb.packed["codes"].dtype == torch.int32
+    assert not tdb.pq_codes[N:].any()
+    tdb.insert(_corpus(40, seed=9), _chunks(Chunk, 40, doc0=500))  # 40 >= 36
+    assert tdb.counters["rebuilds"] == 2 and tdb.stats()["fresh"] == 0
+    assert tdb.pq_codes[N:N + 40].any()
+    assert int((tdb.packed["slot"] >= 0).sum()) == N + 40
+    assert not torch.equal(tdb.packed["codes"][:len(codes0)], codes0) or \
+        not torch.equal(tdb.pq_codebook, cb0)
+    slot = tdb.packed["slot"]
+    assert torch.equal(tdb.packed["codes"],
+                       tdb.pq_codes[slot.clamp(min=0).long()])
+    q = torch.from_numpy(_queries())
+    assert compare_topk(*tdb.search_arrays(q, 5, rung="off"),
+                        *tdb.search_arrays(q, 5))["violations"] == 0
+
+
+@pytest.mark.parametrize("index_type,quant", [("flat", "sq8"), ("ivf", "pq"),
+                                              ("ivf", "sq8"), ("flat", "pq")])
+def test_quant_stats_match_jax(index_type, quant, monkeypatch):
+    """``stats`` equals the reference's key for key, its quantized
+    ``index_bytes`` terms included, after the same build, searches and
+    mutations (each DB trains its own index)."""
+    monkeypatch.setenv("REPRO_KERNEL_MODE", "xla")
+    jdb = _jax_db(index_type, "fused", quant=quant)
+    tdb = TorchVectorDB(DBConfig(**{
+        f: getattr(jdb.cfg, f) for f in DBConfig.__dataclass_fields__}),
+        device="cpu")
+    tdb.insert(_corpus(), _chunks(Chunk, N))
+    tdb.build_index()
+    q = _queries()
+    for db, cls in ((jdb, JChunk), (tdb, Chunk)):
+        _mutate_and_rebuild_free(db, cls)
+        db.search(q, 5)
+    js, ts = jdb.stats(), tdb.stats()
+    assert set(js) == set(ts)
+    for key in ("live", "slots", "vector_bytes", "index_bytes", "fresh",
+                "inserts", "removals", "searches", "rebuilds",
+                "fused_searches"):
+        assert js[key] == ts[key], key
+    assert ts["index_bytes"] > (0 if index_type == "flat" else
+                                tdb.centroids.nbytes + tdb.buckets.nbytes)
