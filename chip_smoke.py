@@ -25,9 +25,25 @@ Phases, each of which raises on failure and prints its wall seconds:
    and IVF1024 + PQ48 (``fused`` rung: pq_topk + topk_search). Every rung's
    results must equal the plain ``off`` rung on the same state; the launch
    counts of each rung's run show it went through its kernels;
-5. serve: ``repro_torch.launch.serve`` on each spec of
+5. serve: ``repro_torch.launch.serve`` on each vector-DB spec of
    ``src/repro_torch/specs`` must answer its requests through its kernels
-   with a quality report.
+   with a quality report;
+6. flash_attention against its plain version: the reference's test shapes,
+   edge shapes (S 1, 63, 65, 192; GQA groups of 1, 3, 4; causal or not;
+   bf16 and fp32), the exact first causal row, and the three deployment
+   shapes (the Llama-3-8B prefill, the embedder, the cross-encoder), each
+   also held to a worst-row relative error that a planted fault (one K/V
+   tile dropped) exceeds, with the kernel's, the plain version's and
+   ``scaled_dot_product_attention``'s median times and the bound;
+7. the model at smoke size: one set of seeded weights on the card and on
+   the CPU (the llama3 smoke config in fp32, then in bf16 through the bf16
+   mma kernel); prefill logits and 8 greedy tokens must agree;
+8. the model at full width: Llama-3-8B (8,030,261,248 parameters) built on
+   the card from a seed, then ``repro_torch.launch.serve`` with
+   ``model_llama3_8b.json`` (transformer embedder, fused IVF DB,
+   cross-encoder, ModelLLM), which must answer every request with
+   ``flash_attention`` launched once per layer of every prefill, embedder
+   and cross-encoder batch.
 
 The last lines are one JSON object on the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a card, or run
@@ -47,7 +63,27 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12   # tensor cores, dense
 TOL = 1e-5                 # |score| tolerance: unit vectors, fp32
+# attention output tolerance (rtol and atol, as the reference's kernel test
+# states them): bf16 rounds the probabilities and the output; fp32 sums in
+# another order
+ATTN_TOL = {"bfloat16": 2e-2, "float32": 2e-3}
+# at the bf16 deployment shapes, the worst query row's relative error
+# ||got - want|| / ||want|| over its head dim, which the elementwise rule
+# cannot bound where |o| is small (late causal rows). The plain version
+# rounds the logits to bf16, the kernel does not: exact attention rounded
+# once to bf16 reads 0.012-0.014 against the plain version at these shapes
+# (on a CPU). The limit lies above that and far below a planted fault's
+# reading (one K/V tile dropped, dropped_tile_attention), which the run
+# prints beside the kernel's
+ATTN_ROW_REL_LIMIT = 3e-2
+# prefill logits of the smoke model, card against CPU: fp32 sums in another
+# order; bf16 as tests/test_torch_models.py states it (eight ulps at the
+# logits' magnitude of 2-4)
+LOGIT_TOL = {"float32": 1e-4, "bfloat16": 0.125}
+LLAMA3_8B_PARAMS = 8_030_261_248
+ENCODER_LAYERS = 4         # the transformer embedder's and cross-encoder's
 RUNS = 20                  # timed runs per measurement (median reported)
 
 NQ, N, DIM, K = 64, 1 << 20, 384, 16
@@ -77,10 +113,10 @@ def median_ms(fn, torch) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def bound(n_bytes: float, n_flop: float):
+def bound(n_bytes: float, n_flop: float, peak: float = FP32_FLOP_PER_S):
     """Least time on this card: the larger of bytes over the memory rate
-    and fp32 FMA work over the fp32 peak."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / FP32_FLOP_PER_S
+    and the operations over their type's peak (fp32 FMA by default)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -715,6 +751,339 @@ def phase_serve(torch, ops):
                                  f"{doc['quality']}")
 
 
+# (B, H, Hkv, S, dh, causal) of the kernel's callers on the model path
+FLASH_SHAPES = {
+    "llm prefill": (8, 32, 8, 512, 128, True),      # Llama-3-8B, batch 8
+    "embedder": (64, 4, 4, 128, 64, False),         # d_model 256, batch 64
+    "cross-encoder": (32, 4, 4, 192, 64, False),    # d_model 256, batch 32
+}
+
+
+def row_rel_err(got, want) -> float:
+    """The worst query row's ||got - want|| / ||want|| over the head dim,
+    in fp32."""
+    d = (got.float() - want.float()).norm(dim=-1)
+    return float((d / want.float().norm(dim=-1).clamp_min(1e-30)).max())
+
+
+def dropped_tile_attention(torch, q, k, v, causal):
+    """A planted fault for the row check: fp32 attention in which the K/V
+    tile of keys [64, 128) is skipped by every query row whose q tile reads
+    all of it (every row when not causal, rows from 128 on when causal)."""
+    rep = q.shape[1] // k.shape[1]
+    k, v = (x.repeat_interleave(rep, 1).float() for x in (k, v))
+    S = q.shape[2]
+    i = torch.arange(S, device=q.device)
+    rows = i[:, None] >= (128 if causal else 0)
+    mask = rows & (i[None, :] >= 64) & (i[None, :] < 128)
+    if causal:
+        mask |= i[None, :] > i[:, None]
+    s = (q.float() @ k.transpose(-1, -2)) / (q.shape[-1] ** 0.5)
+    return torch.softmax(s.masked_fill(mask, float("-inf")), -1) @ v
+
+
+def phase_flash(torch, ops, ref):
+    """flash_attention against its plain version; returns its record."""
+    import torch.nn.functional as F
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+    def qkv(B, H, Hkv, S, dh, dtype):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((B, H, S, dh), (B, Hkv, S, dh),
+                              (B, Hkv, S, dh))]
+
+    worst = 0.0
+    cases = [(1, 2, 2, 64, 16, True, "float32"),     # the reference's tests
+             (2, 4, 2, 128, 32, True, "float32"),
+             (2, 4, 1, 128, 64, False, "float32"),
+             (1, 8, 8, 256, 32, True, "bfloat16")]
+    dhs = (16, 32, 64, 128)
+    for i, (S, (H, hkv), causal) in enumerate(
+            (S, g, c) for S in (1, 63, 65, 192)
+            for g in ((4, 4), (6, 2), (8, 2)) for c in (True, False)):
+        cases.append((2, H, hkv, S, dhs[i % 4], causal,
+                      ("bfloat16", "float32")[i % 2]))
+    for B, H, hkv, S, dh, causal, dt in cases:
+        q, k, v = qkv(B, H, hkv, S, dh, dtypes[dt])
+        got = ops.flash_attention(q, k, v, causal=causal).float()
+        want = ref.flash_attention(q, k, v, causal=causal).float()
+        err = float((got - want).abs().max())
+        tol = ATTN_TOL[dt]
+        if not bool(((got - want).abs() <= tol + tol * want.abs()).all()):
+            raise AssertionError(f"flash_attention B={B} H={H} Hkv={hkv} "
+                                 f"S={S} dh={dh} causal={causal} {dt} "
+                                 f"disagrees with plain: max|d| {err}")
+        worst = max(worst, err)
+    say(f"flash_attention: {len(cases)} shapes equal the plain version "
+        f"within {ATTN_TOL} (max|d| {worst:.3g})")
+    for dt, dtype in dtypes.items():
+        q, k, v = qkv(2, 6, 2, 130, 64, dtype)
+        out = ops.flash_attention(q, k, v, causal=True)
+        if not torch.equal(out[:, :, 0], v.repeat_interleave(3, 1)[:, :, 0]):
+            raise AssertionError(f"flash_attention {dt}: causal row 0 is not "
+                                 f"v[0]")
+    say("flash_attention: causal row 0 equals v[0] exactly (bf16, fp32)")
+
+    record = None
+    for name, (B, H, hkv, S, dh, causal) in FLASH_SHAPES.items():
+        q, k, v = qkv(B, H, hkv, S, dh, torch.bfloat16)
+        got = ops.flash_attention(q, k, v, causal=causal).float()
+        want = ref.flash_attention(q, k, v, causal=causal).float()
+        tol = ATTN_TOL["bfloat16"]
+        if not bool(((got - want).abs() <= tol + tol * want.abs()).all()):
+            raise AssertionError(f"flash_attention {name} disagrees with "
+                                 f"plain")
+        worst = max(worst, float((got - want).abs().max()))
+        rel = row_rel_err(got, want)
+        fault = row_rel_err(dropped_tile_attention(torch, q, k, v, causal),
+                            want)
+        glob = float((got - want).norm() / want.norm())
+        say(f"flash_attention {name}: worst row ||d||/||want|| {rel:.4g} "
+            f"(limit {ATTN_ROW_REL_LIMIT}; with one K/V tile dropped "
+            f"{fault:.4g}), whole tensor {glob:.4g}")
+        if not rel <= ATTN_ROW_REL_LIMIT < fault:
+            raise AssertionError(f"flash_attention {name}: worst row error "
+                                 f"{rel} against limit "
+                                 f"{ATTN_ROW_REL_LIMIT}, fault {fault}")
+        kr, vr = (x.repeat_interleave(H // hkv, 1) for x in (k, v))
+        t = {"ms": median_ms(lambda: ops.flash_attention(
+                 q, k, v, causal=causal), torch),
+             "plain_ms": median_ms(lambda: ref.flash_attention(
+                 q, k, v, causal=causal), torch),
+             "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+                 q, kr, vr, is_causal=causal), torch)}
+        # bytes: q, k, v read once and o written once (bf16); FLOP: the two
+        # products, 4*B*H*S^2*dh, halved when causal
+        n_bytes = 2 * (2 * B * H * S * dh + 2 * B * hkv * S * dh)
+        n_flop = 4.0 * B * H * S * S * dh / (2 if causal else 1)
+        bms, by = bound(n_bytes, n_flop, BF16_FLOP_PER_S)
+        say(f"flash_attention {name} B={B} H={H} Hkv={hkv} S={S} dh={dh} "
+            f"causal={causal} bf16: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention (K/V "
+            f"repeated) {t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}; "
+            f"{n_bytes / 1e6:.1f} MB, {n_flop / 1e9:.2f} GFLOP)")
+        if record is None:       # the LLM prefill: the record's shape
+            record = dict(name="flash_attention", route="cuda",
+                          source="src/repro_torch/csrc/flash_attention.cu",
+                          replaces="src/repro/kernels/flash_attention.py:85",
+                          jax="src/repro/kernels/flash_attention.py:"
+                              "flash_attention_pallas",
+                          bound_ms=bms, bound_by=by, **t, other_shapes={})
+        else:
+            record["other_shapes"][name] = dict(bound_ms=bms, **t)
+        del q, k, v, kr, vr, got, want
+    record["max_abs_err"] = worst
+    return record
+
+
+def greedy_gaps(torch, model, prompts, lengths, ids):
+    """The top-1 minus top-2 logit of ``model`` at each greedy step, from a
+    full forward over each prompt and the tokens generated after it."""
+    gaps = []
+    with torch.inference_mode():
+        for row, n, out in zip(prompts, lengths, ids):
+            seq = torch.cat([torch.as_tensor(row[:n]).long(),
+                             torch.as_tensor(out[:-1]).long()])[None]
+            top = model(seq.to(model.device))[0, n - 1:].float().topk(2).values
+            gaps.append((top[:, 0] - top[:, 1]).cpu())
+    return torch.stack(gaps).numpy()
+
+
+def phase_model_smoke(torch, ops):
+    """One seeded llama3 smoke model on the CPU (plain attention) and on
+    the card (the kernel), in fp32 and in bf16: prefill logits within
+    LOGIT_TOL, 8 greedy tokens equal by the near-tie rule."""
+    for dtype in LOGIT_TOL:
+        model_smoke(torch, ops, dtype)
+
+
+def model_smoke(torch, ops, dtype):
+    import copy
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core.generator import ModelLLM, build_prompt
+    from repro_torch.core.interfaces import Chunk
+    from repro_torch.kernels.parity import compare_tokens
+
+    cfg = configs.get_smoke("llama3_8b").replace(dtype=dtype)
+    tol = LOGIT_TOL[dtype]
+    cpu = ModelLLM(cfg, max_prompt=64, max_new=8, batch_size=4, seed=0,
+                   device="cpu")
+    card = ModelLLM(cfg, max_prompt=64, max_new=8, batch_size=4,
+                    device=DEVICE, model=copy.deepcopy(cpu.model).to(DEVICE))
+    questions = [f"what is the color of item-{i}" for i in range(6)]
+    ctxs = [[Chunk(i, i, f"the color of item-{i} is shade-{i % 5} " *
+                   (1 + 3 * i))] for i in range(6)]
+    prompts = cpu.tok.encode_batch([build_prompt(q, c) for q, c in
+                                    zip(questions, ctxs)], 64)
+    lengths = np.maximum((prompts != 0).sum(1), 1)
+    with torch.inference_mode():
+        want, _ = cpu.model.prefill(torch.from_numpy(prompts),
+                                    cpu.model.init_cache(6, 72),
+                                    lengths=torch.from_numpy(lengths))
+        ops.reset_launch_counts()
+        got, _ = card.model.prefill(torch.from_numpy(prompts).to(DEVICE),
+                                    card.model.init_cache(6, 72),
+                                    lengths=torch.from_numpy(lengths).to(
+                                        DEVICE))
+    launches = ops.launch_counts()["flash_attention"]
+    diff = float((got.cpu().float() - want.float()).abs().max())
+    if not diff <= tol or launches != cfg.n_layers:
+        raise AssertionError(f"smoke model {dtype} prefill: card vs CPU "
+                             f"max|d| {diff}, {launches} flash launches")
+    ref_ids = [[int(w[3:]) for w in a.split()]
+               for a in cpu.generate(questions, ctxs)]
+    ids = [[int(w[3:]) for w in a.split()]
+           for a in card.generate(questions, ctxs)]
+    gaps = greedy_gaps(torch, cpu.model, prompts, lengths, ref_ids)
+    res = compare_tokens(np.array(ref_ids), np.array(ids), gaps, tol)
+    if res["violations"]:
+        raise AssertionError(f"smoke model {dtype} tokens: card {ids} vs "
+                             f"CPU {ref_ids} ({res})")
+    say(f"model smoke ({dtype} llama3 smoke, 6 prompts of up to 64 tokens): "
+        f"prefill logits card vs CPU max|d| {diff:.3g} (tolerance "
+        f"{tol}), {launches} flash launches; 8 greedy tokens, "
+        f"{res['mismatch_rows']} rows differ, smallest reference top-2 gap "
+        f"{float(gaps.min()):.3g}")
+
+
+def time_model(torch, model) -> None:
+    """Where a generate batch's time goes, at the serving spec's shape
+    (8 rows padded to 512 tokens, real lengths 250-350): the prefill and
+    one decode step (CUDA events, median of RUNS), and the kernels one
+    decode step launches with their device time (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B, S, new = 8, 512, 16
+    V = model.cfg.vocab_size
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    lengths = torch.randint(250, 351, (B,), generator=gen, device=DEVICE)
+    tokens = torch.randint(4, V, (B, S), generator=gen, device=DEVICE)
+    tokens[torch.arange(S, device=DEVICE)[None, :] >= lengths[:, None]] = 0
+    with torch.inference_mode():
+        cache = model.init_cache(B, S + new + 2 * RUNS + 8)
+        prefill_ms = median_ms(lambda: model.prefill(tokens, cache,
+                                                     lengths=lengths), torch)
+        logits, cache = model.prefill(tokens, cache, lengths=lengths)
+        cur = logits.argmax(-1)[:, None]
+        step_ms = median_ms(lambda: model.decode_step(cur, cache), torch)
+        steps = 4
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                logits, cache = model.decode_step(cur, cache)
+            torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    n_kernels = sum(e.count for e in kernels) / steps
+    busy_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    # bound of a decode step: every weight read once (16 GB)
+    bound_step = 1e3 * 2 * model.cfg.param_count() / HBM_BYTES_PER_S
+    head = (f"llama3_8b at B={B}, S={S}: prefill {prefill_ms:.2f} ms, "
+            f"decode step {step_ms:.2f} ms (bound {bound_step:.2f} ms: the "
+            f"weights read once)")
+    if not kernels:
+        say(f"{head}; kernels per decode step and device time not measured "
+            f"(the profiler saw no device activity)")
+        return
+    say(f"{head}; one decode step launches {n_kernels:.0f} kernels, device "
+        f"busy {busy_ms:.2f} ms of it (idle share "
+        f"{1 - busy_ms / step_ms:.3f}); most device time: "
+        + ", ".join(f"{e.key[:48]} {e.self_device_time_total / steps / 1e3:.3f}"
+                    f" ms" for e in top))
+
+
+def phase_model_full(torch, ops):
+    """Llama-3-8B at full width on the card: the parameter count, then the
+    RAG pipeline served with it; returns flash_attention's launches in the
+    serve run."""
+    from repro_torch import configs
+    from repro_torch.core import embedder, reranker
+    from repro_torch.launch import serve
+    from repro_torch.models import api, transformer
+
+    cfg = configs.get_config("llama3_8b")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = transformer.init(cfg, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = api.count_params(model)
+    if n_params != LLAMA3_8B_PARAMS:
+        raise AssertionError(f"llama3_8b has {n_params} parameters")
+    tokens = torch.randint(4, cfg.vocab_size, (2, 64), device=DEVICE)
+    with torch.inference_mode():
+        logits, _ = model.prefill(tokens, model.init_cache(2, 64))
+    if logits.shape != (2, cfg.vocab_size) or not bool(
+            logits.float().isfinite().all()):
+        raise AssertionError(f"llama3_8b prefill logits {logits.shape} "
+                             f"are not finite")
+    say(f"llama3_8b: {n_params} parameters "
+        f"({api.param_bytes(model) / 1e9:.2f} GB bf16) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s; prefill logits finite")
+    time_model(torch, model)
+    del model, logits
+    torch.cuda.empty_cache()
+
+    # every consumer's batch launches flash_attention once per layer
+    batches = {"prefill": 0, "embed": 0, "cross": 0}
+    wrapped = [(transformer.Transformer, "prefill", "prefill"),
+               (embedder, "_encode_fn", "embed"),
+               (reranker, "_cross_score", "cross")]
+    saved = [getattr(owner, attr) for owner, attr, _ in wrapped]
+
+    def counting(fn, key):
+        def call(*args, **kw):
+            batches[key] += 1
+            return fn(*args, **kw)
+        return call
+
+    for (owner, attr, key), fn in zip(wrapped, saved):
+        setattr(owner, attr, counting(fn, key))
+    spec = SRC / "repro_torch" / "specs" / "model_llama3_8b.json"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        doc = serve.main(["--config", str(spec), "--mode", "sync", "--docs",
+                          "256", "--requests", "48", "--device", DEVICE])
+    finally:
+        for (owner, attr, _), fn in zip(wrapped, saved):
+            setattr(owner, attr, fn)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    # one launch per layer: 32 in the generator, 4 in each encoder
+    want = (cfg.n_layers * batches["prefill"]
+            + ENCODER_LAYERS * (batches["embed"] + batches["cross"]))
+    gen = doc["gen"]
+    n_queries = doc["ops"].get("query", 0)
+    if (launches["flash_attention"] != want or not gen
+            or gen["n_requests"] != n_queries or n_queries == 0
+            or gen["tokens_out"] != 16 * n_queries
+            or sum(doc["ops"].values()) != 48
+            or min(launches["ivf_topk"], launches["topk_search"]) == 0):
+        raise AssertionError(f"serve model_llama3_8b: launches {launches} "
+                             f"(flash want {want} from {batches}), ops "
+                             f"{doc['ops']}, gen {gen}")
+    tok_s = gen["tokens_out"] / doc["stage_breakdown"]["generation"]
+    say(f"serve model_llama3_8b: {sum(doc['ops'].values())} requests "
+        f"({doc['ops']}) in {wall:.1f} s, every query answered with 16 "
+        f"tokens; batches {batches}; launches {launches}; TTFT p50 "
+        f"{1e3 * gen['ttft_p50_s']:.2f} ms, TPOT p50 "
+        f"{1e3 * gen['tpot_p50_s']:.2f} ms, {tok_s:.1f} generated tokens/s "
+        f"over the generation stage; stage breakdown (s) "
+        f"{ {k: round(v, 3) for k, v in doc['stage_breakdown'].items()} }; "
+        f"max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches["flash_attention"]
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py runs from the root of a checkout "
@@ -757,12 +1126,23 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_serve(torch, ops)
     timings["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    records["flash_attention"] = phase_flash(torch, ops, ref)
+    timings["flash kernel"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_model_smoke(torch, ops)
+    timings["model smoke"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flash_launches = phase_model_full(torch, ops)
+    timings["model full width"] = time.perf_counter() - t0
     say("phase wall seconds: " + ", ".join(
         f"{name} {sec:.1f}" for name, sec in timings.items()))
 
     kernels = []
     for name, rec in records.items():
-        rec["launches"] = db_launches[name]
+        rec["launches"] = (flash_launches if name == "flash_attention"
+                           else db_launches[name])
         kernels.append(rec)
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -10,7 +10,12 @@ the same state, the reference's state goes across as numpy arrays:
 * ``db_state`` / ``db_from_jax`` — a ``repro`` ``JaxVectorDB``'s vectors,
   masks, payloads, centroids, buckets and quantized state (sq8 codes and
   scale, PQ codes and codebook) into a ``TorchVectorDB``, which then builds
-  its own packed mirror (fp32 rows, or PQ codes).
+  its own packed mirror (fp32 rows, or PQ codes);
+* ``transformer_from_jax`` — a ``repro.models.transformer`` parameter tree
+  (stacked ``[L, ...]`` leaves) into the port's per-layer ``Transformer``;
+  ``model_llm_from_jax``, ``transformer_embedder_from_jax`` (with its
+  ``proj``) and ``cross_reranker_from_jax`` (with its ``head``) carry the
+  model-backed components across with it.
 
 The arguments are read by attribute only: this module imports nothing of the
 JAX package.
@@ -21,10 +26,16 @@ import dataclasses
 from typing import Dict
 
 import numpy as np
+import torch
 
-from repro_torch.core.embedder import HashEmbedder
+from repro_torch import resolve_device
+from repro_torch.core.embedder import HashEmbedder, TransformerEmbedder
+from repro_torch.core.generator import ModelLLM
 from repro_torch.core.interfaces import Chunk
+from repro_torch.core.reranker import CrossEncoderReranker
 from repro_torch.core.vectordb import DBConfig, TorchVectorDB
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Transformer
 
 
 def embedder_from_jax(jax_embedder) -> HashEmbedder:
@@ -76,3 +87,67 @@ def db_from_jax(jax_db, use_kernel=None, device=None) -> TorchVectorDB:
     db = TorchVectorDB(cfg, device=device)
     db.load_state(db_state(jax_db))
     return db
+
+
+def _copy(dst: torch.Tensor, src) -> None:
+    a = np.array(src, dtype=np.float32)
+    if a.shape != tuple(dst.shape):
+        raise ValueError(f"shape {a.shape} does not fit {tuple(dst.shape)}")
+    with torch.no_grad():
+        dst.copy_(torch.from_numpy(a))
+
+
+def transformer_from_jax(params, cfg: ModelConfig, device=None) -> Transformer:
+    """The port's ``Transformer`` for ``cfg`` holding the reference's
+    parameters (a ``repro.models.transformer.init`` tree) on ``device``
+    (``None`` is the card): layer ``i`` takes slice ``i`` of every stacked
+    leaf. Values go through fp32, so bf16 weights arrive bit for bit."""
+    model = Transformer(cfg, device=device)
+    layers = params["layers"]
+    for i, blk in enumerate(model.layers):
+        for group in ("attn", "mlp"):
+            for name, p in getattr(blk, group).items():
+                _copy(p, np.asarray(layers[group][name], np.float32)[i])
+        _copy(blk.attn_norm, np.asarray(layers["attn_norm"], np.float32)[i])
+        _copy(blk.mlp_norm, np.asarray(layers["mlp_norm"], np.float32)[i])
+    _copy(model.final_norm, params["final_norm"])
+    _copy(model.embed, params["embed"])
+    if model.lm_head is not None:
+        _copy(model.lm_head, params["lm_head"])
+    return model
+
+
+def model_llm_from_jax(jax_llm, device=None) -> ModelLLM:
+    """A port ``ModelLLM`` with the reference's config, sizes and weights,
+    on ``device`` (``None`` is the card)."""
+    device = resolve_device(device)
+    cfg = ModelConfig(**dataclasses.asdict(jax_llm.cfg))
+    return ModelLLM(cfg, max_prompt=jax_llm.max_prompt,
+                    max_new=jax_llm.max_new, batch_size=jax_llm.batch_size,
+                    device=device,
+                    model=transformer_from_jax(jax_llm.params, cfg, device))
+
+
+def transformer_embedder_from_jax(jax_emb, device=None) -> TransformerEmbedder:
+    """A port ``TransformerEmbedder`` with the reference's encoder and
+    projection, on ``device`` (``None`` is the card)."""
+    device = resolve_device(device)
+    cfg = ModelConfig(**dataclasses.asdict(jax_emb.cfg))
+    emb = TransformerEmbedder(
+        dim=jax_emb.dim, d_model=cfg.d_model, n_layers=cfg.n_layers,
+        max_len=jax_emb.max_len, batch_size=jax_emb.batch_size,
+        device=device, model=transformer_from_jax(jax_emb.params, cfg, device),
+        proj=np.array(jax_emb.proj, np.float32))
+    return emb
+
+
+def cross_reranker_from_jax(jax_rr, device=None) -> CrossEncoderReranker:
+    """A port ``CrossEncoderReranker`` with the reference's encoder and
+    scoring head, on ``device`` (``None`` is the card)."""
+    device = resolve_device(device)
+    cfg = ModelConfig(**dataclasses.asdict(jax_rr.cfg))
+    return CrossEncoderReranker(
+        d_model=cfg.d_model, n_layers=cfg.n_layers, max_len=jax_rr.max_len,
+        batch_size=jax_rr.batch_size, device=device,
+        model=transformer_from_jax(jax_rr.params, cfg, device),
+        head=np.array(jax_rr.head, np.float32))

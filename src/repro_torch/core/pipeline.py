@@ -5,8 +5,8 @@ of ``repro.core.pipeline``.
 from a declarative ``PipelineSpec`` through the port's registry, and the
 query path is the list of composable ``Stage`` objects
 (``repro_torch.core.stages``) folded lock-step here. ``device`` reaches every
-factory that names a ``device`` parameter (the vector DB); ``None`` means
-the card.
+factory that names a ``device`` parameter (the vector DB, the transformer
+embedder, the cross-encoder, the model LLM); ``None`` means the card.
 """
 from __future__ import annotations
 
@@ -34,7 +34,8 @@ class RAGPipeline:
         self.traces: List[StageTrace] = []
 
         self.embedder = embedder or registry.create(
-            "embedder", spec.embedder.component, **spec.embedder.options)
+            "embedder", spec.embedder.component, _context={"device": device},
+            **spec.embedder.options)
         self.chunker = registry.create(
             "chunker", spec.chunker.component, **spec.chunker.options)
         # context injection: the DB inherits the embedder's dim and the
@@ -51,6 +52,7 @@ class RAGPipeline:
                 "reranker", spec.reranker.component, _context=ctx,
                 **spec.reranker.options)
         self.llm = llm or registry.create("llm", spec.llm.component,
+                                          _context={"device": device},
                                           **spec.llm.options)
 
         self.stages = build_query_stages(

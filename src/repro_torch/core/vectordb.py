@@ -43,6 +43,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.interfaces import Chunk, DBInstance, SearchResult
 from repro_torch.core.registry import register
 from repro_torch.kernels import ops as kops
@@ -72,16 +73,6 @@ def kernel_ladder(use_kernel) -> str:
     raise ValueError(
         f"invalid use_kernel={use_kernel!r}; allowed values: "
         f"False/True or {', '.join(KERNEL_LADDER)}")
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means ``cuda``; asking for CUDA where there is none raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; the port runs on the card unless the "
-            "caller passes device='cpu'")
-    return dev
 
 
 # ---------------------------------------------------------------------------

@@ -1,31 +1,14 @@
 // Pieces shared by the corpus-tile scans (topk_search.cu over fp32 rows,
-// sq8_topk.cu over int8 codes, quant_score.cu): cp.async copies, the
-// register-blocked FMA loop, the tile's liveness prologue and the fold of
-// a finished score tile into the per-query running top-k lists.
+// sq8_topk.cu over int8 codes, quant_score.cu): the register-blocked FMA
+// loop, the tile's liveness prologue and the fold of a finished score tile
+// into the per-query running top-k lists.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
 #include "topk_list.cuh"
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_0() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // acc[i][j] += qb[ty*4+i, :] . cb[tx+16*j, :] over one depth chunk of DK
 // floats, both operands in shared memory with row pitch DKP: the 4 x 8

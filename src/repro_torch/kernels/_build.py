@@ -25,7 +25,8 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # <repo>/build/kernels: src/repro_torch/kernels/_build.py -> parents[3]
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("topk_search", "ivf_topk", "quant_score", "sq8_topk", "pq_topk")
+SOURCES = ("topk_search", "ivf_topk", "quant_score", "sq8_topk", "pq_topk",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -93,12 +94,12 @@ def library(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def entry(name: str, n_ptr: int, n_int: int):
-    """``(library, C entry point <name>_f32)`` of ``csrc/<name>.cu``, typed
-    as taking ``n_ptr`` pointers, ``n_int`` ints and the stream and
-    returning the CUDA error code."""
+def entry(name: str, n_ptr: int, n_int: int, dtype: str = "f32"):
+    """``(library, C entry point <name>_<dtype>)`` of ``csrc/<name>.cu``
+    (``dtype`` "f32" or "bf16"), typed as taking ``n_ptr`` pointers,
+    ``n_int`` ints and the stream and returning the CUDA error code."""
     lib = library(name)
-    fn = getattr(lib, f"{name}_f32")
+    fn = getattr(lib, f"{name}_{dtype}")
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int

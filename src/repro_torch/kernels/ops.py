@@ -15,6 +15,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_retrieve as _fr
 from repro_torch.kernels import quant_score as _qs
 from repro_torch.kernels import ref
@@ -74,14 +75,23 @@ def pq_topk(q, codebook, cent, packed_codes, packed_slot, packed_ok,
                        packed_ok, nprobe, k)
 
 
+def flash_attention(q, k, v, *, causal: bool):
+    """Grouped-query attention, q:[B,H,S,dh], k/v:[B,Hkv,S,dh]; see
+    ``ref.flash_attention`` for the contract."""
+    if _on_cuda(q, k, v):
+        return _fa.flash_attention_cuda(q, k, v, causal)
+    return ref.flash_attention(q, k, v, causal=causal)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last reset."""
     return {"topk_search": _ts.launches, "quant_score": _qs.launches,
-            **_fr.launches}
+            **_fr.launches, "flash_attention": _fa.launches}
 
 
 def reset_launch_counts() -> None:
     _ts.launches = 0
     _qs.launches = 0
+    _fa.launches = 0
     for name in _fr.launches:
         _fr.launches[name] = 0

@@ -1,4 +1,5 @@
-"""The parity rule for top-k results, shared by the tests and ``chip_smoke.py``.
+"""The parity rules for top-k results and for greedy tokens, shared by the
+tests and ``chip_smoke.py``.
 
 Two fp32 top-k results of the same search (the port against the JAX package,
 or a kernel against its plain version) sum their dot products in different
@@ -12,6 +13,13 @@ swap. The rule:
   the same set of ids; a group that reaches the last position is exempt
   from that, because its tie may continue past ``k``;
 * no valid id repeats within a row.
+
+Greedy decoding (``compare_tokens``) follows the same idea: over 100k-wide
+bf16 logits the top two can tie exactly, and two correct implementations
+may then pick different tokens. Tokens must be equal, except from the first
+position where the reference's own top-2 logit gap is within the logit
+tolerance: there the pick may differ, and everything after it follows from a
+different input.
 """
 from __future__ import annotations
 
@@ -56,3 +64,24 @@ def compare_topk(s_ref, i_ref, s, i, tol: float = TOL) -> Dict[str, float]:
     return {"max_abs_diff": float(diff.max()) if diff.size else 0.0,
             "id_mismatches": int((i_ref != i).sum()),
             "violations": violations}
+
+
+def compare_tokens(ref_ids, ids, ref_gaps, tol: float) -> Dict[str, int]:
+    """Hold greedy tokens ``ids [n, T]`` against ``ref_ids [n, T]``.
+
+    ``ref_gaps [n, T]`` is the reference's top-1 minus top-2 logit at each
+    step. A row agrees if its tokens equal the reference's up to the first
+    position where they differ and the reference's gap there is at most
+    ``tol``. Returns ``mismatch_rows`` (rows that differ anywhere) and
+    ``violations`` (rows breaking the rule; 0 means they agree)."""
+    ref_ids, ids, ref_gaps = (_np(x) for x in (ref_ids, ids, ref_gaps))
+    if ref_ids.shape != ids.shape or ref_gaps.shape != ids.shape:
+        raise ValueError(f"shapes differ: {ref_ids.shape}, {ids.shape}, "
+                         f"{ref_gaps.shape}")
+    mismatch = violations = 0
+    for r in range(ids.shape[0]):
+        diff = np.nonzero(ref_ids[r] != ids[r])[0]
+        if len(diff):
+            mismatch += 1
+            violations += not ref_gaps[r, diff[0]] <= tol
+    return {"mismatch_rows": mismatch, "violations": violations}

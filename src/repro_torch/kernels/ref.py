@@ -10,6 +10,8 @@ comes first, so every top-k here is a stable descending sort cut to ``k``
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 NEG = -3.0e38
@@ -160,3 +162,25 @@ def pq_topk(q, codebook, cent, packed_codes, packed_slot, packed_ok,
         ci.append(torch.gather(ps[b], 1, tp))
     return merge_candidates(torch.stack(cs, 1).reshape(nq, nprobe * kt),
                             torch.stack(ci, 1).reshape(nq, nprobe * kt), k)
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """Attention with grouped-query heads, step by step as the reference
+    ``repro.kernels.ref.flash_attention``: q:[B,H,S,dh], k/v:[B,Hkv,S,dh]
+    (query head ``h`` reads KV head ``h // (H // Hkv)``) -> [B,H,S,dh].
+
+    The logits are taken in the input dtype, cast to fp32 and scaled by
+    ``1/sqrt(dh)``; causal masks the keys above the diagonal with -inf; the
+    softmax is fp32 and its probabilities go back to ``q.dtype`` before the
+    product with ``v``."""
+    S, dh = q.shape[2], q.shape[3]
+    rep = q.shape[1] // k.shape[1]
+    k = k.repeat_interleave(rep, dim=1)
+    v = v.repeat_interleave(rep, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * (
+        1.0 / math.sqrt(dh))
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)

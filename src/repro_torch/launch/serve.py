@@ -3,10 +3,12 @@
 
 Builds the pipeline from a ``PipelineSpec`` JSON through the port's registry,
 indexes a synthetic corpus and replays a seeded workload stream through it
-(``--mode sync``, the offline replay of ``repro.launch.serve``). The vector
-DB runs on ``--device`` (default ``cuda``). The JAX package's other modes and
-flags are not ported yet; they fail naming the ROADMAP.md item that ports
-them.
+(``--mode sync``, the offline replay of ``repro.launch.serve``). Every
+component runs on ``--device`` (default ``cuda``). ``--arch`` (with
+``--smoke`` and ``--max-new``) puts a ``ModelLLM`` of that architecture in
+the generator slot as the reference's flags do, ``--config`` giving the
+other slots. The JAX package's other modes and flags are not ported yet;
+they fail naming the ROADMAP.md item that ports them.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import os
 import time
 
 from repro_torch.core.registry import build
-from repro_torch.core.spec import PipelineSpec
+from repro_torch.core.spec import PipelineSpec, StageSpec
 from repro_torch.monitor.monitor import MonitorConfig, ResourceMonitor
 from repro_torch.workload.corpus import CorpusConfig, SyntheticCorpus
 from repro_torch.workload.generator import WorkloadConfig
@@ -25,7 +27,6 @@ from repro_torch.workload.runner import run_workload
 # flags of repro.launch.serve that the port does not take yet -> the item
 # of ROADMAP.md queue 1 that ports them
 NOT_PORTED = {
-    "--arch": "queue 1 item 7 (dense model zoo and ModelLLM)",
     "--scenario": "queue 1 item 5 (serving modes, scenarios, obs)",
     "--trace-out": "queue 1 item 5 (serving modes, scenarios, obs)",
 }
@@ -35,6 +36,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Serve the RAG pipeline of the PyTorch/CUDA port.")
     ap.add_argument("--config", required=True, help="PipelineSpec JSON")
+    ap.add_argument("--arch", default="",
+                    help="serve a ModelLLM of this architecture in the llm "
+                         "slot (dense family)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="with --arch: the reduced smoke config")
+    ap.add_argument("--max-new", type=int, default=8,
+                    help="with --arch: tokens generated per request")
     ap.add_argument("--docs", type=int, default=64)
     ap.add_argument("--requests", type=int, default=60)
     ap.add_argument("--batch", type=int, default=4)
@@ -46,7 +54,7 @@ def main(argv=None):
                     help="only 'sync' is ported (open/closed: ROADMAP.md "
                          "queue 1 item 5)")
     ap.add_argument("--device", default="cuda",
-                    help="device of the vector DB (cuda or cpu)")
+                    help="device of every component (cuda or cpu)")
     ap.add_argument("--monitor-out", default="")
     ap.add_argument("--json-out", default="",
                     help="write the run document (qps, quality, stage "
@@ -62,6 +70,13 @@ def main(argv=None):
                  f"item 5 (the open/closed/elastic/staged serving modes)")
 
     spec = PipelineSpec.from_file(args.config)
+    if args.arch:
+        # the reference's flag mapping (repro.launch.serve.spec_from_args):
+        # the serving driver runs its generator with a short prompt
+        spec.llm = StageSpec("model", {
+            "arch": args.arch, "smoke": args.smoke, "batch_size": args.batch,
+            "max_new": args.max_new, "max_prompt": 128},
+            batch_size=args.batch)
     pipe = build(spec, device=args.device)
     monitor = ResourceMonitor(MonitorConfig(out_path=args.monitor_out)).start()
     monitor.add_gauge("db_live", lambda: pipe.db.stats()["live"])
@@ -80,10 +95,18 @@ def main(argv=None):
     monitor.stop()
     print(f"served {args.requests} requests: {res.qps:.2f} QPS")
     print("quality:", {k: round(v, 3) for k, v in res.quality.items()})
+    # generation metrics where the backend keeps them (ModelLLM); others
+    # get an empty block, as in the reference's run document
+    llm_stats = getattr(pipe.llm, "stats", None)
+    gen_block = llm_stats.summary() if hasattr(llm_stats, "summary") else {}
+    if gen_block:
+        print("gen stats:", {k: round(v, 4) for k, v in gen_block.items()})
     print("stage breakdown (s):",
           {k: round(v, 3) for k, v in pipe.breakdown().items()})
     doc = {"mode": args.mode, "seed": args.seed, "device": args.device,
-           "qps": res.qps, "quality": res.quality,
+           "qps": res.qps, "ops": {op: len(lat) for op, lat in
+                                   res.latencies.items()},
+           "quality": res.quality, "gen": gen_block,
            "stage_breakdown": pipe.breakdown(), "db": pipe.db_stats()}
     if args.json_out:
         os.makedirs(os.path.dirname(args.json_out) or ".", exist_ok=True)

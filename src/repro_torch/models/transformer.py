@@ -1,0 +1,212 @@
+"""Decoder-only GQA transformer, dense family: the port of
+``repro.models.transformer``.
+
+``Transformer`` is an ``nn.Module`` with one ``Block`` per layer in a
+``ModuleList`` where the reference stacks ``[L, ...]`` leaves and scans
+them. Weights keep the reference's layout (``x @ W`` with ``W [in, out]``;
+the embedding ``[vocab, d]``, its transpose the LM head when tied), so a
+JAX parameter tree goes across as copies (``repro_torch.convert``).
+Inference only: no parameter takes a gradient.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.config import ModelConfig
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return _DTYPES[cfg.dtype]
+
+
+def _params(shapes: Dict[str, tuple], device, dtype) -> nn.ParameterDict:
+    return nn.ParameterDict({
+        name: nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
+                           requires_grad=False)
+        for name, shape in shapes.items()})
+
+
+class Block(nn.Module):
+    """norm -> attention -> residual -> norm -> MLP -> residual."""
+
+    def __init__(self, cfg: ModelConfig, device, dtype):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        self.attn = _params(L.attn_shapes(cfg), device, dtype)
+        self.attn_norm = nn.Parameter(torch.empty(d, device=device,
+                                                  dtype=dtype),
+                                      requires_grad=False)
+        self.mlp = _params(L.mlp_shapes(cfg), device, dtype)
+        self.mlp_norm = nn.Parameter(torch.empty(d, device=device,
+                                                 dtype=dtype),
+                                     requires_grad=False)
+
+    def forward(self, x, positions, causal: bool):
+        """Returns the block's output and its rotated ``k`` and ``v``
+        ``[B,S,Hkv,hd]`` (what a prefill writes to the cache)."""
+        cfg = self.cfg
+        h = L.rmsnorm(x, self.attn_norm, cfg.norm_eps)
+        q, k, v = L.attention_qkv(self.attn, h, positions, cfg)
+        x = x + L.attention_out(self.attn, q, k, v, cfg, causal)
+        h = L.rmsnorm(x, self.mlp_norm, cfg.norm_eps)
+        return x + L.mlp_apply(self.mlp, h, cfg.activation), k, v
+
+
+class Transformer(nn.Module):
+    """The dense model; its tensors are uninitialised until ``init`` fills
+    them (on ``meta`` they are shapes only). ``device=None`` is the card.
+    Its methods take token ids and lengths on the model's device and never
+    move them: a tensor on another device raises."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        L.require_full_attention(cfg)
+        self.cfg = cfg
+        device = resolve_device(device)
+        dtype = torch_dtype(cfg)
+        d, v = cfg.d_model, cfg.vocab_size
+        self.layers = nn.ModuleList(Block(cfg, device, dtype)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = nn.Parameter(torch.empty(d, device=device,
+                                                   dtype=dtype),
+                                       requires_grad=False)
+        self.lm_head = None
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(torch.empty((d, v), device=device,
+                                                    dtype=dtype),
+                                        requires_grad=False)
+        self.embed = nn.Parameter(torch.empty((v, d), device=device,
+                                              dtype=dtype),
+                                  requires_grad=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def head(self) -> torch.Tensor:
+        """``[d, vocab]``: the LM head, or the embedding's transpose when
+        the embeddings are tied (e.g. phi4-mini)."""
+        return self.embed.T if self.lm_head is None else self.lm_head
+
+    def _on_device(self, name: str, t) -> torch.Tensor:
+        if not isinstance(t, torch.Tensor) or t.device != self.device:
+            where = t.device if isinstance(t, torch.Tensor) else type(t)
+            raise ValueError(f"{name} must be a tensor on the model's device "
+                             f"{self.device}, got {where}")
+        return t
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.embed[self._on_device("tokens", tokens).long()]
+
+    def hidden(self, tokens: torch.Tensor, causal: bool = True):
+        """The final-normed hidden states ``[B,S,D]`` of a full-sequence
+        pass; ``causal=False`` is the encoders' bidirectional pass."""
+        x = self._embed(tokens)
+        B, S = tokens.shape
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        for blk in self.layers:
+            x, _, _ = blk(x, positions, causal)
+        return L.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Full-sequence causal forward -> logits ``[B,S,V]``."""
+        return self.hidden(tokens) @ self.head()
+
+    def init_cache(self, batch: int, max_len: int) -> Dict:
+        """Zeroed ``k``/``v`` ``[L, B, max_len, Hkv, hd]`` and ``pos`` 0."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=self.embed.dtype,
+                                 device=self.device),
+                "v": torch.zeros(shape, dtype=self.embed.dtype,
+                                 device=self.device),
+                "pos": 0}
+
+    def prefill(self, tokens: torch.Tensor, cache: Dict,
+                lengths: Optional[torch.Tensor] = None):
+        """Run the prompt ``[B,S]`` through the model, writing its K/V into
+        ``cache`` in place. Returns ``(last-position logits [B,V], cache)``.
+
+        With ``lengths`` ([B] per-row real prompt lengths) the logits are
+        gathered at each row's last real token and ``cache["pos"]`` becomes
+        the per-row position vector; without, ``pos`` is ``S`` and the
+        logits are the last position's."""
+        cfg = self.cfg
+        x = self._embed(tokens)
+        B, S = tokens.shape
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        for i, blk in enumerate(self.layers):
+            x, k, v = blk(x, positions, True)
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+        if lengths is None:
+            cache["pos"] = S
+            x = x[:, -1:]
+        else:
+            lengths = self._on_device("lengths", lengths).long()
+            cache["pos"] = lengths
+            last = (lengths - 1).clamp(0, S - 1)
+            x = x[torch.arange(B, device=self.device), last][:, None]
+        x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
+        return (x @ self.head())[:, 0], cache
+
+    def decode_step(self, tokens: torch.Tensor, cache: Dict):
+        """One-token decode, tokens ``[B,1]``; ``cache["pos"]`` is an int
+        (lock-step) or a ``[B]`` tensor (per-row positions). Writes the new
+        K/V in place and returns ``(logits [B,V], cache)``."""
+        cfg = self.cfg
+        x = self._embed(tokens)
+        index = cache["pos"]
+        for i, blk in enumerate(self.layers):
+            h = L.rmsnorm(x, blk.attn_norm, cfg.norm_eps)
+            x = x + L.cached_attention_step(blk.attn, h, cache["k"][i],
+                                            cache["v"][i], index, cfg)
+            h = L.rmsnorm(x, blk.mlp_norm, cfg.norm_eps)
+            x = x + L.mlp_apply(blk.mlp, h, cfg.activation)
+        cache["pos"] = index + 1
+        x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
+        return (x @ self.head())[:, 0], cache
+
+
+def _trunc_normal(shape, gen: torch.Generator, device) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2] (inverse-CDF sampling), fp32."""
+    lo, hi = (0.5 * (1.0 + math.erf(b / math.sqrt(2.0))) for b in (-2.0, 2.0))
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    t.uniform_(2 * lo - 1, 2 * hi - 1, generator=gen)
+    return t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+
+
+def dense_init_(w: torch.Tensor, gen: torch.Generator) -> None:
+    """Truncated-normal fan-in init of ``w [in, out]`` (std 1/sqrt(in)),
+    drawn in fp32 on w's device and cast to its dtype."""
+    w.copy_(_trunc_normal(w.shape, gen, w.device) / math.sqrt(w.shape[-2]))
+
+
+@torch.no_grad()
+def init(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
+    """A model with random weights from ``seed``, drawn by a
+    ``torch.Generator`` on ``device`` itself (``None`` is the card; nothing
+    is staged on the host): norms zero, the embedding N(0, 0.02), every
+    matrix truncated normal with fan-in scale, as the reference's ``init``.
+    The numbers differ from the reference's ``jax.random`` draw."""
+    model = Transformer(cfg, device=device)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    for name, p in model.named_parameters():
+        if "norm" in name:
+            p.zero_()
+        elif name == "embed":
+            p.copy_(torch.randn(p.shape, generator=gen, device=p.device)
+                    * 0.02)
+        else:
+            dense_init_(p, gen)
+    return model

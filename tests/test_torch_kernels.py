@@ -23,6 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import fused_retrieve as jfr  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.topk_search import topk_search_pallas  # noqa: E402
+from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import fused_retrieve as tfr  # noqa: E402
 from repro_torch.kernels import quant_score as tqs  # noqa: E402
@@ -214,9 +215,13 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tfr.pq_topk_cuda(q, torch.zeros(2, 256, 4), torch.zeros(2, 8),
                          torch.zeros(4, 2, dtype=torch.int32),
                          torch.zeros(4, dtype=torch.int32), live, 1, 2)
+    with pytest.raises(ValueError, match="must be on"):
+        tfa.flash_attention_cuda(torch.zeros(1, 2, 4, 16),
+                                 torch.zeros(1, 1, 4, 16),
+                                 torch.zeros(1, 1, 4, 16), True)
     assert ops.launch_counts() == {"topk_search": 0, "quant_score": 0,
                                    "ivf_topk": 0, "sq8_topk": 0,
-                                   "pq_topk": 0}
+                                   "pq_topk": 0, "flash_attention": 0}
 
 
 def test_compare_topk_flags_a_wrong_id():

@@ -23,6 +23,10 @@ torch = pytest.importorskip("torch")
 # thread each keeps torch from crowding the timing-sensitive tests
 torch.set_num_threads(1)
 
+from repro import configs as jconfigs  # noqa: E402
+from repro.core import embedder as jemb_mod  # noqa: E402
+from repro.core import reranker as jrr_mod  # noqa: E402
+from repro.core.generator import ModelLLM as JModelLLM  # noqa: E402
 from repro.core.registry import build as jax_build  # noqa: E402
 from repro.core.spec import PipelineSpec as JaxSpec  # noqa: E402
 from repro.workload.corpus import CorpusConfig as JCorpusConfig  # noqa: E402
@@ -100,6 +104,66 @@ def _assert_slice_matches_jax(spec_path, monkeypatch):
         jpipe.db.counters["fused_searches"]
 
 
+def test_model_slice_matches_jax_request_by_request(monkeypatch):
+    """``model_smoke.json``: the transformer embedder, the fused IVF DB, the
+    cross-encoder and ``ModelLLM`` on the llama3 smoke config. The encoders'
+    and the generator's weights go across from the reference, then its DB
+    state. Run in fp32 copies of the configs, so that both packages agree
+    to about 1e-6 and no near tie in retrieval, reranking or the greedy
+    tokens can split them; bf16 is held to its tolerance at the module level
+    (tests/test_torch_models.py). Per request the retrieved and reranked ids
+    and the generated tokens must be equal."""
+    monkeypatch.setenv("REPRO_KERNEL_MODE", "xla")
+    for mod in (jemb_mod, jrr_mod):
+        orig = mod.encoder_config
+        monkeypatch.setattr(
+            mod, "encoder_config",
+            lambda _orig=orig, **kw: _orig(**kw).replace(dtype="float32"))
+    spec = PipelineSpec.from_file(os.path.join(SPECS, "model_smoke.json"))
+    opts = spec.llm.options
+    jllm = JModelLLM(
+        jconfigs.get_smoke(opts["arch"]).replace(dtype="float32"),
+        max_prompt=opts["max_prompt"], max_new=opts["max_new"],
+        batch_size=opts["batch_size"])
+    jpipe = jax_build(_jax_twin(spec.to_dict()), llm=jllm)
+    tpipe = build(
+        spec, embedder=convert.transformer_embedder_from_jax(jpipe.embedder,
+                                                             "cpu"),
+        reranker=convert.cross_reranker_from_jax(jpipe.reranker, "cpu"),
+        llm=convert.model_llm_from_jax(jllm, "cpu"), device="cpu")
+    n_docs, seed = 24, 5
+    jcorpus, tcorpus = (JCorpus(JCorpusConfig(n_docs=n_docs)),
+                        SyntheticCorpus(CorpusConfig(n_docs=n_docs)))
+    assert jpipe.index_documents(jcorpus.all_documents()) == \
+        tpipe.index_documents(tcorpus.all_documents())
+    n = jpipe.db.n_slots
+    np.testing.assert_allclose(tpipe.db.vectors[:n].numpy(),
+                               jpipe.db.vectors[:n], rtol=1e-5, atol=1e-5)
+    tpipe.db.load_state(convert.db_state(jpipe.db))
+    kw = dict(query_frac=0.9, update_frac=0.1, n_requests=24, seed=seed)
+    jax_run(jpipe, jcorpus, JWConfig(**kw), query_batch=4)
+    run_workload(tpipe, tcorpus, WorkloadConfig(**kw), query_batch=4)
+    assert len(tpipe.traces) == len(jpipe.traces) > 15
+    for jt, tt in zip(jpipe.traces, tpipe.traces):
+        assert tt.query == jt.query
+        assert tt.retrieved_ids == jt.retrieved_ids
+        assert tt.reranked_ids == jt.reranked_ids
+        assert tt.answer == jt.answer and len(tt.answer.split()) == 16
+    assert tpipe.llm.stats.n_requests == jllm.stats.n_requests
+    assert tpipe.llm.stats.tokens_out == jllm.stats.tokens_out
+
+
+def test_serve_main_runs_a_smoke_arch_on_cpu():
+    """``--arch --smoke --max-new`` put a ModelLLM in the llm slot of the
+    ``--config`` spec, and the run document carries its gen block."""
+    doc = serve.main(["--config", SPEC, "--arch", "llama3_8b", "--smoke",
+                      "--max-new", "3", "--docs", "16", "--requests", "8",
+                      "--device", "cpu"])
+    assert doc["gen"]["n_requests"] > 0
+    assert doc["gen"]["tokens_out"] == 3 * doc["gen"]["n_requests"]
+    assert doc["stage_breakdown"]["generation"] > 0
+
+
 @pytest.mark.parametrize("name", QUANT_SPECS)
 def test_serve_main_runs_quant_specs_on_cpu(name):
     """Each quantized spec serves through its rung, and the DB stats of the
@@ -124,7 +188,7 @@ def test_serve_main_runs_on_cpu(tmp_path):
     assert doc["db"]["fused_searches"] > 0
 
 
-@pytest.mark.parametrize("argv", [["--mode", "open"], ["--arch", "llama3_8b"],
+@pytest.mark.parametrize("argv", [["--mode", "open"], ["--mode", "closed"],
                                   ["--scenario", "steady"],
                                   ["--trace-out", "t.json"]])
 def test_serve_rejects_unported_options(argv, capsys):
