@@ -7,15 +7,17 @@ Phases, each of which raises on failure and prints its wall seconds:
 
 1. the card: ``nvidia-smi`` name and power limit, the torch version;
 2. build: every CUDA kernel of ``src/repro_torch/csrc`` with nvcc, one
-   process per source, all at once;
+   process per source, all at once; each library's registers, spills and
+   shared memory per block;
 3. kernels against their plain versions, on the card: tie order on
    exact-arithmetic inputs (ids and scores equal), the edge-case shapes and
    the deployment shapes (64 queries; 1,048,576 x 384 fp32 rows or int8
    codes; IVF with 1024 lists of 4096 slots, nprobe 16, PQ with 48
-   subspaces; k 16), with the median time of the kernel's wrapper, its
-   plain version and one PyTorch yardstick over 20 runs (CUDA events), and
-   its bound on this card. topk_search and ivf_topk, then quant_score,
-   sq8_topk and pq_topk;
+   subspaces; k 16), with the time of the kernel's wrapper, its plain
+   version and one PyTorch yardstick (CUDA events around 10 back-to-back
+   calls, median of 20 such runs), the kernel's ratio to the yardstick and
+   its share of its bound on this card. topk_search and ivf_topk, then
+   quant_score, sq8_topk and pq_topk;
 4. the vector DB at deployment size (``TorchVectorDB``), three
    configurations built one after the other from one seeded row set:
    1,048,576 clustered unit rows, the index build, 32,768 fresh rows in the
@@ -31,10 +33,12 @@ Phases, each of which raises on failure and prints its wall seconds:
 6. flash_attention against its plain version: the reference's test shapes,
    edge shapes (S 1, 63, 65, 192; GQA groups of 1, 3, 4; causal or not;
    bf16 and fp32), the exact first causal row, and the three deployment
-   shapes (the Llama-3-8B prefill, the embedder, the cross-encoder), each
-   also held to a worst-row relative error that a planted fault (one K/V
-   tile dropped) exceeds, with the kernel's, the plain version's and
-   ``scaled_dot_product_attention``'s median times and the bound;
+   shapes (the Llama-3-8B prefill at S 512 and a ragged 500, the
+   embedder, the cross-encoder), each also held to a worst-row relative
+   error that a planted fault (one K/V tile dropped) exceeds, with the
+   kernel's (and its time with one block per tile in place of the
+   persistent grid), the plain version's and
+   ``scaled_dot_product_attention``'s times and the bound;
 7. the model at smoke size: one set of seeded weights on the card and on
    the CPU (the llama3 smoke config in fp32, then in bf16 through the bf16
    mma kernel); prefill logits and 8 greedy tokens must agree;
@@ -85,6 +89,7 @@ LOGIT_TOL = {"float32": 1e-4, "bfloat16": 0.125}
 LLAMA3_8B_PARAMS = 8_030_261_248
 ENCODER_LAYERS = 4         # the transformer embedder's and cross-encoder's
 RUNS = 20                  # timed runs per measurement (median reported)
+REPEAT = 10                # back-to-back calls per timed run of a kernel
 
 NQ, N, DIM, K = 64, 1 << 20, 384, 16
 NLIST, CAP_B, NPROBE = 1024, 4096, 16
@@ -111,6 +116,34 @@ def median_ms(fn, torch) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def kernel_ms(fn, torch) -> float:
+    """A kernel's (or its plain version's, or a library call's) time: the
+    median over RUNS of REPEAT back-to-back calls of ``fn`` between two CUDA
+    events, over REPEAT. Back to back, the card does not wait for the host
+    between calls, so this reads the device time of a call wherever that
+    exceeds the host's time to launch it."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(REPEAT):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / REPEAT)
+    return sorted(times)[len(times) // 2]
+
+
+def speed(t: dict, bound_ms: float) -> str:
+    """The kernel's time against its library call and its bound."""
+    lib = (f"{t['ms'] / t['library_ms']:.3f}x the library call, "
+           if t.get("library_ms") else "")
+    return f"{lib}{100 * bound_ms / t['ms']:.1f} % of the bound"
 
 
 def bound(n_bytes: float, n_flop: float, peak: float = FP32_FLOP_PER_S):
@@ -199,9 +232,9 @@ def phase_kernels(torch, ops, ref, compare_topk):
         worst["id_mismatches"] += got["id_mismatches"]
     n_live = int(live.sum())
     neg = torch.tensor(ref.NEG, device=dev)
-    t = {"ms": median_ms(lambda: ops.topk_search(q, v, live, K), torch),
-         "plain_ms": median_ms(lambda: ref.topk_search(q, v, live, K), torch),
-         "library_ms": median_ms(lambda: torch.topk(
+    t = {"ms": kernel_ms(lambda: ops.topk_search(q, v, live, K), torch),
+         "plain_ms": kernel_ms(lambda: ref.topk_search(q, v, live, K), torch),
+         "library_ms": kernel_ms(lambda: torch.topk(
              torch.where(live[None, :], q @ v.T, neg), K), torch)}
     bms, by = bound(n_live * DIM * 4 + N + NQ * DIM * 4 + NQ * K * 8,
                     2.0 * NQ * n_live * DIM)
@@ -214,7 +247,36 @@ def phase_kernels(torch, ops, ref, compare_topk):
         bound_ms=bms, bound_by=by, **t)
     say(f"topk_search at nq={NQ} N={N} d={DIM} k={K} ({n_live} live): "
         f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.topk "
-        f"{t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+        f"{t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}); "
+        f"{speed(t, bms)}")
+    # where the kernel's time goes (its C entry point alone, no merge): all
+    # 64 queries; 8 queries (the same corpus reads, an eighth of the FMAs
+    # and selection); k=1 (the same FMAs, about a tenth of the inserts)
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import topk_search as tts
+
+    lib, fn = _build.entry("topk_search", 5, 5)
+    n_lists = min(-(-N // _build.tile_rows("topk_search")),
+                  tts.BLOCKS_PER_SM * torch.cuda.get_device_properties(
+                      dev).multi_processor_count)
+
+    def alone(nq, k):
+        qq = q[:nq].contiguous()
+        out_s = torch.empty((nq, n_lists, k), device=dev)
+        out_i = torch.empty((nq, n_lists, k), dtype=torch.int32, device=dev)
+        launch = (qq.data_ptr(), v.data_ptr(),
+                  live.view(torch.uint8).data_ptr(), out_s.data_ptr(),
+                  out_i.data_ptr(), nq, N, DIM, k, n_lists,
+                  torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, "topk_search", fn(*launch))
+        return kernel_ms(lambda: fn(*launch), torch)
+
+    t["kernel_only_ms"] = alone(NQ, K)
+    t["kernel_only_8_queries_ms"] = alone(8, K)
+    t["kernel_only_k1_ms"] = alone(NQ, 1)
+    say(f"topk_search kernel alone: {t['kernel_only_ms']:.4f} ms; with 8 "
+        f"queries {t['kernel_only_8_queries_ms']:.4f} ms; with k=1 "
+        f"{t['kernel_only_k1_ms']:.4f} ms")
     del q, v, live
 
     # -- ivf_topk: edge cases, then the deployment shapes
@@ -271,9 +333,9 @@ def phase_kernels(torch, ops, ref, compare_topk):
                       q[:, :, None])[:, :, 0]
         return torch.topk(torch.where(ok2[probe].view(NQ, -1), s, neg), K)
 
-    t = {"ms": median_ms(lambda: ops.ivf_topk(*args), torch),
-         "plain_ms": median_ms(lambda: ref.ivf_topk(*args), torch),
-         "library_ms": median_ms(library, torch)}
+    t = {"ms": kernel_ms(lambda: ops.ivf_topk(*args), torch),
+         "plain_ms": kernel_ms(lambda: ref.ivf_topk(*args), torch),
+         "library_ms": kernel_ms(library, torch)}
     # bytes: every probed bucket's ok bytes and its ok rows once, the slot
     # ids of the rows a (query, probe) emits (its top k, fewer where the
     # bucket holds fewer ok rows), the query block, the centroids, the
@@ -296,7 +358,8 @@ def phase_kernels(torch, ops, ref, compare_topk):
     say(f"ivf_topk at nq={NQ} nlist={NLIST} cap_b={CAP_B} d={DIM} "
         f"nprobe={NPROBE} k={K} ({len(buckets)} buckets probed): kernel "
         f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, gather+bmm+topk "
-        f"{t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+        f"{t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}); "
+        f"{speed(t, bms)}")
     return records
 
 
@@ -349,10 +412,10 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
                                  f"disagrees with plain: {diff}")
         worst["max_abs_diff"] = max(worst["max_abs_diff"], diff)
         del got, want
-    t = {"ms": median_ms(lambda: ops.quant_score(q, codes, scale), torch),
-         "plain_ms": median_ms(lambda: ref.quant_score(q, codes, scale),
+    t = {"ms": kernel_ms(lambda: ops.quant_score(q, codes, scale), torch),
+         "plain_ms": kernel_ms(lambda: ref.quant_score(q, codes, scale),
                                torch),
-         "library_ms": median_ms(
+         "library_ms": kernel_ms(
              lambda: (q * scale) @ codes.float().T, torch)}
     # bytes: the codes, the query block, the scale, the [nq, N] output;
     # FLOP: one d-long dot product per (query, row)
@@ -366,7 +429,8 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
         **errors(worst), bound_ms=bms, bound_by=by, **t)
     say(f"quant_score at nq={NQ} N={N} d={DIM}: kernel {t['ms']:.4f} ms, "
         f"plain {t['plain_ms']:.4f} ms, (q*scale)@codes.T "
-        f"{t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+        f"{t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}); "
+        f"{speed(t, bms)}")
 
     # -- sq8_topk: edge cases, then the deployment shapes
     worst = {"max_abs_diff": 0.0, "id_mismatches": 0}
@@ -386,11 +450,11 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
         worst["max_abs_diff"] = max(worst["max_abs_diff"], got["max_abs_diff"])
         worst["id_mismatches"] += got["id_mismatches"]
     n_live = int(live.sum())
-    t = {"ms": median_ms(lambda: ops.sq8_topk(q, codes, scale, live, K),
+    t = {"ms": kernel_ms(lambda: ops.sq8_topk(q, codes, scale, live, K),
                          torch),
-         "plain_ms": median_ms(lambda: ref.sq8_topk(q, codes, scale, live, K),
+         "plain_ms": kernel_ms(lambda: ref.sq8_topk(q, codes, scale, live, K),
                                torch),
-         "library_ms": median_ms(lambda: torch.topk(torch.where(
+         "library_ms": kernel_ms(lambda: torch.topk(torch.where(
              live[None, :], (q * scale) @ codes.float().T, neg), K), torch)}
     # bytes: the live rows' codes, the liveness bytes, the query block, the
     # scale, the outputs; FLOP: one d-long dot product per (query, live row)
@@ -403,7 +467,8 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
         **errors(worst), bound_ms=bms, bound_by=by, **t)
     say(f"sq8_topk at nq={NQ} N={N} d={DIM} k={K} ({n_live} live): kernel "
         f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.topk "
-        f"{t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+        f"{t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}); "
+        f"{speed(t, bms)}")
     del q, codes, scale, live
 
     # -- pq_topk
@@ -463,9 +528,9 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
             NQ, NPROBE * CAP_B, PQ_M).sum(-1)
         return torch.topk(torch.where(ok2[probe].view(NQ, -1), s, neg), K)
 
-    t = {"ms": median_ms(lambda: ops.pq_topk(*args), torch),
-         "plain_ms": median_ms(lambda: ref.pq_topk(*args), torch),
-         "library_ms": median_ms(library, torch)}
+    t = {"ms": kernel_ms(lambda: ops.pq_topk(*args), torch),
+         "plain_ms": kernel_ms(lambda: ref.pq_topk(*args), torch),
+         "library_ms": kernel_ms(library, torch)}
     # the kernel alone, its wrapper's probe, tables and merge done once
     from repro_torch.kernels import _build
     lib, fn = _build.entry("pq_topk", 7, 5)
@@ -478,7 +543,7 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
               out_s.data_ptr(), out_i.data_ptr(), NQ, PQ_M, CAP_B, NPROBE, K,
               torch.cuda.current_stream(dev).cuda_stream]
     _build.check(lib, "pq_topk", fn(*launch))
-    t["kernel_only_ms"] = median_ms(lambda: fn(*launch), torch)
+    t["kernel_only_ms"] = kernel_ms(lambda: fn(*launch), torch)
     # bytes: every probed bucket's ok bytes and its ok rows' codes once, the
     # slot ids of the rows a (query, probe) emits, the query block, the
     # centroids, the codebook, the outputs; operations: m table adds per
@@ -503,7 +568,8 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
         f"{int(ok_rows[probe].sum())} (query, ok row) pairs): kernel "
         f"{t['ms']:.4f} ms (the kernel alone {t['kernel_only_ms']:.4f} ms), "
         f"plain {t['plain_ms']:.4f} ms, "
-        f"gather+sum+topk {t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+        f"gather+sum+topk {t['library_ms']:.4f} ms, bound {bms:.4f} ms "
+        f"({by}); {speed(t, bms)}")
     return records
 
 
@@ -754,6 +820,7 @@ def phase_serve(torch, ops):
 # (B, H, Hkv, S, dh, causal) of the kernel's callers on the model path
 FLASH_SHAPES = {
     "llm prefill": (8, 32, 8, 512, 128, True),      # Llama-3-8B, batch 8
+    "llm prefill S=500": (8, 32, 8, 500, 128, True),   # ragged last tile
     "embedder": (64, 4, 4, 128, 64, False),         # d_model 256, batch 64
     "cross-encoder": (32, 4, 4, 192, 64, False),    # d_model 256, batch 32
 }
@@ -785,6 +852,9 @@ def dropped_tile_attention(torch, q, k, v, causal):
 def phase_flash(torch, ops, ref):
     """flash_attention against its plain version; returns its record."""
     import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as tfa
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -849,11 +919,18 @@ def phase_flash(torch, ops, ref):
                                  f"{rel} against limit "
                                  f"{ATTN_ROW_REL_LIMIT}, fault {fault}")
         kr, vr = (x.repeat_interleave(H // hkv, 1) for x in (k, v))
-        t = {"ms": median_ms(lambda: ops.flash_attention(
+        # the wrapper's persistent grid (one block per SM), and the kernel
+        # launched with one block per (q tile, b*h) for comparison
+        lib, fn = _build.entry("flash_attention", 1, 0, "wgmma")
+        launch = (tfa.wgmma_call(q, k, v, torch.empty_like(q), causal, 0),
+                  torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, "flash_attention", fn(*launch))
+        t = {"ms": kernel_ms(lambda: ops.flash_attention(
                  q, k, v, causal=causal), torch),
-             "plain_ms": median_ms(lambda: ref.flash_attention(
+             "one_block_per_tile_ms": kernel_ms(lambda: fn(*launch), torch),
+             "plain_ms": kernel_ms(lambda: ref.flash_attention(
                  q, k, v, causal=causal), torch),
-             "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+             "library_ms": kernel_ms(lambda: F.scaled_dot_product_attention(
                  q, kr, vr, is_causal=causal), torch)}
         # bytes: q, k, v read once and o written once (bf16); FLOP: the two
         # products, 4*B*H*S^2*dh, halved when causal
@@ -864,7 +941,9 @@ def phase_flash(torch, ops, ref):
             f"causal={causal} bf16: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention (K/V "
             f"repeated) {t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}; "
-            f"{n_bytes / 1e6:.1f} MB, {n_flop / 1e9:.2f} GFLOP)")
+            f"{n_bytes / 1e6:.1f} MB, {n_flop / 1e9:.2f} GFLOP); "
+            f"{speed(t, bms)}; the kernel with one block per tile "
+            f"{t['one_block_per_tile_ms']:.4f} ms")
         if record is None:       # the LLM prefill: the record's shape
             record = dict(name="flash_attention", route="cuda",
                           source="src/repro_torch/csrc/flash_attention.cu",
@@ -1107,10 +1186,18 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = _build.build_all()
     say(f"build: {len(reports)} kernels in {time.perf_counter() - t0:.1f} s")
+    # shared memory per block each launcher requests, at the main path's
+    # row widths and k (flash_attention: the Hopper kernel at dh 128 and 64)
+    widths = {"topk_search": [DIM], "ivf_topk": [DIM], "quant_score": [DIM],
+              "sq8_topk": [DIM], "pq_topk": [PQ_M],
+              "flash_attention": [128, 64]}
     for name, log in reports.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  {name}: {line.strip()}")
+        say(f"  {name}: shared memory per block " + ", ".join(
+            f"{_build.smem_bytes(name, d, K)} bytes at width {d}"
+            for d in widths[name]))
 
     timings = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()

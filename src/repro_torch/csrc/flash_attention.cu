@@ -14,31 +14,57 @@
 // Hkv=8, S=512, dh=128, bf16, causal) the function must move q, k, v and o
 // once, about 84 MB, which takes 25 us at 3.35 TB/s, and does about
 // 17 GFLOP (4*B*H*S^2*dh, halved by causality), 17 us at the 989 TFLOP/s
-// bf16 tensor peak: so bytes, as long as the products run on the tensor
-// cores. In fp32 scalar FMAs the same work would take 0.26 ms.
+// bf16 tensor peak: so bytes, as long as the products run at the tensor
+// cores' rate, which on Hopper only wgmma reaches. In fp32 scalar FMAs the
+// same work would take 0.26 ms.
 //
-// What the design does about it:
-//  * One block of 4 warps per (b*h, 64-row q tile), heaviest causal tiles
-//    first; each warp owns 16 query rows. K/V heads are indexed, never
-//    repeated in memory, and each block reads its K/V rows once.
-//  * bf16: Q, then each 64-row K and V tile, go to shared memory with
-//    cp.async (rows padded by 16 bytes, so ldmatrix is free of bank
-//    conflicts). S = Q K^T and O += P V run as mma.sync.m16n8k16 with fp32
-//    accumulators; P is the fp32 S fragment rounded to bf16 in registers,
-//    as the reference rounds its probabilities to q's dtype. The next K
-//    tile loads during the softmax and P V, the next V tile during Q K^T.
-//  * fp32 (the small shapes of the reference's tests): the same tiling with
-//    scalar FMAs, exact fp32 as the TPU kernel computes it.
-//  * The logits never reach device memory; the running max and normaliser
-//    per row are reduced across the four lanes that share a row with
-//    shuffles. Causal blocks stop at the tile holding their last row; only
-//    the diagonal tile and the ragged last tile are masked.
+// Which design runs where (picked by dtype and dh alone):
+//  * bf16, dh 64 or 128 (every deployment shape): the Hopper kernel below
+//    (namespace wg), sm_90a only.
+//  * bf16, dh 16 or 32 (the reference's test shapes only): mma.sync.
+//  * fp32, any dh: scalar fp32 FMAs, exact fp32 as the TPU kernel computes.
+//
+// What the Hopper design does about the bound:
+//  * A block of three warpgroups per 128-row q tile: one producer thread
+//    issues every load as a TMA tile copy (cp.async.bulk.tensor) into the
+//    128-byte swizzle, so the consumers spend no instructions or registers
+//    on addresses; setmaxnreg moves registers from the producer warpgroup
+//    to the two consumer warpgroups (64 query rows each). Q is double
+//    buffered, so the next tile's Q loads during this one; K and V run
+//    through a 2-stage ring of 128-key tiles with a full and an empty
+//    barrier per operand and stage: a K tile is released as soon as
+//    S = Q K^T has landed, a V tile once O += P V has. At dh=128: 2 x Q
+//    32 KB + 2 x (K 32 KB + V 32 KB) = 192 KB of shared memory.
+//  * S = Q K^T runs as wgmma m64n128k16 with both operands read from
+//    shared memory; the online softmax runs in base 2 on the fp32
+//    accumulator fragment in registers; P is rounded to bf16 in registers
+//    (as the reference rounds its probabilities) and fed as wgmma's A
+//    operand from registers for O += P V, V read from shared memory as an
+//    MN-major (transposed) B operand, 64 output columns per instruction.
+//    The two consumers take turns to issue their products (named
+//    barriers), so one's softmax runs while the other's products do.
+//  * The tensor maps carry the callers' strides (unit stride in dh,
+//    16-byte multiples elsewhere), so a [B,S,H,dh] activation read as
+//    [B,H,S,dh] needs no copy, and the KV head h / (H / Hkv) is a TMA
+//    coordinate: K and V are never repeated in memory. The output is
+//    stored in q's layout. The maps are encoded on the host with
+//    cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint
+//    (ByVersion): the library links the runtime only.
+//  * Causal: K/V tiles past the q tile's last row are never loaded; only
+//    the diagonal tile and the ragged last tile are masked; q tiles are
+//    walked heaviest first (tile t = q tile n_qt-1-t/BH), by one block per
+//    tile or by a persistent grid that strides over the same order (the
+//    wrapper picks; PERF.md has both times). Rows past S read as zeros
+//    (TMA) and are not stored; the running max starts finite, so a fully
+//    masked tile adds nothing and no NaN appears; causal row 0 is v[0].
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "cp_async.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -88,6 +114,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// 2^x (ex2.approx.ftz: one MUFU op; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -113,6 +146,12 @@ __device__ __forceinline__ void load_tile(bf16* sm, const bf16* g, int row0,
   }
 }
 
+// bf16 at dh 16 and 32: one block of 4 warps per (b*h, 64-row q tile),
+// heaviest causal tiles first, each warp owning 16 query rows. Q, then each
+// 64-row K and V tile, go to shared memory with cp.async (rows padded by 16
+// bytes, so ldmatrix is free of bank conflicts); S = Q K^T and O += P V run
+// as mma.sync.m16n8k16 with fp32 accumulators, P being the S fragment
+// rounded to bf16 in registers.
 template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -344,6 +383,456 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// -- the Hopper path: bf16, dh 64 or 128 ------------------------------------
+
+namespace wg {
+
+constexpr int BQ = 128;            // query rows per tile: 64 per consumer
+constexpr int BK = 128;            // key/value rows per pipeline stage
+constexpr int STAGES = 2;          // K/V ring depth
+constexpr int THREADS = 384;       // producer warpgroup + 2 consumers
+constexpr int CONSUMER_THREADS = 256;
+constexpr int PRODUCER_REGS = 40;  // setmaxnreg: 128*40 + 256*232 = 64,512
+constexpr int CONSUMER_REGS = 232; // = 384 threads * 168 at launch
+constexpr int TURN = 1;            // named barriers 1, 2: the issue turns
+
+// Shared memory, every tile on a 1,024-byte boundary (the swizzle's
+// period): two Q buffers [DH/64][BQ][64] (the next tile's Q loads while
+// this tile runs), then STAGES K tiles and STAGES V tiles of
+// [DH/64][BK][64], then the barriers.
+template <int DH>
+struct Layout {
+  static constexpr int CH = DH / 64;                  // 64-column chunks
+  static constexpr int Q_CHUNK = BQ * 128;            // bytes
+  static constexpr int KV_CHUNK = BK * 128;
+  static constexpr int Q_BYTES = CH * Q_CHUNK;
+  static constexpr int KV_BYTES = CH * KV_CHUNK;      // one K or V tile
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  // full_k, full_v, empty_k, empty_v [STAGES] each, q_full[2], q_empty[2]
+  static constexpr int BYTES = BAR_OFF + 8 * (4 * STAGES + 4) + 1024;
+};
+
+// The tile schedule shared by the producer and the consumers: tile t is
+// (q tile, b*h) with the q tiles that read the most K/V tiles first.
+struct Tile {
+  int qt, b, h, n_kt;
+};
+
+__device__ __forceinline__ Tile tile_at(int t, int BH, int H, int n_qt,
+                                        int n_all, bool causal) {
+  Tile r;
+  r.qt = n_qt - 1 - t / BH;
+  const int bh = t % BH;
+  r.b = bh / H;
+  r.h = bh % H;
+  r.n_kt = causal ? min(n_all, (r.qt * BQ + BQ - 1) / BK + 1) : n_all;
+  return r;
+}
+
+// reg_fence on the operands of O += P V: the accumulator and P's fragments
+template <int CH, int KS>
+__device__ __forceinline__ void fence_pv(float (&oacc)[CH][32],
+                                         uint32_t (&pf)[KS][4]) {
+#pragma unroll
+  for (int c = 0; c < CH; ++c) sm90::reg_fence(oacc[c]);
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) sm90::reg_fence(pf[kk]);
+}
+
+template <int DH, bool CAUSAL>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   bf16* __restrict__ o, long long o_sb, long long o_sh,
+                   long long o_ss, int H, int rep, int S, int BH,
+                   float scale_log2) {
+  using L = Layout<DH>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full_k = bars;
+  uint64_t* full_v = bars + STAGES;
+  uint64_t* empty_k = bars + 2 * STAGES;
+  uint64_t* empty_v = bars + 3 * STAGES;
+  uint64_t* q_full = bars + 4 * STAGES;
+  uint64_t* q_empty = q_full + 2;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full_k[s], 1);
+      sm90::mbar_init(&full_v[s], 1);
+      sm90::mbar_init(&empty_k[s], CONSUMER_THREADS);
+      sm90::mbar_init(&empty_v[s], CONSUMER_THREADS);
+    }
+    for (int b = 0; b < 2; ++b) {
+      sm90::mbar_init(&q_full[b], 1);
+      sm90::mbar_init(&q_empty[b], CONSUMER_THREADS);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int n_qt = (S + BQ - 1) / BQ;
+  const int n_all = (S + BK - 1) / BK;
+  const int n_tiles = BH * n_qt;
+
+  if (tid < 128) {   // producer warpgroup: one thread issues every load
+    sm90::setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == 0) {
+      sm90::tma_prefetch_desc(&q_map);
+      sm90::tma_prefetch_desc(&k_map);
+      sm90::tma_prefetch_desc(&v_map);
+      int stage = 0;
+      uint32_t phase = 0, iter = 0;
+      for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++iter) {
+        const Tile tl = tile_at(t, BH, H, n_qt, n_all, CAUSAL);
+        const int kvh = tl.h / rep;
+        // Q buffer iter % 2, free once tile iter - 2 has used it
+        const int qb = iter & 1;
+        sm90::mbar_wait(&q_empty[qb], ((iter >> 1) & 1) ^ 1);
+        sm90::mbar_expect_tx(&q_full[qb], L::Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < L::CH; ++c)
+          sm90::tma_load_4d(smem + qb * L::Q_BYTES + c * L::Q_CHUNK, &q_map,
+                            &q_full[qb], c * 64, tl.qt * BQ, tl.h, tl.b);
+        for (int j = 0; j < tl.n_kt; ++j) {
+          unsigned char* ks = smem + L::K_OFF + stage * L::KV_BYTES;
+          unsigned char* vs = smem + L::V_OFF + stage * L::KV_BYTES;
+          sm90::mbar_wait(&empty_k[stage], phase ^ 1);
+          sm90::mbar_expect_tx(&full_k[stage], L::KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < L::CH; ++c)
+            sm90::tma_load_4d(ks + c * L::KV_CHUNK, &k_map, &full_k[stage],
+                              c * 64, j * BK, kvh, tl.b);
+          sm90::mbar_wait(&empty_v[stage], phase ^ 1);
+          sm90::mbar_expect_tx(&full_v[stage], L::KV_BYTES);
+#pragma unroll
+          for (int c = 0; c < L::CH; ++c)
+            sm90::tma_load_4d(vs + c * L::KV_CHUNK, &v_map, &full_v[stage],
+                              c * 64, j * BK, kvh, tl.b);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroups: cw owns query rows 64cw .. 64cw+63 of the tile.
+  // S_j = Q K_j^T and O += P_{j-1} V_{j-1} are issued together and share
+  // the tensor cores; the softmax of S_j follows once both have landed,
+  // while the other consumer warpgroup's products can run. (Overlapping a
+  // warpgroup's own softmax with its P V product, as FlashAttention-3 does,
+  // made ptxas serialize every wgmma here and measured slower.)
+  sm90::setmaxnreg_inc<CONSUMER_REGS>();
+  const int ct = tid - 128, cw = ct >> 7;
+  const int warp = (ct >> 5) & 3, lane = ct & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  int stage = 0;
+  uint32_t phase = 0, iter = 0;
+  // The two consumers take turns to issue their products (named barriers
+  // 1 and 2), so one's softmax overlaps the other's products; consumer 0
+  // goes first.
+  if (cw == 1) sm90::bar_arrive(TURN, 2 * 128);
+
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++iter) {
+    const Tile tl = tile_at(t, BH, H, n_qt, n_all, CAUSAL);
+    const int row0 = tl.qt * BQ + cw * 64;   // this warpgroup's first row
+    const int row[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
+    const int qb = iter & 1;   // this tile's Q buffer; its rows of chunk 0:
+    const unsigned char* qs = smem + qb * L::Q_BYTES + cw * 64 * 128;
+
+    float oacc[L::CH][32];
+#pragma unroll
+    for (int c = 0; c < L::CH; ++c)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) oacc[c][e] = 0.f;
+    float m_r[2] = {M_INIT, M_INIT}, l_r[2] = {0.f, 0.f};
+    // Both start defined: an undefined operand register, materialised by
+    // the compiler inside a wgmma pipeline stage, makes ptxas serialize
+    // every wgmma of the kernel.
+    float s[BK / 2] = {};          // S_j: s[4n + e] is row g + 8 (e / 2),
+                                   // key 8n + 2 t4 + (e % 2) of the warp
+    uint32_t pf[BK / 16][4] = {};  // P_{j-1} in bf16: O += P V's A fragments
+    int pv_stage = 0;         // the stage whose V P_{j-1} multiplies
+    uint32_t pv_phase = 0;
+
+    sm90::mbar_wait(&q_full[qb], (iter >> 1) & 1);
+    for (int j = 0; j < tl.n_kt; ++j) {
+      const unsigned char* ks = smem + L::K_OFF + stage * L::KV_BYTES;
+      sm90::mbar_wait(&full_k[stage], phase);
+      sm90::bar_sync(TURN + cw, 2 * 128);   // this consumer's turn
+      sm90::reg_fence(s);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const int c = kk / 4, off = (kk % 4) * 32;   // chunk, bytes into a row
+        sm90::wgmma_m64n128k16_ss(
+            s, sm90::desc_sw128(qs + c * L::Q_CHUNK + off),
+            sm90::desc_sw128(ks + c * L::KV_CHUNK + off), kk > 0);
+      }
+      sm90::wgmma_commit();
+      if (j > 0) {   // O += P_{j-1} V_{j-1}, beside S_j on the tensor cores
+        const unsigned char* vs = smem + L::V_OFF + pv_stage * L::KV_BYTES;
+        sm90::mbar_wait(&full_v[pv_stage], pv_phase);
+        fence_pv(oacc, pf);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+          for (int c = 0; c < L::CH; ++c)
+            sm90::wgmma_m64n64k16_rs_tb(
+                oacc[c], pf[kk],
+                sm90::desc_sw128(vs + c * L::KV_CHUNK + kk * 16 * 128));
+        sm90::wgmma_commit();
+      }
+      sm90::bar_arrive(TURN + (cw ^ 1), 2 * 128);   // the other's turn
+      sm90::wgmma_wait<0>();
+      sm90::reg_fence(s);
+      fence_pv(oacc, pf);
+      sm90::mbar_arrive(&empty_k[stage]);   // K_j is free for K_{j+STAGES}
+      if (j == tl.n_kt - 1) sm90::mbar_arrive(&q_empty[qb]);   // Q is done
+      if (j > 0) sm90::mbar_arrive(&empty_v[pv_stage]);   // and V_{j-1}
+
+      // online softmax in base 2 over rows g and g + 8 of each warp: the
+      // running max m_r is kept on the raw logits, p = 2^(s*c - m*c) with
+      // c = log2(e)/sqrt(dh), one FFMA and one ex2 per logit
+      const int kv0 = j * BK;
+      if (kv0 + BK > S || (CAUSAL && kv0 + BK - 1 > row0)) {
+        // keys at or past lim[i] are masked for row i: this lane's key
+        // 8n + 2 t4 + (e % 2) of the tile against lim[i] - kv0 - 2 t4
+        int lim[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          lim[i] = (CAUSAL ? min(S, row[i] + 1) : S) - kv0 - 2 * t4;
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (n * 8 + (e & 1) >= lim[e >> 1]) s[4 * n + e] = -INFINITY;
+      }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        // max and sum as four interleaved partials: short dependency chains
+        float mx[4] = {M_INIT, M_INIT, M_INIT, M_INIT};
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+          mx[n & 3] = fmaxf(mx[n & 3], fmaxf(s[4 * n + 2 * i],
+                                             s[4 * n + 2 * i + 1]));
+        const float m_new = fmaxf(
+            m_r[i], quad_max(fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]))));
+        const float mc = m_new * scale_log2;
+        alpha[i] = m_r[i] == m_new ? 1.f : ex2(fmaf(m_r[i], scale_log2, -mc));
+        m_r[i] = m_new;
+        float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+          for (int e = 2 * i; e < 2 * i + 2; ++e) {
+            s[4 * n + e] = ex2(fmaf(s[4 * n + e], scale_log2, -mc));
+            sum[n & 3] += s[4 * n + e];
+          }
+        // this lane's columns only
+        l_r[i] = l_r[i] * alpha[i] + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
+      }
+#pragma unroll
+      for (int c = 0; c < L::CH; ++c)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          oacc[c][4 * n + 0] *= alpha[0];
+          oacc[c][4 * n + 1] *= alpha[0];
+          oacc[c][4 * n + 2] *= alpha[1];
+          oacc[c][4 * n + 3] *= alpha[1];
+        }
+      // P_j rounded to bf16 in registers: the A fragments of the k16 steps
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pf[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+        pf[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pf[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pf[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+      pv_stage = stage;
+      pv_phase = phase;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    {   // the last O += P V
+      const unsigned char* vs = smem + L::V_OFF + pv_stage * L::KV_BYTES;
+      sm90::mbar_wait(&full_v[pv_stage], pv_phase);
+      sm90::bar_sync(TURN + cw, 2 * 128);
+      fence_pv(oacc, pf);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < L::CH; ++c)
+          sm90::wgmma_m64n64k16_rs_tb(
+              oacc[c], pf[kk],
+              sm90::desc_sw128(vs + c * L::KV_CHUNK + kk * 16 * 128));
+      sm90::wgmma_commit();
+      sm90::bar_arrive(TURN + (cw ^ 1), 2 * 128);
+      fence_pv(oacc, pf);
+      sm90::wgmma_wait<0>();
+      fence_pv(oacc, pf);
+      sm90::mbar_arrive(&empty_v[pv_stage]);
+    }
+
+    // epilogue: divide by the row sums, store the rows below S. A quad's
+    // four lanes hold 4-byte pieces of each 8-column block; two rounds of
+    // exchanges within the quad leave lane t4 with blocks t4 and t4 + 4
+    // whole, so each lane stores 16 bytes at a time.
+    bf16* og = o + tl.b * o_sb + tl.h * o_sh;
+    const bool odd = t4 & 1, hi = t4 >> 1;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float inv = 1.f / fmaxf(quad_sum(l_r[i]), 1e-30f);
+      bf16* orow = og + row[i] * o_ss;
+#pragma unroll
+      for (int c = 0; c < L::CH; ++c) {
+        uint32_t v[8];
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          v[n] = pack_bf16(oacc[c][4 * n + 2 * i] * inv,
+                           oacc[c][4 * n + 2 * i + 1] * inv);
+        // round 1: lane t4 gets the 8-byte half t4 / 2 of block 2m + t4 % 2
+        uint32_t w0[4], w1[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const uint32_t got =
+              __shfl_xor_sync(0xffffffffu, odd ? v[2 * m] : v[2 * m + 1], 1);
+          w0[m] = odd ? got : v[2 * m];
+          w1[m] = odd ? v[2 * m + 1] : got;
+        }
+        // round 2: and then the whole of block 4p + t4
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          // keep m = 2p + hi, send m = 2p + !hi (selects: no indexed reads)
+          const uint32_t k0 = hi ? w0[2 * p + 1] : w0[2 * p];
+          const uint32_t k1 = hi ? w1[2 * p + 1] : w1[2 * p];
+          const uint32_t g0 =
+              __shfl_xor_sync(0xffffffffu, hi ? w0[2 * p] : w0[2 * p + 1], 2);
+          const uint32_t g1 =
+              __shfl_xor_sync(0xffffffffu, hi ? w1[2 * p] : w1[2 * p + 1], 2);
+          const uint4 out = hi ? make_uint4(g0, g1, k0, k1)
+                               : make_uint4(k0, k1, g0, g1);
+          if (row[i] < S)
+            *reinterpret_cast<uint4*>(orow + c * 64 + (4 * p + t4) * 8) = out;
+        }
+      }
+    }
+  }
+}
+
+}  // namespace wg
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so that the library links the CUDA runtime only (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    return (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A [B, heads, S, dh] bf16 tensor with element strides (sb, sh, ss, 1) as a
+// 4-d map (dh, S, heads, B) read in boxes of 64 columns x `rows` rows, in
+// the 128-byte swizzle; rows past S read as zeros. The last few maps are
+// kept per thread: a caller whose buffers come back at the same addresses
+// and shapes (a model's layers, a benchmark's loop) skips the encoding.
+bool encode_heads(CUtensorMap* map, const void* base, int dh, int S,
+                  int heads, int B, long long sb, long long sh, long long ss,
+                  int rows) {
+  struct Entry {
+    const void* base;
+    long long key[8];
+    CUtensorMap map;
+  };
+  constexpr int CACHED = 8;
+  thread_local Entry cache[CACHED] = {};
+  thread_local int next = 0;
+  const long long key[8] = {dh, S, heads, B, sb, sh, ss, rows};
+  for (const Entry& e : cache)
+    if (e.base == base && e.base != nullptr &&
+        memcmp(e.key, key, sizeof(key)) == 0) {
+      *map = e.map;
+      return true;
+    }
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  if (enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+          dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  Entry& e = cache[next];
+  next = (next + 1) % CACHED;
+  e.base = base;
+  memcpy(e.key, key, sizeof(key));
+  e.map = *map;
+  return true;
+}
+
+template <int DH, bool CAUSAL>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                         const long long* st, int B, int H, int Hkv, int S,
+                         int ctas, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  if (!encode_heads(&qm, q, DH, S, H, B, st[0], st[1], st[2], wg::BQ) ||
+      !encode_heads(&km, k, DH, S, Hkv, B, st[3], st[4], st[5], wg::BK) ||
+      !encode_heads(&vm, v, DH, S, Hkv, B, st[6], st[7], st[8], wg::BK))
+    return cudaErrorInvalidValue;
+  const int smem = wg::Layout<DH>::BYTES;
+  auto kern = wg::flash_wgmma_kernel<DH, CAUSAL>;
+  static const cudaError_t attr = cudaFuncSetAttribute(   // once per process
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const int n_tiles = B * H * ((S + wg::BQ - 1) / wg::BQ);
+  const int grid = ctas > 0 ? min(ctas, n_tiles) : n_tiles;
+  const double scale = 1.0 / sqrt(static_cast<double>(DH));
+  kern<<<grid, wg::THREADS, smem, stream>>>(
+      qm, km, vm, static_cast<bf16*>(o), st[9], st[10], st[11], H, H / Hkv, S,
+      B * H, static_cast<float>(scale * 1.4426950408889634));
+  return cudaGetLastError();
+}
+
 template <typename T, int DH, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int H, int rep, int S, cudaStream_t stream) {
@@ -383,10 +872,16 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o,
   switch (dh) {
     case 16: return launch<T, 16, CAUSAL>(q, k, v, o, B, H, rep, S, st);
     case 32: return launch<T, 32, CAUSAL>(q, k, v, o, B, H, rep, S, st);
-    case 64: return launch<T, 64, CAUSAL>(q, k, v, o, B, H, rep, S, st);
-    case 128: return launch<T, 128, CAUSAL>(q, k, v, o, B, H, rep, S, st);
-    default: return cudaErrorInvalidValue;
+    default: break;
   }
+  if constexpr (sizeof(T) == 4) {   // bf16 at 64 and 128 runs on wgmma
+    switch (dh) {
+      case 64: return launch<T, 64, CAUSAL>(q, k, v, o, B, H, rep, S, st);
+      case 128: return launch<T, 128, CAUSAL>(q, k, v, o, B, H, rep, S, st);
+      default: break;
+    }
+  }
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -403,14 +898,57 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int H,
              : dispatch_dh<T, false>(q, k, v, o, B, H, rep, S, dh, st));
 }
 
+// The Hopper path needs an sm_90 card (the library holds sm_90a code only);
+// the answer is kept per device.
+bool on_sm90() {
+  static int known[64] = {};   // 0 not asked yet, 1 sm_90, 2 another card
+  int dev = 0, major = 0, minor = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return false;
+  if (known[dev] == 0)
+    known[dev] =
+        cudaDeviceGetAttribute(&major, cudaDevAttrComputeCapabilityMajor,
+                               dev) == cudaSuccess &&
+                cudaDeviceGetAttribute(&minor,
+                                       cudaDevAttrComputeCapabilityMinor,
+                                       dev) == cudaSuccess &&
+                major == 9 && minor == 0
+            ? 1
+            : 2;
+  return known[dev] == 1;
+}
+
+template <bool CAUSAL>
+cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
+                           void* o, const long long* st, int B, int H,
+                           int Hkv, int S, int dh, int ctas,
+                           cudaStream_t stream) {
+  switch (dh) {
+    case 64:
+      return launch_wgmma<64, CAUSAL>(q, k, v, o, st, B, H, Hkv, S, ctas,
+                                      stream);
+    case 128:
+      return launch_wgmma<128, CAUSAL>(q, k, v, o, st, B, H, Hkv, S, ctas,
+                                       stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
+// Dynamic shared memory per block the launcher requests on the Hopper path at
+// head dim d (64 or 128; k unused), 0 for another d.
+extern "C" int flash_attention_smem_bytes(int d, int) {
+  return d == 64    ? wg::Layout<64>::BYTES
+         : d == 128 ? wg::Layout<128>::BYTES
+                    : 0;
+}
 
 extern "C" const char* flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// q/o:[B,H,S,dh], k/v:[B,Hkv,S,dh], contiguous, 16-byte aligned, bf16 or
-// fp32 by the entry point; dh in {16, 32, 64, 128}; H % Hkv == 0. Launches
+// q/o:[B,H,S,dh], k/v:[B,Hkv,S,dh], contiguous, 16-byte aligned; H % Hkv
+// == 0; bf16 at dh in {16, 32}, fp32 at dh in {16, 32, 64, 128}. Launches
 // on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int B, int H,
@@ -424,4 +962,52 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    int Hkv, int S, int dh, int causal,
                                    void* stream) {
   return run<float>(q, k, v, o, B, H, Hkv, S, dh, causal, stream);
+}
+
+// The Hopper path, bf16 at dh in {64, 128}, on an sm_90 card only. One
+// array of 27 int64 carries the call, so the host spends little on it:
+// a[0..4) the q, k, v, o pointers (q/o:[B,H,S,dh], k/v:[B,Hkv,S,dh]);
+// a[4..11) B, H, Hkv, S, dh, causal, ctas; a[11..27) the element strides
+// (b, h, s, d) of q, k, v and o: unit stride in dh, 16-byte multiples
+// elsewhere, every base 16-byte aligned, H % Hkv == 0, or
+// cudaErrorInvalidValue. ctas 0 launches one block per (q tile, b*h);
+// ctas > 0 a persistent grid of at most that many blocks. Returns
+// cudaGetLastError() (0 on success).
+extern "C" int flash_attention_wgmma(const long long* a, void* stream) {
+  const void* base[4] = {reinterpret_cast<const void*>(a[0]),
+                         reinterpret_cast<const void*>(a[1]),
+                         reinterpret_cast<const void*>(a[2]),
+                         reinterpret_cast<const void*>(a[3])};
+  const long long B = a[4], H = a[5], Hkv = a[6], S = a[7], dh = a[8];
+  const long long causal = a[9], ctas = a[10];
+  if (B < 1 || H < 1 || Hkv < 1 || S < 1 || H % Hkv || ctas < 0 ||
+      ctas > 0x7fffffffLL || S > 0x7fffffffLL ||
+      B * H * ((S + wg::BQ - 1) / wg::BQ) > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // the maps take (b, h, s), a size-1 dim's stride (never read) set to 8
+  const long long heads[4] = {H, Hkv, Hkv, H};
+  long long st[12];
+  for (int t = 0; t < 4; ++t) {
+    const long long* in = a + 11 + 4 * t;
+    const long long size[3] = {B, heads[t], S};
+    if (in[3] != 1 || reinterpret_cast<uintptr_t>(base[t]) % 16)
+      return static_cast<int>(cudaErrorInvalidValue);
+    for (int d = 0; d < 3; ++d) {
+      st[3 * t + d] = size[d] > 1 ? in[d] : 8;
+      if (st[3 * t + d] % 8 || st[3 * t + d] < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (!on_sm90()) return static_cast<int>(cudaErrorInvalidDeviceFunction);
+  const cudaStream_t sm = static_cast<cudaStream_t>(stream);
+  const int b = static_cast<int>(B), h = static_cast<int>(H),
+            hkv = static_cast<int>(Hkv), s = static_cast<int>(S),
+            d = static_cast<int>(dh), c = static_cast<int>(ctas);
+  return static_cast<int>(
+      causal ? dispatch_wgmma<true>(base[0], base[1], base[2],
+                                    const_cast<void*>(base[3]), st, b, h, hkv,
+                                    s, d, c, sm)
+             : dispatch_wgmma<false>(base[0], base[1], base[2],
+                                     const_cast<void*>(base[3]), st, b, h,
+                                     hkv, s, d, c, sm));
 }

@@ -151,6 +151,12 @@ ivf_bucket_kernel(const float* __restrict__ q,
 
 }  // namespace
 
+// Dynamic shared memory per block the launcher requests for rows of d floats
+// and lists of k.
+extern "C" int ivf_topk_smem_bytes(int d, int k) {
+  return static_cast<int>(smem_bytes(d, k));
+}
+
 extern "C" const char* ivf_topk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -150,6 +150,12 @@ pq_bucket_kernel(const float* __restrict__ lut,
 
 }  // namespace
 
+// Dynamic shared memory per block the launcher requests for m subspaces (d) and
+// lists of k.
+extern "C" int pq_topk_smem_bytes(int m, int k) {
+  return static_cast<int>(smem_bytes(m, k));
+}
+
 extern "C" const char* pq_topk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -96,6 +96,11 @@ quant_score_kernel(const float* __restrict__ qs,
 
 }  // namespace
 
+// Dynamic shared memory per block the launcher requests (d and k unused).
+extern "C" int quant_score_smem_bytes(int, int) {
+  return static_cast<int>(smem_bytes());
+}
+
 extern "C" const char* quant_score_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

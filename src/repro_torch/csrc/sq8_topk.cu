@@ -139,6 +139,11 @@ sq8_tile_kernel(const float* __restrict__ qs,
 
 extern "C" int sq8_topk_tile_rows() { return TILE_N; }
 
+// Dynamic shared memory per block the launcher requests for lists of k (d unused).
+extern "C" int sq8_topk_smem_bytes(int, int k) {
+  return static_cast<int>(smem_bytes(k));
+}
+
 extern "C" const char* sq8_topk_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

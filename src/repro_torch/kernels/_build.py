@@ -115,6 +115,15 @@ def tile_rows(name: str) -> int:
     return fn()
 
 
+def smem_bytes(name: str, d: int, k: int) -> int:
+    """Dynamic shared memory per block that ``csrc/<name>.cu`` requests
+    for rows of width ``d`` and lists of ``k`` (``<name>_smem_bytes``)."""
+    fn = getattr(library(name), f"{name}_smem_bytes")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(d, k)
+
+
 def require(t, name: str, dtypes, ndim: int, device) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor on ``device`` with one
     of ``dtypes`` and ``ndim`` dims, 16-byte aligned (the kernels read

@@ -124,9 +124,8 @@ def attention_out(params: Params, q, k, v, cfg: ModelConfig, causal: bool):
     output projection. q:[B,S,H,hd], k/v:[B,S,Hkv,hd] -> [B,S,D]."""
     require_full_attention(cfg)
     B, S = q.shape[:2]
-    out = ops.flash_attention(q.transpose(1, 2).contiguous(),
-                              k.transpose(1, 2).contiguous(),
-                              v.transpose(1, 2).contiguous(), causal=causal)
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal)
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
     return out @ params["wo"]
 

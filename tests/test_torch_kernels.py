@@ -125,6 +125,74 @@ def test_topk_search_tie_order_matches_jax():
     assert i[0, :3].tolist() == [0, 6, 17]
 
 
+def _rising(nq, n, d):
+    """Rows whose scores rise with the row index (every row beats every
+    earlier one: the register filter's worst case), every 7th row dead."""
+    vecs = np.zeros((n, d), np.float32)
+    vecs[:, 0] = np.arange(n, dtype=np.float32) / n
+    vecs[:, 1] = 0.25
+    q = np.zeros((nq, d), np.float32)
+    q[:, 0] = 1.0
+    q[:, 1] = np.arange(nq, dtype=np.float32) / 4
+    live = np.ones(n, bool)
+    live[::7] = False
+    return q, vecs, live
+
+
+def _repeated(rng, nq, reps_of=100, d=16):
+    """Grid-valued rows (exact fp32 scores) each repeated across sub-tiles
+    and tiles, so equal scores are real ties."""
+    base = _grid(rng, reps_of, d)
+    vecs = np.concatenate([base, base, base[::-1]])
+    live = rng.random(len(vecs)) < 0.9
+    return _grid(rng, nq, d), vecs, live
+
+
+@pytest.mark.parametrize("k", [1, 16, 128])
+def test_topk_search_rising_corpus_matches_jax(k):
+    q, vecs, live = _rising(3, 600, 16)
+    s, i = ops.topk_search(*_t(q, vecs, live), k)
+    js, ji = jref.topk_search(*(jnp.asarray(a) for a in (q, vecs, live)), k)
+    assert (i.numpy() == np.asarray(ji)).all()
+    assert (s.numpy() == np.asarray(js)).all()
+    assert (i.numpy()[:, 0] == 599).all()      # the last live row first
+
+
+@pytest.mark.parametrize("k", [1, 7, 16, 128])
+@pytest.mark.parametrize("nq", [1, 63, 65, 130])
+def test_topk_search_repeated_rows_match_jax(nq, k):
+    """Exact scores with every row three times: ids and scores equal the
+    JAX reference's, equal scores with the lower row first."""
+    q, vecs, live = _repeated(np.random.default_rng(nq * 10 + k), nq)
+    s, i = ops.topk_search(*_t(q, vecs, live), k)
+    js, ji = jref.topk_search(*(jnp.asarray(a) for a in (q, vecs, live)), k)
+    assert (i.numpy() == np.asarray(ji)).all()
+    assert (s.numpy() == np.asarray(js)).all()
+
+
+@pytest.mark.parametrize("n_lists", [1, 3, 8])
+def test_merge_by_row_matches_jax(n_lists):
+    """The card wrapper's merge: per-block lists (block b holding tiles b,
+    b + G, ...) in any list order give the global top-k of lax.top_k."""
+    rng = np.random.default_rng(n_lists)
+    q, vecs, live = _repeated(rng, 5, reps_of=60)
+    k, tile = 7, 16
+    n_tiles = -(-len(vecs) // tile)
+    lists_s, lists_i = [], []
+    for b in range(n_lists):   # each block's list: its tiles' rows in order
+        rows = np.concatenate([np.arange(t * tile, min((t + 1) * tile,
+                                                       len(vecs)))
+                               for t in range(b, n_tiles, n_lists)])
+        ls, li = ref.topk_search(*_t(q, vecs[rows], live[rows]), k)
+        li = torch.where(li >= 0, torch.from_numpy(rows)[li.long()].int(), li)
+        lists_s.append(ls)
+        lists_i.append(li)
+    got = tts.merge_by_row(torch.cat(lists_s, 1), torch.cat(lists_i, 1), k)
+    js, ji = jref.topk_search(*(jnp.asarray(a) for a in (q, vecs, live)), k)
+    assert (got[1].numpy() == np.asarray(ji)).all()
+    assert (got[0].numpy() == np.asarray(js)).all()
+
+
 # -- merge_candidates / probe -------------------------------------------------
 
 
@@ -219,6 +287,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tfa.flash_attention_cuda(torch.zeros(1, 2, 4, 16),
                                  torch.zeros(1, 1, 4, 16),
                                  torch.zeros(1, 1, 4, 16), True)
+    bf = [torch.zeros(s, dtype=torch.bfloat16) for s in ((1, 2, 4, 64),
+                                                         (1, 1, 4, 64),
+                                                         (1, 1, 4, 64))]
+    with pytest.raises(ValueError, match="must be on"):
+        tfa.flash_attention_cuda(*bf, True)
     assert ops.launch_counts() == {"topk_search": 0, "quant_score": 0,
                                    "ivf_topk": 0, "sq8_topk": 0,
                                    "pq_topk": 0, "flash_attention": 0}
@@ -312,3 +385,41 @@ def test_ivf_topk_kernel_tie_order(cuda_device, nq, nlist, cap_b, d, nprobe,
                                           ok)]
     want, got = ref.ivf_topk(*args, nprobe, k), ops.ivf_topk(*args, nprobe, k)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16, 128])
+def test_topk_search_kernel_rising_corpus(cuda_device, k):
+    """Every row beats a stale threshold: ids and scores exactly equal."""
+    args = [a.to(cuda_device) for a in _t(*_rising(5, 20000, 16))]
+    want, got = ref.topk_search(*args, k), ops.topk_search(*args, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 16, 128])
+@pytest.mark.parametrize("nq", [1, 63, 65, 130])
+def test_topk_search_kernel_repeated_rows(cuda_device, nq, k):
+    """Grid-valued rows repeated across sub-tiles and tiles: ids and scores
+    exactly equal the plain version's, ties included."""
+    q, vecs, live = _repeated(np.random.default_rng(nq + k), nq,
+                              reps_of=1000, d=32)
+    args = [a.to(cuda_device) for a in _t(q, vecs, live)]
+    want, got = ref.topk_search(*args, k), ops.topk_search(*args, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 16])
+def test_topk_search_kernel_dead_tiles(cuda_device, k):
+    """Tiles with no live row among live ones, and a corpus with none."""
+    rng = np.random.default_rng(k)
+    q, vecs = _unit(rng, 7, 48), _unit(rng, 9000, 48)
+    live = np.zeros(9000, bool)
+    live[1000:1100] = True
+    live[5000:5003] = True
+    for mask in (live, np.zeros(9000, bool)):
+        args = [a.to(cuda_device) for a in _t(q, vecs, mask)]
+        want, got = ref.topk_search(*args, k), ops.topk_search(*args, k)
+        assert compare_topk(*want, *got)["violations"] == 0
+        _padding_contract(got[0].cpu(), got[1].cpu(), int(mask.sum()))
