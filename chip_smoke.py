@@ -10,13 +10,15 @@ Phases, each of which raises on failure and prints its wall seconds:
    process per source, all at once; each library's registers, spills and
    shared memory per block;
 3. kernels against their plain versions, on the card: tie order on
-   exact-arithmetic inputs (ids and scores equal), the edge-case shapes and
+   exact-arithmetic inputs (ids and scores equal; for topk_search also
+   across the several tiles one block folds into one list), the edge-case
+   shapes and
    the deployment shapes (64 queries; 1,048,576 x 384 fp32 rows or int8
    codes; IVF with 1024 lists of 4096 slots, nprobe 16, PQ with 48
    subspaces; k 16), with the time of the kernel's wrapper, its plain
-   version and one PyTorch yardstick (CUDA events around 10 back-to-back
-   calls, median of 20 such runs), the kernel's ratio to the yardstick and
-   its share of its bound on this card. topk_search and ivf_topk, then
+   version and one PyTorch yardstick (CUDA events, medians of 20: around
+   10 back-to-back calls and around single calls), the kernel's ratio to
+   the yardstick under both and its share of its bound on this card. topk_search and ivf_topk, then
    quant_score, sq8_topk and pq_topk;
 4. the vector DB at deployment size (``TorchVectorDB``), three
    configurations built one after the other from one seeded row set:
@@ -36,9 +38,8 @@ Phases, each of which raises on failure and prints its wall seconds:
    shapes (the Llama-3-8B prefill at S 512 and a ragged 500, the
    embedder, the cross-encoder), each also held to a worst-row relative
    error that a planted fault (one K/V tile dropped) exceeds, with the
-   kernel's (and its time with one block per tile in place of the
-   persistent grid), the plain version's and
-   ``scaled_dot_product_attention``'s times and the bound;
+   kernel's, the plain version's and ``scaled_dot_product_attention``'s
+   times and the bound;
 7. the model at smoke size: one set of seeded weights on the card and on
    the CPU (the llama3 smoke config in fp32, then in bf16 through the bf16
    mma kernel); prefill logits and 8 greedy tokens must agree;
@@ -139,11 +140,27 @@ def kernel_ms(fn, torch) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def timings(torch, kernel, plain, library) -> dict:
+    """A kernel's wrapper, its plain version and its library call, each
+    timed two ways: back to back (``ms``, ``plain_ms``, ``library_ms``:
+    ``kernel_ms``, the device's time per call) and one call at a time
+    (``call_ms``, ``plain_call_ms``, ``library_call_ms``: ``median_ms``,
+    which also holds the host's time to launch a call)."""
+    return {"ms": kernel_ms(kernel, torch),
+            "plain_ms": kernel_ms(plain, torch),
+            "library_ms": kernel_ms(library, torch),
+            "call_ms": median_ms(kernel, torch),
+            "plain_call_ms": median_ms(plain, torch),
+            "library_call_ms": median_ms(library, torch)}
+
+
 def speed(t: dict, bound_ms: float) -> str:
-    """The kernel's time against its library call and its bound."""
-    lib = (f"{t['ms'] / t['library_ms']:.3f}x the library call, "
-           if t.get("library_ms") else "")
-    return f"{lib}{100 * bound_ms / t['ms']:.1f} % of the bound"
+    """The kernel's time against its library call and its bound, back to
+    back, then the single calls' times and ratio."""
+    return (f"{t['ms'] / t['library_ms']:.3f}x the library call, "
+            f"{100 * bound_ms / t['ms']:.1f} % of the bound; single calls: "
+            f"kernel {t['call_ms']:.4f} ms, library {t['library_call_ms']:.4f}"
+            f" ms, {t['call_ms'] / t['library_call_ms']:.3f}x")
 
 
 def bound(n_bytes: float, n_flop: float, peak: float = FP32_FLOP_PER_S):
@@ -203,6 +220,9 @@ def draws(torch, seed):
 
 def phase_kernels(torch, ops, ref, compare_topk):
     """Every kernel against its plain version; returns the kernel records."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import topk_search as tts
+
     dev = torch.device(DEVICE)
     gen, unit, live_mask, grid = draws(torch, 0)
     records = {}
@@ -215,6 +235,28 @@ def phase_kernels(torch, ops, ref, compare_topk):
         check_ties(torch, f"topk_search ties k={k}",
                    ref.topk_search(q, v, live, k),
                    ops.topk_search(q, v, live, k))
+    # ... and across the tiles one block folds into one list: the wrapper's
+    # G blocks (block b takes tiles b, b + G, ...) over 3G + 1 tiles of
+    # grid rows, each query's best row (0.5 sign(q), the highest score a
+    # grid row reaches) planted live in tiles G/2, G/2 + G and G/2 + 2G
+    tile = _build.tile_rows("topk_search")
+    g = tts.BLOCKS_PER_SM * torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    n, nq, b = 3 * g * tile + 77, 70, g // 2
+    v, q, live = grid(n, 32), grid(nq, 32), live_mask(n, 0.9)
+    j = torch.arange(nq, device=dev)
+    planted = torch.stack([b * tile + j, (b + g) * tile + 50 + j.flip(0),
+                           (b + 2 * g) * tile + 10 + j], 1)
+    for col in range(3):
+        v[planted[:, col]] = torch.sign(q) / 2
+    live[planted] = True
+    for k in (1, 16, 128):
+        got = ops.topk_search(q, v, live, k)
+        check_ties(torch, f"topk_search ties across a block's tiles (N={n}, "
+                   f"{g} lists) k={k}", ref.topk_search(q, v, live, k), got)
+        if not torch.equal(got[1][:, :3], planted[:, :k].int()):
+            raise AssertionError(f"topk_search k={k}: the planted best rows "
+                                 f"do not lead")
     # -- topk_search: edge cases, then the deployment shapes
     worst = {"max_abs_diff": 0.0, "id_mismatches": 0}
     for nq, n, d, k, p in [(3, 32, 8, 8, 1.0), (2, 64, 8, 6, 0.05),
@@ -232,10 +274,10 @@ def phase_kernels(torch, ops, ref, compare_topk):
         worst["id_mismatches"] += got["id_mismatches"]
     n_live = int(live.sum())
     neg = torch.tensor(ref.NEG, device=dev)
-    t = {"ms": kernel_ms(lambda: ops.topk_search(q, v, live, K), torch),
-         "plain_ms": kernel_ms(lambda: ref.topk_search(q, v, live, K), torch),
-         "library_ms": kernel_ms(lambda: torch.topk(
-             torch.where(live[None, :], q @ v.T, neg), K), torch)}
+    t = timings(torch, lambda: ops.topk_search(q, v, live, K),
+                lambda: ref.topk_search(q, v, live, K),
+                lambda: torch.topk(torch.where(live[None, :], q @ v.T, neg),
+                                   K))
     bms, by = bound(n_live * DIM * 4 + N + NQ * DIM * 4 + NQ * K * 8,
                     2.0 * NQ * n_live * DIM)
     records["topk_search"] = dict(
@@ -252,9 +294,6 @@ def phase_kernels(torch, ops, ref, compare_topk):
     # where the kernel's time goes (its C entry point alone, no merge): all
     # 64 queries; 8 queries (the same corpus reads, an eighth of the FMAs
     # and selection); k=1 (the same FMAs, about a tenth of the inserts)
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import topk_search as tts
-
     lib, fn = _build.entry("topk_search", 5, 5)
     n_lists = min(-(-N // _build.tile_rows("topk_search")),
                   tts.BLOCKS_PER_SM * torch.cuda.get_device_properties(
@@ -333,9 +372,8 @@ def phase_kernels(torch, ops, ref, compare_topk):
                       q[:, :, None])[:, :, 0]
         return torch.topk(torch.where(ok2[probe].view(NQ, -1), s, neg), K)
 
-    t = {"ms": kernel_ms(lambda: ops.ivf_topk(*args), torch),
-         "plain_ms": kernel_ms(lambda: ref.ivf_topk(*args), torch),
-         "library_ms": kernel_ms(library, torch)}
+    t = timings(torch, lambda: ops.ivf_topk(*args),
+                lambda: ref.ivf_topk(*args), library)
     # bytes: every probed bucket's ok bytes and its ok rows once, the slot
     # ids of the rows a (query, probe) emits (its top k, fewer where the
     # bucket holds fewer ok rows), the query block, the centroids, the
@@ -412,11 +450,9 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
                                  f"disagrees with plain: {diff}")
         worst["max_abs_diff"] = max(worst["max_abs_diff"], diff)
         del got, want
-    t = {"ms": kernel_ms(lambda: ops.quant_score(q, codes, scale), torch),
-         "plain_ms": kernel_ms(lambda: ref.quant_score(q, codes, scale),
-                               torch),
-         "library_ms": kernel_ms(
-             lambda: (q * scale) @ codes.float().T, torch)}
+    t = timings(torch, lambda: ops.quant_score(q, codes, scale),
+                lambda: ref.quant_score(q, codes, scale),
+                lambda: (q * scale) @ codes.float().T)
     # bytes: the codes, the query block, the scale, the [nq, N] output;
     # FLOP: one d-long dot product per (query, row)
     bms, by = bound(N * DIM + NQ * DIM * 4 + DIM * 4 + NQ * N * 4,
@@ -450,12 +486,10 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
         worst["max_abs_diff"] = max(worst["max_abs_diff"], got["max_abs_diff"])
         worst["id_mismatches"] += got["id_mismatches"]
     n_live = int(live.sum())
-    t = {"ms": kernel_ms(lambda: ops.sq8_topk(q, codes, scale, live, K),
-                         torch),
-         "plain_ms": kernel_ms(lambda: ref.sq8_topk(q, codes, scale, live, K),
-                               torch),
-         "library_ms": kernel_ms(lambda: torch.topk(torch.where(
-             live[None, :], (q * scale) @ codes.float().T, neg), K), torch)}
+    t = timings(torch, lambda: ops.sq8_topk(q, codes, scale, live, K),
+                lambda: ref.sq8_topk(q, codes, scale, live, K),
+                lambda: torch.topk(torch.where(
+                    live[None, :], (q * scale) @ codes.float().T, neg), K))
     # bytes: the live rows' codes, the liveness bytes, the query block, the
     # scale, the outputs; FLOP: one d-long dot product per (query, live row)
     bms, by = bound(n_live * DIM + N + NQ * DIM * 4 + DIM * 4 + NQ * K * 8,
@@ -528,9 +562,8 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
             NQ, NPROBE * CAP_B, PQ_M).sum(-1)
         return torch.topk(torch.where(ok2[probe].view(NQ, -1), s, neg), K)
 
-    t = {"ms": kernel_ms(lambda: ops.pq_topk(*args), torch),
-         "plain_ms": kernel_ms(lambda: ref.pq_topk(*args), torch),
-         "library_ms": kernel_ms(library, torch)}
+    t = timings(torch, lambda: ops.pq_topk(*args),
+                lambda: ref.pq_topk(*args), library)
     # the kernel alone, its wrapper's probe, tables and merge done once
     from repro_torch.kernels import _build
     lib, fn = _build.entry("pq_topk", 7, 5)
@@ -853,9 +886,6 @@ def phase_flash(torch, ops, ref):
     """flash_attention against its plain version; returns its record."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import flash_attention as tfa
-
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(5)
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -919,19 +949,11 @@ def phase_flash(torch, ops, ref):
                                  f"{rel} against limit "
                                  f"{ATTN_ROW_REL_LIMIT}, fault {fault}")
         kr, vr = (x.repeat_interleave(H // hkv, 1) for x in (k, v))
-        # the wrapper's persistent grid (one block per SM), and the kernel
-        # launched with one block per (q tile, b*h) for comparison
-        lib, fn = _build.entry("flash_attention", 1, 0, "wgmma")
-        launch = (tfa.wgmma_call(q, k, v, torch.empty_like(q), causal, 0),
-                  torch.cuda.current_stream().cuda_stream)
-        _build.check(lib, "flash_attention", fn(*launch))
-        t = {"ms": kernel_ms(lambda: ops.flash_attention(
-                 q, k, v, causal=causal), torch),
-             "one_block_per_tile_ms": kernel_ms(lambda: fn(*launch), torch),
-             "plain_ms": kernel_ms(lambda: ref.flash_attention(
-                 q, k, v, causal=causal), torch),
-             "library_ms": kernel_ms(lambda: F.scaled_dot_product_attention(
-                 q, kr, vr, is_causal=causal), torch)}
+        t = timings(torch,
+                    lambda: ops.flash_attention(q, k, v, causal=causal),
+                    lambda: ref.flash_attention(q, k, v, causal=causal),
+                    lambda: F.scaled_dot_product_attention(
+                        q, kr, vr, is_causal=causal))
         # bytes: q, k, v read once and o written once (bf16); FLOP: the two
         # products, 4*B*H*S^2*dh, halved when causal
         n_bytes = 2 * (2 * B * H * S * dh + 2 * B * hkv * S * dh)
@@ -942,8 +964,7 @@ def phase_flash(torch, ops, ref):
             f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention (K/V "
             f"repeated) {t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}; "
             f"{n_bytes / 1e6:.1f} MB, {n_flop / 1e9:.2f} GFLOP); "
-            f"{speed(t, bms)}; the kernel with one block per tile "
-            f"{t['one_block_per_tile_ms']:.4f} ms")
+            f"{speed(t, bms)}")
         if record is None:       # the LLM prefill: the record's shape
             record = dict(name="flash_attention", route="cuda",
                           source="src/repro_torch/csrc/flash_attention.cu",

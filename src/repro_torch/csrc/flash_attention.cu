@@ -52,9 +52,10 @@
 //    (ByVersion): the library links the runtime only.
 //  * Causal: K/V tiles past the q tile's last row are never loaded; only
 //    the diagonal tile and the ragged last tile are masked; q tiles are
-//    walked heaviest first (tile t = q tile n_qt-1-t/BH), by one block per
-//    tile or by a persistent grid that strides over the same order (the
-//    wrapper picks; PERF.md has both times). Rows past S read as zeros
+//    walked heaviest first (tile t = q tile n_qt-1-t/BH) by a persistent
+//    grid of one block per SM that strides over that order (faster than
+//    one block per tile at the prefill shapes; PERF.md). Rows past S read
+//    as zeros
 //    (TMA) and are not stored; the running max starts finite, so a fully
 //    masked tile adds nothing and no NaN appears; causal row 0 is v[0].
 #include <cuda_bf16.h>
@@ -813,7 +814,7 @@ bool encode_heads(CUtensorMap* map, const void* base, int dh, int S,
 template <int DH, bool CAUSAL>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          const long long* st, int B, int H, int Hkv, int S,
-                         int ctas, cudaStream_t stream) {
+                         int n_sm, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   if (!encode_heads(&qm, q, DH, S, H, B, st[0], st[1], st[2], wg::BQ) ||
       !encode_heads(&km, k, DH, S, Hkv, B, st[3], st[4], st[5], wg::BK) ||
@@ -825,7 +826,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   const int n_tiles = B * H * ((S + wg::BQ - 1) / wg::BQ);
-  const int grid = ctas > 0 ? min(ctas, n_tiles) : n_tiles;
+  const int grid = min(n_sm, n_tiles);   // persistent: one block per SM
   const double scale = 1.0 / sqrt(static_cast<double>(DH));
   kern<<<grid, wg::THREADS, smem, stream>>>(
       qm, km, vm, static_cast<bf16*>(o), st[9], st[10], st[11], H, H / Hkv, S,
@@ -898,12 +899,12 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int H,
              : dispatch_dh<T, false>(q, k, v, o, B, H, rep, S, dh, st));
 }
 
-// The Hopper path needs an sm_90 card (the library holds sm_90a code only);
-// the answer is kept per device.
-bool on_sm90() {
-  static int known[64] = {};   // 0 not asked yet, 1 sm_90, 2 another card
-  int dev = 0, major = 0, minor = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return false;
+// The SM count of the current device if it is an sm_90 card (the library
+// holds sm_90a code only), else 0; the answer is kept per device.
+int sm90_count() {
+  static int known[64];   // 0 not asked yet, -1 another card, else SMs
+  int dev = 0, major = 0, minor = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
   if (known[dev] == 0)
     known[dev] =
         cudaDeviceGetAttribute(&major, cudaDevAttrComputeCapabilityMajor,
@@ -911,23 +912,25 @@ bool on_sm90() {
                 cudaDeviceGetAttribute(&minor,
                                        cudaDevAttrComputeCapabilityMinor,
                                        dev) == cudaSuccess &&
-                major == 9 && minor == 0
-            ? 1
-            : 2;
-  return known[dev] == 1;
+                cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       dev) == cudaSuccess &&
+                major == 9 && minor == 0 && sms > 0
+            ? sms
+            : -1;
+  return known[dev] > 0 ? known[dev] : 0;
 }
 
 template <bool CAUSAL>
 cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
                            void* o, const long long* st, int B, int H,
-                           int Hkv, int S, int dh, int ctas,
+                           int Hkv, int S, int dh, int n_sm,
                            cudaStream_t stream) {
   switch (dh) {
     case 64:
-      return launch_wgmma<64, CAUSAL>(q, k, v, o, st, B, H, Hkv, S, ctas,
+      return launch_wgmma<64, CAUSAL>(q, k, v, o, st, B, H, Hkv, S, n_sm,
                                       stream);
     case 128:
-      return launch_wgmma<128, CAUSAL>(q, k, v, o, st, B, H, Hkv, S, ctas,
+      return launch_wgmma<128, CAUSAL>(q, k, v, o, st, B, H, Hkv, S, n_sm,
                                        stream);
     default: return cudaErrorInvalidValue;
   }
@@ -965,30 +968,28 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
 }
 
 // The Hopper path, bf16 at dh in {64, 128}, on an sm_90 card only. One
-// array of 27 int64 carries the call, so the host spends little on it:
+// array of 26 int64 carries the call, so the host spends little on it:
 // a[0..4) the q, k, v, o pointers (q/o:[B,H,S,dh], k/v:[B,Hkv,S,dh]);
-// a[4..11) B, H, Hkv, S, dh, causal, ctas; a[11..27) the element strides
+// a[4..10) B, H, Hkv, S, dh, causal; a[10..26) the element strides
 // (b, h, s, d) of q, k, v and o: unit stride in dh, 16-byte multiples
 // elsewhere, every base 16-byte aligned, H % Hkv == 0, or
-// cudaErrorInvalidValue. ctas 0 launches one block per (q tile, b*h);
-// ctas > 0 a persistent grid of at most that many blocks. Returns
-// cudaGetLastError() (0 on success).
+// cudaErrorInvalidValue. Launches a persistent grid of at most one block
+// per SM. Returns cudaGetLastError() (0 on success).
 extern "C" int flash_attention_wgmma(const long long* a, void* stream) {
   const void* base[4] = {reinterpret_cast<const void*>(a[0]),
                          reinterpret_cast<const void*>(a[1]),
                          reinterpret_cast<const void*>(a[2]),
                          reinterpret_cast<const void*>(a[3])};
   const long long B = a[4], H = a[5], Hkv = a[6], S = a[7], dh = a[8];
-  const long long causal = a[9], ctas = a[10];
-  if (B < 1 || H < 1 || Hkv < 1 || S < 1 || H % Hkv || ctas < 0 ||
-      ctas > 0x7fffffffLL || S > 0x7fffffffLL ||
+  const long long causal = a[9];
+  if (B < 1 || H < 1 || Hkv < 1 || S < 1 || H % Hkv || S > 0x7fffffffLL ||
       B * H * ((S + wg::BQ - 1) / wg::BQ) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   // the maps take (b, h, s), a size-1 dim's stride (never read) set to 8
   const long long heads[4] = {H, Hkv, Hkv, H};
   long long st[12];
   for (int t = 0; t < 4; ++t) {
-    const long long* in = a + 11 + 4 * t;
+    const long long* in = a + 10 + 4 * t;
     const long long size[3] = {B, heads[t], S};
     if (in[3] != 1 || reinterpret_cast<uintptr_t>(base[t]) % 16)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -998,16 +999,17 @@ extern "C" int flash_attention_wgmma(const long long* a, void* stream) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  if (!on_sm90()) return static_cast<int>(cudaErrorInvalidDeviceFunction);
+  const int n_sm = sm90_count();
+  if (!n_sm) return static_cast<int>(cudaErrorInvalidDeviceFunction);
   const cudaStream_t sm = static_cast<cudaStream_t>(stream);
   const int b = static_cast<int>(B), h = static_cast<int>(H),
             hkv = static_cast<int>(Hkv), s = static_cast<int>(S),
-            d = static_cast<int>(dh), c = static_cast<int>(ctas);
+            d = static_cast<int>(dh);
   return static_cast<int>(
       causal ? dispatch_wgmma<true>(base[0], base[1], base[2],
                                     const_cast<void*>(base[3]), st, b, h, hkv,
-                                    s, d, c, sm)
+                                    s, d, n_sm, sm)
              : dispatch_wgmma<false>(base[0], base[1], base[2],
                                      const_cast<void*>(base[3]), st, b, h,
-                                     hkv, s, d, c, sm));
+                                     hkv, s, d, n_sm, sm));
 }

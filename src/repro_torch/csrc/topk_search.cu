@@ -45,9 +45,10 @@
 //    merges G lists instead of one per tile, and a freshness buffer of
 //    consecutive rows still spreads over consecutive blocks.
 //  * Output [nq, G, k] per-block lists, each in descending score with the
-//    lower row first on ties; the wrapper orders the candidates by row and
-//    then stable-sorts them by score, the order of lax.top_k over the whole
-//    score matrix.
+//    lower row first on ties; the wrapper merges them with one torch.topk
+//    over a 64-bit key (the score's order-preserving bits above the row's
+//    complement, so no two candidates tie): the order of lax.top_k over
+//    the whole score matrix.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>

@@ -38,26 +38,25 @@ def _check_shapes(q, k, v) -> None:
         raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
 
 
-_CALL = struct.Struct("27q")   # the C entry point's argument array
+_CALL = struct.Struct("26q")   # the C entry point's argument array
 
 
-def wgmma_call(q, k, v, o, causal: bool, ctas: int) -> bytes:
+def wgmma_call(q, k, v, o, causal: bool) -> bytes:
     """The packed arguments of ``flash_attention_wgmma``: the four
-    pointers, B, H, Hkv, S, dh, causal, ctas (0: one block per tile), then
-    the element strides of q, k, v and o, four each (the C entry point
-    checks them: unit stride in the last dim, 16-byte multiples elsewhere,
-    16-byte aligned bases)."""
+    pointers, B, H, Hkv, S, dh, causal, then the element strides of q, k,
+    v and o, four each (the C entry point checks them: unit stride in the
+    last dim, 16-byte multiples elsewhere, 16-byte aligned bases)."""
     B, H, S, dh = q.shape
     return _CALL.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                      B, H, k.shape[1], S, dh, int(causal), ctas, *q.stride(),
+                      B, H, k.shape[1], S, dh, int(causal), *q.stride(),
                       *k.stride(), *v.stride(), *o.stride())
 
 
 @functools.lru_cache(maxsize=None)
 def _card(index: int):
-    """(compute capability, SM count, name) of CUDA device ``index``."""
+    """(compute capability, name) of CUDA device ``index``."""
     p = torch.cuda.get_device_properties(index)
-    return (p.major, p.minor), p.multi_processor_count, p.name
+    return (p.major, p.minor), p.name
 
 
 def _flash_wgmma(q, k, v, causal: bool) -> torch.Tensor:
@@ -68,17 +67,16 @@ def _flash_wgmma(q, k, v, causal: bool) -> torch.Tensor:
             or k.dtype != q.dtype or v.dtype != q.dtype):
         raise ValueError(f"q, k, v must be bf16 on {dev}, got "
                          f"{[(t.dtype, str(t.device)) for t in (q, k, v)]}")
-    cap, n_sm, card = _card(dev.index)
+    cap, card = _card(dev.index)
     if cap != (9, 0):
         raise RuntimeError(f"flash_attention: bf16 at dh {WGMMA_HEAD_DIMS} "
                            f"runs on wgmma, which needs an sm_90 card; "
                            f"{card} has compute capability {cap}")
     out = torch.empty_like(q)   # q's layout where q is dense, else contiguous
     lib, fn = _build.entry("flash_attention", 1, 0, "wgmma")
-    # one persistent block per SM; the current stream's raw handle (no
-    # Stream object: a few microseconds a call, which the encoders' small
-    # grids would pay)
-    err = fn(wgmma_call(q, k, v, out, causal, n_sm),
+    # the current stream's raw handle (no Stream object: a few microseconds
+    # a call, which the encoders' small grids would pay)
+    err = fn(wgmma_call(q, k, v, out, causal),
              torch._C._cuda_getCurrentRawStream(dev.index))
     if err == INVALID_VALUE:
         raise ValueError(

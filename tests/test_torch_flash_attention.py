@@ -221,7 +221,7 @@ def test_flash_wgmma_strided_views(cuda_device, dh, causal):
 def test_flash_wgmma_refuses_other_cards(cuda_device, monkeypatch):
     """The wgmma path raises on a card that is not sm_90; it never runs the
     mma.sync kernel instead."""
-    monkeypatch.setattr(tfa, "_card", lambda index: ((8, 0), 108, "A100"))
+    monkeypatch.setattr(tfa, "_card", lambda index: ((8, 0), "A100"))
     args = _torch(_qkv(np.random.default_rng(0), 1, 2, 2, 64, 64),
                   torch.bfloat16, cuda_device)
     ops.reset_launch_counts()

@@ -23,6 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import fused_retrieve as jfr  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.topk_search import topk_search_pallas  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as tfa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import fused_retrieve as tfr  # noqa: E402
@@ -170,13 +171,9 @@ def test_topk_search_repeated_rows_match_jax(nq, k):
     assert (s.numpy() == np.asarray(js)).all()
 
 
-@pytest.mark.parametrize("n_lists", [1, 3, 8])
-def test_merge_by_row_matches_jax(n_lists):
-    """The card wrapper's merge: per-block lists (block b holding tiles b,
-    b + G, ...) in any list order give the global top-k of lax.top_k."""
-    rng = np.random.default_rng(n_lists)
-    q, vecs, live = _repeated(rng, 5, reps_of=60)
-    k, tile = 7, 16
+def _block_lists(q, vecs, live, k, tile, n_lists):
+    """What the card kernel hands its wrapper, by the plain version: block b
+    of n_lists folds tiles b, b + n_lists, ... into one list per query."""
     n_tiles = -(-len(vecs) // tile)
     lists_s, lists_i = [], []
     for b in range(n_lists):   # each block's list: its tiles' rows in order
@@ -187,10 +184,65 @@ def test_merge_by_row_matches_jax(n_lists):
         li = torch.where(li >= 0, torch.from_numpy(rows)[li.long()].int(), li)
         lists_s.append(ls)
         lists_i.append(li)
-    got = tts.merge_by_row(torch.cat(lists_s, 1), torch.cat(lists_i, 1), k)
+    return torch.cat(lists_s, 1), torch.cat(lists_i, 1)
+
+
+@pytest.mark.parametrize("n_lists", [1, 3, 8])
+def test_merge_by_row_matches_jax(n_lists):
+    """The card wrapper's merge: per-block lists (block b holding tiles b,
+    b + G, ...) in any list order give the global top-k of lax.top_k."""
+    rng = np.random.default_rng(n_lists)
+    q, vecs, live = _repeated(rng, 5, reps_of=60)
+    k = 7
+    got = tts.merge_by_row(*_block_lists(q, vecs, live, k, 16, n_lists), k)
     js, ji = jref.topk_search(*(jnp.asarray(a) for a in (q, vecs, live)), k)
     assert (got[1].numpy() == np.asarray(ji)).all()
     assert (got[0].numpy() == np.asarray(js)).all()
+
+
+TILE_ROWS = 256        # csrc/topk_search.cu's corpus rows per tile
+H100_LISTS = 2 * 132   # the wrapper's lists on an H100: two blocks per SM
+
+
+def _many_tiles(rng, nq, n_lists, d=32):
+    """Grid-valued rows over 3 * n_lists + 1 tiles, so block b of n_lists
+    folds tiles b, b + n_lists, ... (three or four) into one list. Each
+    query's best row, 0.5 sign(q) (the highest score a grid row reaches),
+    is planted in tiles b, b + n_lists and b + 2 n_lists of block
+    b = n_lists // 2 at other offsets, so its copies tie across that
+    block's tiles; the random rows below them tie among themselves across
+    every block's tiles. The planted rows are live; they come back too,
+    ``[nq, 3]`` in row order."""
+    n = 3 * n_lists * TILE_ROWS + 77
+    q, vecs = _grid(rng, nq, d), _grid(rng, n, d)
+    live = rng.random(n) < 0.9
+    best, b, j = np.sign(q) / 2, n_lists // 2, np.arange(nq)
+    planted = np.stack([b * TILE_ROWS + j,
+                        (b + n_lists) * TILE_ROWS + 50 + j[::-1],
+                        (b + 2 * n_lists) * TILE_ROWS + 10 + j], 1)
+    vecs[planted[:, 0]] = vecs[planted[:, 1]] = vecs[planted[:, 2]] = best
+    live[planted] = True
+    return q, vecs, live, planted
+
+
+@pytest.mark.parametrize("k", [1, 16, 128])
+@pytest.mark.parametrize("n_lists", [1, 3, H100_LISTS])
+def test_topk_search_ties_across_a_blocks_tiles_match_jax(n_lists, k):
+    """Exact ties between the tiles one card block folds: the plain version
+    and the card's list-then-merge order, simulated by the plain version,
+    both equal the JAX reference, ids and scores."""
+    q, vecs, live, planted = _many_tiles(
+        np.random.default_rng(n_lists * 7 + k), 6, n_lists)
+    js, ji = jref.topk_search(*(jnp.asarray(a) for a in (q, vecs, live)), k)
+    s, i = ops.topk_search(*_t(q, vecs, live), k)
+    assert (i.numpy() == np.asarray(ji)).all()
+    assert (s.numpy() == np.asarray(js)).all()
+    ms, mi = tts.merge_by_row(*_block_lists(q, vecs, live, k, TILE_ROWS,
+                                            n_lists), k)
+    assert (mi.numpy() == np.asarray(ji)).all()
+    assert (ms.numpy() == np.asarray(js)).all()
+    # the planted copies lead, lowest row first
+    assert (i.numpy()[:, :3] == planted[:, :k]).all()
 
 
 # -- merge_candidates / probe -------------------------------------------------
@@ -387,12 +439,32 @@ def test_ivf_topk_kernel_tie_order(cuda_device, nq, nlist, cap_b, d, nprobe,
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _kernel_lists(q, vecs, live, k, n_lists):
+    """The kernel's C entry point launched with n_lists blocks (block b
+    folds tiles b, b + n_lists, ... into one list), merged as the wrapper
+    merges."""
+    nq, dev = q.shape[0], q.device
+    lib, fn = _build.entry("topk_search", 5, 5)
+    out_s = torch.empty((nq, n_lists, k), device=dev)
+    out_i = torch.empty((nq, n_lists, k), dtype=torch.int32, device=dev)
+    _build.check(lib, "topk_search", fn(
+        q.data_ptr(), vecs.data_ptr(), live.view(torch.uint8).data_ptr(),
+        out_s.data_ptr(), out_i.data_ptr(), nq, vecs.shape[0], vecs.shape[1],
+        k, n_lists, torch.cuda.current_stream(dev).cuda_stream))
+    return tts.merge_by_row(out_s.view(nq, -1), out_i.view(nq, -1), k)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 16, 128])
-def test_topk_search_kernel_rising_corpus(cuda_device, k):
-    """Every row beats a stale threshold: ids and scores exactly equal."""
+@pytest.mark.parametrize("n_lists", ["wrapper", 1, 3])
+def test_topk_search_kernel_rising_corpus(cuda_device, n_lists, k):
+    """Every row beats a stale threshold, also that of a list that has
+    folded tens of tiles before it (1 or 3 blocks through the C entry
+    point): ids and scores exactly equal."""
     args = [a.to(cuda_device) for a in _t(*_rising(5, 20000, 16))]
-    want, got = ref.topk_search(*args, k), ops.topk_search(*args, k)
+    want = ref.topk_search(*args, k)
+    got = (ops.topk_search(*args, k) if n_lists == "wrapper"
+           else _kernel_lists(*args, k, n_lists))
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -407,6 +479,27 @@ def test_topk_search_kernel_repeated_rows(cuda_device, nq, k):
     args = [a.to(cuda_device) for a in _t(q, vecs, live)]
     want, got = ref.topk_search(*args, k), ops.topk_search(*args, k)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16, 128])
+@pytest.mark.parametrize("n_lists", [1, 3, "wrapper"])
+def test_topk_search_kernel_ties_across_a_blocks_tiles(cuda_device, n_lists,
+                                                       k):
+    """Exact ties between the tiles one block folds into one list (a stale
+    threshold carried from tile to tile): ids and scores equal the plain
+    version's. ``wrapper``: the wrapper's own grid, two blocks per SM, over
+    more than three tiles per block."""
+    g = (tts.BLOCKS_PER_SM * torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count if n_lists == "wrapper"
+         else n_lists)
+    q, vecs, live, planted = _many_tiles(np.random.default_rng(g + k), 70, g)
+    args = [a.to(cuda_device) for a in _t(q, vecs, live)]
+    want = ref.topk_search(*args, k)
+    got = (ops.topk_search(*args, k) if n_lists == "wrapper"
+           else _kernel_lists(*args, k, n_lists))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[1][:, :3].cpu().numpy() == planted[:, :k]).all()
 
 
 @pytest.mark.cuda
