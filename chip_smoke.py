@@ -10,16 +10,20 @@ Phases, each of which raises on failure and prints its wall seconds:
    process per source, all at once; each library's registers, spills and
    shared memory per block;
 3. kernels against their plain versions, on the card: tie order on
-   exact-arithmetic inputs (ids and scores equal; for topk_search also
-   across the several tiles one block folds into one list), the edge-case
-   shapes and
-   the deployment shapes (64 queries; 1,048,576 x 384 fp32 rows or int8
-   codes; IVF with 1024 lists of 4096 slots, nprobe 16, PQ with 48
-   subspaces; k 16), with the time of the kernel's wrapper, its plain
-   version and one PyTorch yardstick (CUDA events, medians of 20: around
-   10 back-to-back calls and around single calls), the kernel's ratio to
-   the yardstick under both and its share of its bound on this card. topk_search and ivf_topk, then
-   quant_score, sq8_topk and pq_topk;
+   exact-arithmetic inputs (ids and scores equal; for topk_search and
+   sq8_topk also across the several tiles one block folds, for pq_topk
+   across two buckets of one probe group), sq8_topk bit for bit against
+   its int8 limb model on both load paths (d 24 by cp.async, d 384 by
+   TMA), the edge-case shapes and the deployment shapes (64 queries;
+   1,048,576 x 384 fp32 rows or int8 codes; IVF with 1024 lists of 4096
+   slots, nprobe 16, PQ with 48 subspaces; k 16), with the time of the
+   kernel's wrapper, its plain version and one PyTorch yardstick (CUDA
+   events, medians of 20: around 10 back-to-back calls and around single
+   calls), the kernel's ratio to the yardstick under both and its share of
+   its bound on this card (int8 products at the int8 tensor cores' rate);
+   topk_search, sq8_topk and pq_topk also through their C entry points
+   alone. topk_search and ivf_topk, then quant_score, sq8_topk and
+   pq_topk;
 4. the vector DB at deployment size (``TorchVectorDB``), three
    configurations built one after the other from one seeded row set:
    1,048,576 clustered unit rows, the index build, 32,768 fresh rows in the
@@ -69,6 +73,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12   # tensor cores, dense
+INT8_OPS_PER_S = 1979e12   # tensor cores, dense
 TOL = 1e-5                 # |score| tolerance: unit vectors, fp32
 # attention output tolerance (rtol and atol, as the reference's kernel test
 # states them): bf16 rounds the probabilities and the output; fp32 sums in
@@ -455,8 +460,9 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
                 lambda: (q * scale) @ codes.float().T)
     # bytes: the codes, the query block, the scale, the [nq, N] output;
     # FLOP: one d-long dot product per (query, row)
+    # (the products sq8_topk runs on the int8 tensor cores: their rate)
     bms, by = bound(N * DIM + NQ * DIM * 4 + DIM * 4 + NQ * N * 4,
-                    2.0 * NQ * N * DIM)
+                    2.0 * NQ * N * DIM, INT8_OPS_PER_S)
     records["quant_score"] = dict(
         name="quant_score", route="cuda",
         source="src/repro_torch/csrc/quant_score.cu",
@@ -468,6 +474,59 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
         f"{t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}); "
         f"{speed(t, bms)}")
 
+    # ... and across the tiles one block folds into one list: the wrapper's
+    # G blocks (block b takes 64-row tiles b, b + G, ...) over 3G + 1 tiles
+    # of exact codes, each query's best row (3 sign(q), the highest score a
+    # code row reaches) planted live in tiles G/2, G/2 + G and G/2 + 2G
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_retrieve as tfr
+
+    tile = _build.tile_rows("sq8_topk")
+    g = torch.cuda.get_device_properties(dev).multi_processor_count
+    n, nq, b = 3 * g * tile + 77, tile, g // 2
+    codes = torch.randint(-3, 4, (n, 32), generator=gen,
+                          device=dev).to(torch.int8)
+    scale = torch.full((32,), 0.5, device=dev)
+    q, live = grid(nq, 32), live_mask(n, 0.9)
+    j = torch.arange(nq, device=dev)
+    planted = torch.stack([b * tile + j, (b + g) * tile + tile - 1 - j,
+                           (b + 2 * g) * tile + (j + 10) % tile], 1)
+    for col in range(3):
+        codes[planted[:, col]] = (3 * torch.sign(q)).to(torch.int8)
+    live[planted] = True
+    for k in (1, 16, 128):
+        got = ops.sq8_topk(q, codes, scale, live, k)
+        check_ties(torch, f"sq8_topk ties across a block's tiles (N={n}, "
+                   f"{g} lists) k={k}", ref.sq8_topk(q, codes, scale, live,
+                                                     k), got)
+        if not torch.equal(got[1][:, :3], planted[:, :k].int()):
+            raise AssertionError(f"sq8_topk k={k}: the planted best rows "
+                                 f"do not lead")
+
+    def limb_model(q, codes, scale, live, k):
+        """The kernel's own arithmetic in torch: its result bit for bit."""
+        return ref.masked_topk(tfr.sq8_limb_scores(
+            *tfr.sq8_limbs(q * scale[None, :]), codes), live, k)
+
+    # both load paths (cp.async at d % 16 != 0, TMA at d % 16 == 0), two
+    # query blocks, 2-3 tiles a list: bit for bit the limb model, and the
+    # plain version under the parity rule
+    for d in (24, 384):
+        q, live = unit(70, d), live_mask(20000, 0.9)
+        codes, scale = sq8(20000, d)
+        for k in (1, 16, 128):
+            got = ops.sq8_topk(q, codes, scale, live, k)
+            want = limb_model(q, codes, scale, live, k)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"sq8_topk d={d} k={k} differs from "
+                                     f"the limb model")
+            check(f"sq8_topk d={d} k={k}", compare_topk(
+                *ref.sq8_topk(q, codes, scale, live, k), *got), "plain")
+        say(f"sq8_topk at d={d} ({'TMA' if d % 16 == 0 else 'cp.async'} "
+            f"loads), nq=70, N=20000, k=1/16/128: equal to the limb model "
+            f"bit for bit")
+
     # -- sq8_topk: edge cases, then the deployment shapes
     worst = {"max_abs_diff": 0.0, "id_mismatches": 0}
     for nq, n, d, k, p in [(3, 32, 8, 8, 1.0), (2, 64, 8, 6, 0.05),
@@ -477,10 +536,16 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
                            (NQ, N, DIM, K, 0.99)]:
         q, live = unit(nq, d), live_mask(n, p)
         codes, scale = sq8(n, d)
+        out = ops.sq8_topk(q, codes, scale, live, k)
         got = check(f"sq8_topk nq={nq} N={n} d={d} k={k}",
                     compare_topk(*ref.sq8_topk(q, codes, scale, live, k),
-                                 *ops.sq8_topk(q, codes, scale, live, k)),
-                    "plain")
+                                 *out), "plain")
+        if n < N:
+            want = limb_model(q, codes, scale, live, k)
+            if not (torch.equal(out[0], want[0])
+                    and torch.equal(out[1], want[1])):
+                raise AssertionError(f"sq8_topk nq={nq} N={n} d={d} k={k} "
+                                     f"differs from the limb model")
         say(f"sq8_topk nq={nq} N={n} d={d} k={k} live={p}: max|dscore| "
             f"{got['max_abs_diff']:.3g}, id mismatches {got['id_mismatches']}")
         worst["max_abs_diff"] = max(worst["max_abs_diff"], got["max_abs_diff"])
@@ -491,18 +556,41 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
                 lambda: torch.topk(torch.where(
                     live[None, :], (q * scale) @ codes.float().T, neg), K))
     # bytes: the live rows' codes, the liveness bytes, the query block, the
-    # scale, the outputs; FLOP: one d-long dot product per (query, live row)
+    # scale, the outputs; operations: one d-long dot product per (query,
+    # live row), at the int8 tensor cores' rate
     bms, by = bound(n_live * DIM + N + NQ * DIM * 4 + DIM * 4 + NQ * K * 8,
-                    2.0 * NQ * n_live * DIM)
+                    2.0 * NQ * n_live * DIM, INT8_OPS_PER_S)
+    # the C entry point alone (the scan and its merge, no limb split): at
+    # k=K and at k=1 (the same loads and products, few candidates)
+    lib, fn = _build.entry("sq8_topk", 8, 5, "s8")
+    limbs, expo = tfr.sq8_limbs(q * scale[None, :])
+    n_lists = min(-(-N // tile), g)
+
+    def alone(k):
+        out_s = torch.empty((NQ, n_lists, k), device=dev)
+        out_i = torch.empty((NQ, n_lists, k), dtype=torch.int32, device=dev)
+        top_s = torch.empty((NQ, k), device=dev)
+        top_i = torch.empty((NQ, k), dtype=torch.int32, device=dev)
+        launch = (limbs.data_ptr(), expo.data_ptr(), codes.data_ptr(),
+                  live.view(torch.uint8).data_ptr(), out_s.data_ptr(),
+                  out_i.data_ptr(), top_s.data_ptr(), top_i.data_ptr(), NQ,
+                  N, DIM, k, n_lists,
+                  torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, "sq8_topk", fn(*launch))
+        return kernel_ms(lambda: fn(*launch), torch)
+
+    t["kernel_only_ms"] = alone(K)
+    t["kernel_only_k1_ms"] = alone(1)
     records["sq8_topk"] = dict(
         name="sq8_topk", route="cuda", source="src/repro_torch/csrc/sq8_topk.cu",
         replaces="src/repro/kernels/fused_retrieve.py:122",
         jax="src/repro/kernels/fused_retrieve.py:sq8_topk_pallas",
         **errors(worst), bound_ms=bms, bound_by=by, **t)
     say(f"sq8_topk at nq={NQ} N={N} d={DIM} k={K} ({n_live} live): kernel "
-        f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.topk "
-        f"{t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}); "
-        f"{speed(t, bms)}")
+        f"{t['ms']:.4f} ms (the kernel alone {t['kernel_only_ms']:.4f} ms, "
+        f"at k=1 {t['kernel_only_k1_ms']:.4f} ms), plain "
+        f"{t['plain_ms']:.4f} ms, torch.topk {t['library_ms']:.4f} ms, bound "
+        f"{bms:.4f} ms ({by}); {speed(t, bms)}")
     del q, codes, scale, live
 
     # -- pq_topk
@@ -515,7 +603,7 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
         member = (pos[None, :] < fill[:, None]).reshape(-1)
         ok = member & live_mask(nlist * cap_b, 0.99)
         codes = torch.randint(0, 256, (nlist * cap_b, m), generator=gen,
-                              device=dev, dtype=torch.int32)
+                              device=dev, dtype=torch.uint8)
         slot = torch.where(member, torch.randperm(
             nlist * cap_b, generator=gen, device=dev).int(), -1).int()
         codebook = 0.3 * torch.randn(m, 256, d // m, generator=gen,
@@ -531,6 +619,32 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
         args = (unit(nq, d), codebook, cent, codes, slot, ok, nprobe, k)
         check_ties(torch, f"pq_topk ties nq={nq} cap_b={cap_b} m={m} k={k}",
                    ref.pq_topk(*args), ops.pq_topk(*args))
+
+    # ... and across two buckets of one probe group: for each query, the
+    # codes of a row of its probe rank 1 copied into a row of its rank 3
+    # (both in the first group of 4); equal scores, the lower rank first.
+    # k covers every probed row
+    nq, nlist, cap_b, d, m, nprobe, k = 6, 16, 16, 48, 48, 8, 128
+    cent, codebook, codes, slot, ok = packed(nlist, cap_b, d, m, 0, cap_b)
+    q = unit(nq, d)
+    probes = ref.probe(q, cent, nprobe).long()
+    src = probes[:, 1] * cap_b + torch.arange(nq, device=dev)
+    dst = probes[:, 3] * cap_b + 8 + torch.arange(nq, device=dev)
+    codes[dst] = codes[src]
+    ok[src] = ok[dst] = True
+    slot[src] = torch.where(slot[src] < 0, 10**6 + src.int(), slot[src])
+    slot[dst] = torch.where(slot[dst] < 0, 2 * 10**6 + dst.int(), slot[dst])
+    args = (q, codebook, cent, codes, slot, ok, nprobe, k)
+    got = ops.pq_topk(*args)
+    check_ties(torch, f"pq_topk ties across two buckets of one probe group "
+               f"(nq={nq}, nprobe={nprobe}, group {tfr.PQ_GROUP}) k={k}",
+               ref.pq_topk(*args), got)
+    for i in range(nq):
+        row = got[1][i].tolist()
+        a, b = row.index(int(slot[src[i]])), row.index(int(slot[dst[i]]))
+        if not (a < b and got[0][i, a] == got[0][i, b]):
+            raise AssertionError(f"pq_topk query {i}: the tie across probe "
+                                 f"ranks 1 and 3 is out of order")
 
     worst = {"max_abs_diff": 0.0, "id_mismatches": 0}
     for nq, nlist, cap_b, d, m, nprobe, k, lo, hi in [
@@ -564,27 +678,41 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
 
     t = timings(torch, lambda: ops.pq_topk(*args),
                 lambda: ref.pq_topk(*args), library)
-    # the kernel alone, its wrapper's probe, tables and merge done once
-    from repro_torch.kernels import _build
-    lib, fn = _build.entry("pq_topk", 7, 5)
+    # the C entry point alone (the scan and its merge), its wrapper's probe
+    # and tables made once; and on the same buckets with every row's codes
+    # equal (each warp's 32 lookups of a subspace then read one word: no
+    # bank conflicts), which shows what the conflicts of the real codes cost
+    lib, fn = _build.entry("pq_topk", 10, 6, "u8")
     lut = ref.pq_lut(q, codebook).contiguous()
     probes = ref.probe(q, cent, NPROBE)
-    out_s = torch.empty((NQ, NPROBE, K), device=dev)
-    out_i = torch.empty((NQ, NPROBE, K), dtype=torch.int32, device=dev)
-    launch = [lut.data_ptr(), codes.data_ptr(), slot.data_ptr(),
-              ok.view(torch.uint8).data_ptr(), probes.data_ptr(),
-              out_s.data_ptr(), out_i.data_ptr(), NQ, PQ_M, CAP_B, NPROBE, K,
-              torch.cuda.current_stream(dev).cuda_stream]
-    _build.check(lib, "pq_topk", fn(*launch))
-    t["kernel_only_ms"] = kernel_ms(lambda: fn(*launch), torch)
-    # bytes: every probed bucket's ok bytes and its ok rows' codes once, the
-    # slot ids of the rows a (query, probe) emits, the query block, the
-    # centroids, the codebook, the outputs; operations: m table adds per
-    # (query, probed ok row), the probe's centroid scores and the tables
+    groups = -(-NPROBE // tfr.PQ_GROUP)
+    out_s = torch.empty((NQ, groups, K), device=dev)
+    out_i = torch.empty((NQ, groups, K), dtype=torch.int32, device=dev)
+    out_p = torch.empty((NQ, groups, K), dtype=torch.int32, device=dev)
+    top_s = torch.empty((NQ, K), device=dev)
+    top_i = torch.empty((NQ, K), dtype=torch.int32, device=dev)
+
+    def alone(codes):
+        launch = [lut.data_ptr(), codes.data_ptr(), slot.data_ptr(),
+                  ok.view(torch.uint8).data_ptr(), probes.data_ptr(),
+                  out_s.data_ptr(), out_i.data_ptr(), out_p.data_ptr(),
+                  top_s.data_ptr(), top_i.data_ptr(), NQ, PQ_M, CAP_B, NPROBE,
+                  tfr.PQ_GROUP, K, torch.cuda.current_stream(dev).cuda_stream]
+        _build.check(lib, "pq_topk", fn(*launch))
+        return kernel_ms(lambda: fn(*launch), torch)
+
+    t["kernel_only_ms"] = alone(codes)
+    t["kernel_only_same_codes_ms"] = alone(
+        codes[:1].expand_as(codes).contiguous())
+    # bytes: every probed bucket's ok bytes and its ok rows' codes (one byte
+    # each) once, the slot ids of the rows a (query, probe) emits, the query
+    # block, the centroids, the codebook, the outputs; operations: m table
+    # adds per (query, probed ok row), the probe's centroid scores and the
+    # tables
     probe = ref.probe(q, cent, NPROBE).long()
     ok_rows = ok2.sum(1)
     buckets = torch.unique(probe)
-    n_bytes = (int(ok_rows[buckets].sum()) * PQ_M * 4 + len(buckets) * CAP_B
+    n_bytes = (int(ok_rows[buckets].sum()) * PQ_M + len(buckets) * CAP_B
                + int(ok_rows[probe].clamp(max=K).sum()) * 4
                + NQ * DIM * 4 + NLIST * DIM * 4 + codebook.numel() * 4
                + NQ * K * 8)
@@ -599,8 +727,9 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
     say(f"pq_topk at nq={NQ} nlist={NLIST} cap_b={CAP_B} m={PQ_M} "
         f"nprobe={NPROBE} k={K} ({len(buckets)} buckets probed, "
         f"{int(ok_rows[probe].sum())} (query, ok row) pairs): kernel "
-        f"{t['ms']:.4f} ms (the kernel alone {t['kernel_only_ms']:.4f} ms), "
-        f"plain {t['plain_ms']:.4f} ms, "
+        f"{t['ms']:.4f} ms (the kernel alone {t['kernel_only_ms']:.4f} ms, "
+        f"with every row's codes equal {t['kernel_only_same_codes_ms']:.4f} "
+        f"ms), plain {t['plain_ms']:.4f} ms, "
         f"gather+sum+topk {t['library_ms']:.4f} ms, bound {bms:.4f} ms "
         f"({by}); {speed(t, bms)}")
     return records
@@ -671,6 +800,10 @@ def run_db(torch, ops, ref, compare_topk, data, name, cfg, rungs, kernels,
     st = db.stats()
     fill = (f" (max bucket fill {int(db.bucket_live.sum(1).max())} of "
             f"{CAP_B})" if db.bucket_live is not None else "")
+    if db.packed is not None and "codes" in db.packed:
+        pc = db.packed["codes"]
+        fill += (f"; packed PQ mirror {pc.dtype} {tuple(pc.shape)}, "
+                 f"{pc.numel() * pc.element_size()} bytes")
     say(f"{name}: inserted {N} rows in {t1 - t0:.1f} s, build_index "
         f"{t2 - t1:.1f} s{fill}, {N_FRESH} fresh rows, {removed} rows of "
         f"{len(data['gone'])} docs removed; live {int(st['live'])}, fresh "

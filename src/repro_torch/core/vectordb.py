@@ -459,14 +459,18 @@ class TorchVectorDB(DBInstance):
         """Rebuild the bucket-contiguous mirror for the fused IVF kernels.
 
         ``slot`` maps packed row -> original slot id (-1 pad); the gathered
-        vector rows (``ivf_topk``) or PQ code rows (``pq_topk``, int32 as in
-        the reference) are copies, so later tombstones only affect the
-        search-time ``ok`` mask, never the mirrored data.
+        vector rows (``ivf_topk``) or PQ code rows (``pq_topk``) are copies,
+        so later tombstones only affect the search-time ``ok`` mask, never
+        the mirrored data. The PQ mirror holds one uint8 per code (the
+        reference's is int32; ``pq_codes`` stays int32 as there): it is
+        gathered from a uint8 copy of ``pq_codes``, so no int32 mirror is
+        allocated.
         """
         slot = self.buckets.reshape(-1).contiguous()
         safe = slot.clamp(min=0).long()
         if self.cfg.quant == "pq" and self.pq_codes is not None:
-            self.packed = {"slot": slot, "codes": self.pq_codes[safe]}
+            self.packed = {"slot": slot,
+                           "codes": self.pq_codes.to(torch.uint8)[safe]}
         else:
             self.packed = {"slot": slot, "vecs": self.vectors[safe]}
 

@@ -1,6 +1,7 @@
 // cp.async copies from device memory to shared memory (16 bytes a thread,
-// zero-filled where the source row does not exist), their commit groups and
-// waits. Shared by the tile scans and flash_attention.cu.
+// zero-filled where the source row does not exist, or 4 bytes), their
+// commit groups and waits. Shared by the tile scans, pq_topk.cu,
+// sq8_topk.cu and flash_attention.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,6 +12,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   const int n = pred ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(n)
+               : "memory");
+}
+// 4 bytes (both addresses 4-byte aligned), through L1
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

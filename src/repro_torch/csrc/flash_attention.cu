@@ -737,33 +737,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
 }  // namespace wg
 
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// so that the library links the CUDA runtime only (no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    return (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A [B, heads, S, dh] bf16 tensor with element strides (sb, sh, ss, 1) as a
 // 4-d map (dh, S, heads, B) read in boxes of 64 columns x `rows` rows, in
 // the 128-byte swizzle; rows past S read as zeros. The last few maps are
@@ -787,7 +760,7 @@ bool encode_heads(CUtensorMap* map, const void* base, int dh, int S,
       *map = e.map;
       return true;
     }
-  const EncodeTiled enc = encode_tiled();
+  const sm90::EncodeTiled enc = sm90::encode_tiled();
   if (enc == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh),
                               static_cast<cuuint64_t>(S),

@@ -1,7 +1,6 @@
-// Pieces shared by the corpus-tile scans (topk_search.cu over fp32 rows,
-// sq8_topk.cu over int8 codes, quant_score.cu): the register-blocked FMA
-// loop, the tile's liveness prologue and the fold of a finished score tile
-// into the per-query running top-k lists.
+// Pieces shared by the corpus-tile scans on the FMA units (topk_search.cu
+// over fp32 rows, quant_score.cu over int8 codes): the register-blocked FMA
+// loop and the tile's liveness prologue.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -67,49 +66,4 @@ __device__ __forceinline__ void live_subtiles(const uint8_t* __restrict__ live,
     subs[0] = m;
   }
   __syncthreads();
-}
-
-// Fold the finished score tile sc [BQ][BNP] (dead rows already NEG) of
-// rows row0.. into the lists (lsb, lib) [BQ][k], one warp per query row:
-// only scores above the list's k-th enter, in row order, so equal scores
-// keep the lower row.
-template <int BQ, int BN, int BNP, int WARPS>
-__device__ __forceinline__ void fold_tile(const float* sc, float* lsb,
-                                          int* lib, int k, int q0, int nq,
-                                          int row0, int warp, int lane) {
-  for (int qq = warp; qq < BQ && q0 + qq < nq; qq += WARPS) {
-    float* ls = lsb + qq * k;
-    int* li = lib + qq * k;
-    float thr = ls[k - 1];
-#pragma unroll
-    for (int c = 0; c < BN / 32; ++c) {
-      const float s = sc[qq * BNP + c * 32 + lane];
-      unsigned m = __ballot_sync(FULL_MASK, s > thr);
-      while (m) {
-        const int src = __ffs(m) - 1;
-        const float cs = __shfl_sync(FULL_MASK, s, src);
-        warp_list_insert(ls, li, k, cs, row0 + c * 32 + src, lane);
-        thr = ls[k - 1];
-        m &= m - 1;
-        m &= __ballot_sync(FULL_MASK, s > thr);
-      }
-    }
-  }
-}
-
-// Write each query row's list to out [nq, n_tiles, k] at tile `tile`.
-template <int BQ, int WARPS>
-__device__ __forceinline__ void write_lists(const float* lsb, const int* lib,
-                                            float* __restrict__ out_s,
-                                            int* __restrict__ out_i, int k,
-                                            int q0, int nq, int tile,
-                                            int n_tiles, int warp,
-                                            int lane) {
-  for (int qq = warp; qq < BQ && q0 + qq < nq; qq += WARPS) {
-    const size_t o = (static_cast<size_t>(q0 + qq) * n_tiles + tile) * k;
-    for (int e = lane; e < k; e += 32) {
-      out_s[o + e] = lsb[qq * k + e];
-      out_i[o + e] = lib[qq * k + e];
-    }
-  }
 }

@@ -96,7 +96,8 @@ def library(name: str) -> ctypes.CDLL:
 @functools.lru_cache(maxsize=None)
 def entry(name: str, n_ptr: int, n_int: int, dtype: str = "f32"):
     """``(library, C entry point <name>_<dtype>)`` of ``csrc/<name>.cu``
-    (``dtype`` "f32" or "bf16"), typed as taking ``n_ptr`` pointers,
+    (``dtype`` names the operands' type: "f32", "bf16", "s8" or "u8"),
+    typed as taking ``n_ptr`` pointers,
     ``n_int`` ints and the stream and returning the CUDA error code."""
     lib = library(name)
     fn = getattr(lib, f"{name}_{dtype}")
@@ -115,6 +116,7 @@ def tile_rows(name: str) -> int:
     return fn()
 
 
+@functools.lru_cache(maxsize=None)
 def smem_bytes(name: str, d: int, k: int) -> int:
     """Dynamic shared memory per block that ``csrc/<name>.cu`` requests
     for rows of width ``d`` and lists of ``k`` (``<name>_smem_bytes``)."""

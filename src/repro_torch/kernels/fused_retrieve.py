@@ -6,15 +6,21 @@ Each replaces the Pallas kernel of the same name in
 
 * ``ivf_topk`` / ``pq_topk``: the probe (the top-``nprobe`` of
   ``q @ cent.T``) and, for PQ, the per-query lookup table stay plain tensor
-  ops, as the XLA prologue does in JAX; the kernel scores each probed bucket
-  of the bucket-contiguous packed mirror (fp32 rows, or PQ codes by table
-  lookup) and emits its top-k as slot ids;
-* ``sq8_topk``: the query is prescaled by the per-dimension scale here; the
-  kernel scores int8 code tiles and emits each tile's top-k.
+  ops, as the XLA prologue does in JAX; the kernel scores the probed
+  buckets of the bucket-contiguous packed mirror (fp32 rows, or uint8 PQ
+  codes by table lookup) and emits top-k lists as slot ids: one per probed
+  bucket (``ivf_topk``, merged here with a stable sort) or one per group of
+  ``PQ_GROUP`` probes (``pq_topk``, merged by a second kernel by (score,
+  probe rank, row));
+* ``sq8_topk``: the query is prescaled by the per-dimension scale and split
+  into int8 limbs here (``sq8_limbs``); the kernel scores int8 code tiles
+  on the int8 tensor cores and emits one top-k list per block, merged by a
+  second kernel by (score, row).
 
-The candidates merge with a stable sort. The plain versions are in
-``repro_torch.kernels.ref``; ``repro_torch.kernels.ops`` picks between them
-by the device of the inputs.
+The second kernels are launched by the same C entry point as the first.
+
+The plain versions are in ``repro_torch.kernels.ref``;
+``repro_torch.kernels.ops`` picks between them by the device of the inputs.
 """
 from __future__ import annotations
 
@@ -25,6 +31,8 @@ from repro_torch.kernels.ref import merge_candidates, pq_lut, probe
 
 MAX_K = 128
 SMEM_MAX = 232_448   # shared memory a block may use on Hopper (bytes)
+SQ8_LIMBS = 4        # int8 limbs of a prescaled query row (csrc LIMBS)
+PQ_GROUP = 4         # probes per pq_topk block: one table load per group
 # kernel launches since the last ops.reset_launch_counts()
 launches = {"ivf_topk": 0, "sq8_topk": 0, "pq_topk": 0}
 
@@ -71,12 +79,59 @@ def ivf_topk_cuda(q: torch.Tensor, cent: torch.Tensor,
                             out_i.view(nq, nprobe * k), k)
 
 
+def _pow2(e: torch.Tensor) -> torch.Tensor:
+    """2.0 ** e as fp32 for int32 ``e`` in [-126, 127], built from its bits
+    (exact on every device, as the kernel builds it)."""
+    return ((e + 127) << 23).view(torch.float32)
+
+
+def sq8_limbs(qs: torch.Tensor):
+    """Split prescaled query rows ``qs [nq, d]`` fp32 into ``SQ8_LIMBS``
+    int8 limbs, every step exact in fp32: with ``2^e`` the least power of
+    two at or above the row's ``max |qs|`` (``e`` held in [-96, 120]), limb
+    0 is ``round(qs * 2^(6 - e))`` and each further limb ``round(residue *
+    2^7)``, all in [-64, 64]; ``qs`` equals ``sum_l 2^(e - 6 - 7 l) *
+    limb_l`` up to ``2^(e - 7 SQ8_LIMBS)`` per element. Returns ``(limbs
+    [SQ8_LIMBS, nq, d] int8, e [nq] int32)``: the A operand of
+    ``csrc/sq8_topk.cu`` and the exponents its weights come from."""
+    bits = qs.abs().amax(1).view(torch.int32)
+    # the exponent field of amax rounded up to a power of two (amax = 0
+    # and subnormal amax land below the floor)
+    e = (((bits - 1) >> 23) - 126).clamp_(-96, 120)
+    x = qs * _pow2(6 - e)[:, None]
+    limbs = torch.empty((SQ8_LIMBS,) + tuple(qs.shape), dtype=torch.int8,
+                        device=qs.device)
+    for l in range(SQ8_LIMBS):
+        r = torch.round(x)
+        limbs[l] = r
+        if l + 1 < SQ8_LIMBS:
+            x.sub_(r).mul_(128.0)
+    return limbs, e
+
+
+def sq8_limb_scores(limbs: torch.Tensor, e: torch.Tensor,
+                    codes: torch.Tensor) -> torch.Tensor:
+    """The scores ``[nq, N]`` that ``csrc/sq8_topk.cu`` computes, bit for
+    bit: each limb's exact integer dot product ``a_l`` with the codes,
+    converted to fp32, times its weight ``w_l = 2^(e - 6 - 7 l)`` (exact),
+    added in the order ``((a_0 w_0 + a_1 w_1) + a_2 w_2) + a_3 w_3``."""
+    c = codes.double().T
+    out = None
+    for l, limb in enumerate(limbs):
+        term = (limb.double() @ c).float() * _pow2(e - 6 - 7 * l)[:, None]
+        out = term if out is None else out + term
+    return out
+
+
 def sq8_topk_cuda(q: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                   live: torch.Tensor, k: int):
     """q:[nq,d] fp32, codes:[N,d] int8, scale:[d] fp32, live:[N]
-    bool/uint8, all on one CUDA device; d % 4 == 0, 1 <= k <= 128. Returns
-    ``(scores [nq,k] f32, idx [nq,k] int32)`` with ``(NEG, -1)``
-    padding."""
+    bool/uint8, all on one CUDA device; d % 4 == 0, 1 <= k <= 128, and
+    the query block's limbs and lists must fit in shared memory (d <= 384
+    at any k, d <= 512 at k <= 67). Returns
+    ``(scores [nq,k] f32, idx [nq,k] int32)`` with ``(NEG, -1)`` padding:
+    the top-k of ``sq8_limb_scores``, within 1e-5 of ``ref.sq8_topk``'s
+    scores."""
     dev = q.device
     _build.require(q, "q", (torch.float32,), 2, dev)
     _build.require(codes, "codes", (torch.int8,), 2, dev)
@@ -93,36 +148,44 @@ def sq8_topk_cuda(q: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     if d % 4 or not 1 <= k <= MAX_K:
         raise ValueError(f"need d % 4 == 0 and 1 <= k <= {MAX_K}, got "
                          f"d={d} k={k}")
-    lib, fn = _build.entry("sq8_topk", 5, 4)
+    smem = _build.smem_bytes("sq8_topk", d, k)
+    if not 0 < smem <= SMEM_MAX:
+        raise ValueError(f"sq8_topk: the query block's limbs, the lists "
+                         f"of k and one ring stage must fit in shared "
+                         f"memory (d <= 384 at any k, d <= 512 at k <= 67); "
+                         f"got d={d} k={k}")
+    lib, fn = _build.entry("sq8_topk", 8, 5, "s8")
     n_tiles = -(-n // _build.tile_rows("sq8_topk"))
-    qs = (q * scale[None, :]).contiguous()
-    out_s = torch.empty((nq, n_tiles, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, n_tiles, k), dtype=torch.int32, device=dev)
-    err = fn(qs.data_ptr(), codes.data_ptr(),
+    n_lists = min(n_tiles, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    limbs, e = sq8_limbs(q * scale[None, :])
+    out_s = torch.empty((nq, n_lists, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, n_lists, k), dtype=torch.int32, device=dev)
+    top_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    top_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    err = fn(limbs.data_ptr(), e.data_ptr(), codes.data_ptr(),
              live.view(torch.uint8).data_ptr(), out_s.data_ptr(),
-             out_i.data_ptr(), nq, n, d, k,
-             torch.cuda.current_stream(dev).cuda_stream)
+             out_i.data_ptr(), top_s.data_ptr(), top_i.data_ptr(), nq, n, d,
+             k, n_lists, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "sq8_topk", err)
     launches["sq8_topk"] += 1
-    return merge_candidates(out_s.view(nq, n_tiles * k),
-                            out_i.view(nq, n_tiles * k), k)
+    return top_s, top_i
 
 
 def pq_topk_cuda(q: torch.Tensor, codebook: torch.Tensor, cent: torch.Tensor,
                  packed_codes: torch.Tensor, packed_slot: torch.Tensor,
                  packed_ok: torch.Tensor, nprobe: int, k: int):
     """q:[nq,d] codebook:[m,256,d/m] cent:[nlist,d] fp32,
-    packed_codes:[nlist*cap_b, m] int32 in [0, 256),
-    packed_slot:[nlist*cap_b] int32, packed_ok:[nlist*cap_b] bool/uint8,
-    all on one CUDA device; 1 <= nprobe <= nlist, 1 <= k <= 128, and the
-    query's [m, 256] table must fit in shared memory. Returns
-    ``(scores [nq,k] f32, slot ids [nq,k] int32)`` with ``(NEG, -1)``
-    padding."""
+    packed_codes:[nlist*cap_b, m] uint8, packed_slot:[nlist*cap_b] int32,
+    packed_ok:[nlist*cap_b] bool/uint8, all on one CUDA device;
+    1 <= nprobe <= nlist, 1 <= k <= 128, and the query's [m, 256] table
+    must fit in shared memory. Returns ``(scores [nq,k] f32, slot ids
+    [nq,k] int32)`` with ``(NEG, -1)`` padding."""
     dev = q.device
     _build.require(q, "q", (torch.float32,), 2, dev)
     _build.require(codebook, "codebook", (torch.float32,), 3, dev)
     _build.require(cent, "cent", (torch.float32,), 2, dev)
-    _build.require(packed_codes, "packed_codes", (torch.int32,), 2, dev)
+    _build.require(packed_codes, "packed_codes", (torch.uint8,), 2, dev)
     _build.require(packed_slot, "packed_slot", (torch.int32,), 1, dev)
     _build.require(packed_ok, "packed_ok",
                    (torch.bool, torch.uint8, torch.int8), 1, dev)
@@ -137,22 +200,29 @@ def pq_topk_cuda(q: torch.Tensor, codebook: torch.Tensor, cent: torch.Tensor,
             f"shapes q {tuple(q.shape)} codebook {tuple(codebook.shape)} "
             f"cent {tuple(cent.shape)} codes {tuple(packed_codes.shape)} "
             f"slot {tuple(packed_slot.shape)} ok {tuple(packed_ok.shape)}")
-    smem = 4 * m * 256 + 8 * 8 * k
+    # the table, 8 warps' lists and buffers, the ok masks and list of a
+    # probe group's 32-row groups
+    smem = (4 * m * 256 + 8 * 8 * (k + 32)
+            + 8 * PQ_GROUP * -(-(rows // nlist) // 32))
     if not 1 <= k <= MAX_K or not 1 <= nprobe <= nlist or smem > SMEM_MAX:
         raise ValueError(f"need 1 <= k <= {MAX_K}, 1 <= nprobe <= nlist and "
                          f"a table of at most {SMEM_MAX} bytes with the "
                          f"lists; got k={k} nprobe={nprobe} nlist={nlist} "
                          f"m={m} ({smem} bytes)")
-    lib, fn = _build.entry("pq_topk", 7, 5)
+    lib, fn = _build.entry("pq_topk", 10, 6, "u8")
     lut = pq_lut(q, codebook).contiguous()
     probes = probe(q, cent, nprobe)
-    out_s = torch.empty((nq, nprobe, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((nq, nprobe, k), dtype=torch.int32, device=dev)
+    groups = -(-nprobe // PQ_GROUP)
+    out_s = torch.empty((nq, groups, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, groups, k), dtype=torch.int32, device=dev)
+    out_p = torch.empty((nq, groups, k), dtype=torch.int32, device=dev)
+    top_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    top_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     err = fn(lut.data_ptr(), packed_codes.data_ptr(), packed_slot.data_ptr(),
              packed_ok.view(torch.uint8).data_ptr(), probes.data_ptr(),
-             out_s.data_ptr(), out_i.data_ptr(), nq, m, rows // nlist,
-             nprobe, k, torch.cuda.current_stream(dev).cuda_stream)
+             out_s.data_ptr(), out_i.data_ptr(), out_p.data_ptr(),
+             top_s.data_ptr(), top_i.data_ptr(), nq, m, rows // nlist,
+             nprobe, PQ_GROUP, k, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "pq_topk", err)
     launches["pq_topk"] += 1
-    return merge_candidates(out_s.view(nq, nprobe * k),
-                            out_i.view(nq, nprobe * k), k)
+    return top_s, top_i

@@ -135,7 +135,8 @@ def pq_topk(q, codebook, cent, packed_codes, packed_slot, packed_ok,
     """PQ-ADC probe -> LUT score -> select over the packed bucket codes.
 
     q:[nq,d]; codebook:[m,256,dsub]; cent:[nlist,d];
-    packed_codes:[nlist*cap_b, m] int32 in [0, 256);
+    packed_codes:[nlist*cap_b, m] uint8, or int32 in [0, 256) as the
+    reference keeps them (the same result);
     packed_slot/packed_ok:[nlist*cap_b]. A row scores
     ``adc_sum(LUT[t, code_t])``; each probed bucket yields its own top-k as
     slot ids and the ``[nq, nprobe*k]`` candidates merge probe-major.

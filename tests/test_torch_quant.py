@@ -24,6 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import fused_retrieve as jfr  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.quant_score import quant_score_pallas  # noqa: E402
+from repro_torch.kernels import fused_retrieve as tfr  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.parity import compare_topk  # noqa: E402
 
@@ -51,6 +52,13 @@ def _sq8(rng, n, d):
     scale = (np.abs(x).max(0) / 127.0 + 1e-12).astype(np.float32)
     codes = np.clip(np.round(x / scale), -127, 127).astype(np.int8)
     return codes, scale
+
+
+def _grid(rng, n, d):
+    """Entries in {-0.5, -0.25, 0, 0.25, 0.5}: with small integer codes and
+    a scale of 1, every dot product is exact in fp32 whatever the summation
+    order, so ties are real ties."""
+    return (rng.integers(-2, 3, (n, d)) / 4).astype(np.float32)
 
 
 def _assert_parity(jax_out, torch_out):
@@ -150,6 +158,103 @@ def test_sq8_topk_tie_order_matches_jax():
         assert i[r, 0] < i[r, 1]
 
 
+# -- sq8_topk's limb route (the card kernel's arithmetic) -----------------------
+
+
+def _split_bound(qs, codes, limbs_e):
+    """Per (query, row): sum_j |c_j| 2^(e - 7 L), the limb split's error
+    bound."""
+    limbs, e = limbs_e
+    step = 2.0 ** (e.double() - 7 * limbs.shape[0])
+    return step[:, None] * codes.double().abs().sum(1)[None, :]
+
+
+@pytest.mark.parametrize("d", [8, 24, 384])
+def test_sq8_limbs_rebuild_qs(d):
+    """The limbs are int8 in [-64, 64], 2^e is the least power of two at
+    or above the row's max |q * scale|, and sum_l 2^(e - 6 - 7 l) limb_l
+    rebuilds q * scale within 2^(e - 7L) per element."""
+    rng = np.random.default_rng(d)
+    q = _unit(rng, 9, d)
+    q[3] = 0.0                                   # a zero row: all limbs 0
+    _, scale = _sq8(rng, 50, d)
+    qs = torch.from_numpy(q * scale[None, :])
+    limbs, e = tfr.sq8_limbs(qs)
+    assert limbs.dtype == torch.int8 and limbs.shape == (4, 9, d)
+    assert e.dtype == torch.int32 and e.shape == (9,)
+    assert int(limbs.abs().max()) <= 64 and not limbs[:, 3].any()
+    assert int(e[3]) == -96                      # the floor
+    amax = qs.abs().amax(1).double()
+    top = 2.0 ** e.double()
+    live = amax > 0
+    assert ((amax <= top) & (amax > top / 2))[live].all()
+    w = 2.0 ** (e.double()[None, :] - 6 - 7 * torch.arange(4.0)[:, None])
+    rebuilt = (limbs.double() * w[:, :, None]).sum(0)
+    err = (rebuilt - qs.double()).abs()
+    assert (err <= 2.0 ** (e.double() - 28)[:, None]).all()
+
+
+@pytest.mark.parametrize("d", [8, 24, 384])
+def test_sq8_limb_scores_match_quant_score(d):
+    """The limb route's scores are the exact product within the split's
+    bound (plus fp32 rounding of the score), and the plain and JAX
+    quant_score within the parity tolerance."""
+    rng = np.random.default_rng(100 + d)
+    q = _unit(rng, 6, d)
+    codes, scale = _sq8(rng, 300, d)
+    tq, tc, ts = _t(q, codes, scale)
+    qs = tq * ts[None, :]
+    lw = tfr.sq8_limbs(qs)
+    got = tfr.sq8_limb_scores(*lw, tc)
+    assert got.dtype == torch.float32 and got.shape == (6, 300)
+    exact = qs.double() @ tc.double().T
+    slack = exact.abs() * 2.0 ** -22 + 1e-30     # rounding of 3 fp32 adds
+    assert ((got.double() - exact).abs()
+            <= _split_bound(qs, tc, lw) + slack).all()
+    assert float(_split_bound(qs, tc, lw).max()) <= 2.9e-6
+    np.testing.assert_allclose(got.numpy(), ref.quant_score(tq, tc, ts),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jref.quant_score(*_j(q, codes, scale))),
+        rtol=0, atol=1e-5)
+
+
+def test_sq8_limb_scores_exact_on_tie_inputs():
+    """Queries by 0.25 and a scale of 0.5 give q * scale by 1/8: the split
+    is exact and every score equals the fp32 product's bit for bit (the
+    tie inputs of the card checks)."""
+    rng = np.random.default_rng(41)
+    codes = rng.integers(-3, 4, (500, 32)).astype(np.int8)
+    q = _grid(rng, 7, 32)
+    scale = np.full(32, 0.5, np.float32)
+    tq, tc, ts = _t(q, codes, scale)
+    got = tfr.sq8_limb_scores(*tfr.sq8_limbs(tq * ts[None, :]), tc)
+    assert torch.equal(got, ref.quant_score(tq, tc, ts))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jref.quant_score(*_j(q, codes, scale))))
+
+
+@pytest.mark.parametrize("nq,N,d,k,p_live", [
+    (2, 77, 16, 3, 0.9),
+    (4, 1030, 24, 9, 0.9),
+    (7, 500, 384, 16, 0.3),
+])
+def test_sq8_limb_topk_matches_jax(nq, N, d, k, p_live):
+    """The top-k of the limb route's scores (the card kernel's result)
+    against the TPU kernel in interpret mode, under the parity rule."""
+    rng = np.random.default_rng(nq * 7 + N)
+    q = _unit(rng, nq, d)
+    codes, scale = _sq8(rng, N, d)
+    live = rng.random(N) < p_live
+    tq, tc, ts, tl = _t(q, codes, scale, live)
+    scores = tfr.sq8_limb_scores(*tfr.sq8_limbs(tq * ts[None, :]), tc)
+    got = ref.masked_topk(scores, tl, k)
+    _assert_parity(jfr.sq8_topk_pallas(*_j(q, codes, scale, live), k,
+                                       interpret=True), got)
+    _padding_contract(*got, int(live.sum()))
+
+
+
 # -- pq_topk --------------------------------------------------------------------
 
 
@@ -204,6 +309,107 @@ def test_pq_topk_matches_jax(nq, nlist, cap_b, d, m, nprobe, k, p_ok, dup):
         assert (out[1] == -1).all() and (out[0] <= ref.NEG / 2).all()
 
 
+@pytest.mark.parametrize("nq,nlist,cap_b,d,m,nprobe,k,p_ok,dup", [
+    (4, 4, 32, 16, 4, 2, 5, 0.5, False),
+    (5, 4, 24, 16, 4, 3, 6, 0.7, True),
+    (9, 16, 64, 48, 48, 5, 32, 0.5, True),
+])
+def test_pq_topk_uint8_codes_match_jax(nq, nlist, cap_b, d, m, nprobe, k,
+                                       p_ok, dup):
+    """The plain version reads the uint8 mirror as it reads int32 codes:
+    the same result, and the JAX kernel's on the int32 codes."""
+    rng = np.random.default_rng(nq * 17 + cap_b)
+    q, cent = _unit(rng, nq, d), _unit(rng, nlist, d)
+    codebook = (0.3 * rng.standard_normal((m, 256, d // m))).astype(
+        np.float32)
+    codes, slot, ok = _pq_packed(rng, nlist, cap_b, m, p_ok, dup)
+    got = ops.pq_topk(*_t(q, codebook, cent, codes.astype(np.uint8), slot,
+                          ok), nprobe, k)
+    want = ops.pq_topk(*_t(q, codebook, cent, codes, slot, ok), nprobe, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    jp = jfr.pq_topk_pallas(*_j(q, codebook, cent, codes, slot, ok), nprobe,
+                            k, interpret=True)
+    _assert_parity(jp, got)
+    if dup:
+        assert (got[1].numpy() == np.asarray(jp[1])).all()
+
+
+def _key_merge(s, i, order, k):
+    """The pq_topk entry point's second pass (csrc/merge_lists.cuh) in
+    torch: the top k of candidates [nq, C] by one 64-bit key, the score's
+    order-preserving bits above the complement of ``order``."""
+    bits = (s + 0.0).view(torch.int32)
+    key = ((bits ^ ((bits >> 31) & 0x7FFFFFFF)).long() << 32) | (
+        0x7FFFFFFF - order.long())
+    pos = torch.topk(key, k, dim=1).indices
+    top = torch.gather(s, 1, pos)
+    return top, torch.where(top <= ref.NEG / 2, -1, torch.gather(i, 1, pos))
+
+
+def _group_lists(q, codebook, cent, codes, slot, ok, nprobe, k, group):
+    """The pq_topk kernel's lists in plain torch: per (query, group of
+    ``group`` probes) the top-k of the group's buckets' ok rows by score,
+    then pos = probe rank * cap_b + row. Returns ``[nq, groups, k]``
+    scores, slot ids and pos, (NEG, -1, -1) padded."""
+    nq, m, nlist = q.shape[0], codebook.shape[0], cent.shape[0]
+    cap_b = codes.shape[0] // nlist
+    lut = ref.pq_lut(q, codebook).reshape(nq, m * 256)
+    probes = ref.probe(q, cent, nprobe).long()
+    pc = codes.view(nlist, cap_b, m).long() + torch.arange(m) * 256
+    ps, po = slot.view(nlist, cap_b), ok.view(nlist, cap_b).bool()
+    out = []
+    for p0 in range(0, nprobe, group):
+        b = probes[:, p0:p0 + group]                     # [nq, g]
+        s = ref.adc_sum(torch.gather(lut, 1, pc[b].reshape(nq, -1)).view(
+            nq, -1, m))                                  # pos order
+        s = torch.where(po[b].reshape(nq, -1), s, torch.tensor(ref.NEG))
+        top, at = ref.stable_topk(s, k)
+        real = top > ref.NEG / 2
+        at = at.clamp(max=s.shape[1] - 1)
+        sl = torch.gather(ps[b].reshape(nq, -1), 1, at)
+        out.append((top, torch.where(real, sl, -1),
+                    torch.where(real, p0 * cap_b + at, -1).int()))
+    return [torch.stack(x, 1) for x in zip(*out)]
+
+
+@pytest.mark.parametrize("group", [1, 4, 6])
+def test_pq_group_lists_merge_matches_jax(group):
+    """Per-group lists merged by one top-k over the (score, probe rank,
+    row) key give the JAX kernel's result, ids exactly, on exact scores
+    with ties planted across the probes of each query (equal code rows in
+    two buckets it probes, one pair inside a group of 4 and one across
+    groups), at group sizes 1, 4 and nprobe."""
+    rng = np.random.default_rng(77)
+    nq, nlist, cap_b, d, m, nprobe, k = 4, 8, 16, 16, 4, 6, 96   # every row
+    q = _grid(rng, nq, d)                        # exact tables and sums
+    cent = _unit(rng, nlist, d)
+    codebook = _grid(rng, m * 256, d // m).reshape(m, 256, d // m)
+    codes, slot, ok = _pq_packed(rng, nlist, cap_b, m, 0.8)
+    ok[:] = 1
+    slot = rng.permutation(nlist * cap_b).astype(np.int32)
+    probes = ref.probe(*_t(q, cent), nprobe).numpy()
+    for i in range(nq):
+        for a, b in ((1, 3), (2, 5)):            # ranks inside, across 4
+            src, dst = probes[i, a] * cap_b + i, probes[i, b] * cap_b + 8 + i
+            codes[dst] = codes[src]              # no plant's source moves
+    tin = _t(q, codebook, cent, codes, slot, ok)
+    s, i_, p = _group_lists(*tin, nprobe, k, group)
+    assert s.shape == (nq, -(-nprobe // group), k)
+    got = _key_merge(s.view(nq, -1), i_.view(nq, -1), p.view(nq, -1), k)
+    jp = jfr.pq_topk_pallas(*_j(q, codebook, cent, codes, slot, ok), nprobe,
+                            k, interpret=True)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(jp[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(jp[0]))
+    assert torch.equal(got[1], ops.pq_topk(*tin, nprobe, k)[1])
+    # the planted pairs tie, and the lower probe rank comes first
+    for i in range(nq):
+        row = got[1][i].tolist()
+        for a, b in ((1, 3), (2, 5)):
+            lo = row.index(slot[probes[i, a] * cap_b + i])
+            hi = row.index(slot[probes[i, b] * cap_b + 8 + i])
+            assert lo < hi and got[0][i, lo] == got[0][i, hi]
+
+
 # -- on the card ----------------------------------------------------------------
 
 
@@ -243,7 +449,9 @@ def test_sq8_topk_kernel_matches_plain(cuda_device, nq, N, d, k, p_live):
 @pytest.mark.parametrize("nq,nlist,cap_b,d,m,nprobe,k,p_ok,dup", [
     (4, 4, 32, 16, 4, 2, 5, 0.5, False), (3, 4, 16, 32, 8, 4, 20, 0.4, False),
     (5, 4, 24, 16, 4, 3, 6, 0.7, True), (1, 4, 8, 16, 2, 2, 4, 0.0, False),
-    (9, 16, 256, 48, 48, 5, 128, 0.5, True)])
+    (9, 16, 256, 48, 48, 5, 128, 0.5, True),
+    (6, 8, 96, 64, 32, 6, 16, 0.6, True),      # 16-byte code words: 2 a row
+    (6, 8, 100, 64, 64, 6, 16, 0.6, False)])   # 4 a row; byte-wise ok scan
 def test_pq_topk_kernel_matches_plain(cuda_device, nq, nlist, cap_b, d, m,
                                       nprobe, k, p_ok, dup):
     """The kernel adds the subspaces in the plain version's order, so ids
@@ -252,18 +460,12 @@ def test_pq_topk_kernel_matches_plain(cuda_device, nq, nlist, cap_b, d, m,
     q, cent = _unit(rng, nq, d), _unit(rng, nlist, d)
     codebook = (0.3 * rng.standard_normal((m, 256, d // m))).astype(
         np.float32)
+    codes, slot, ok = _pq_packed(rng, nlist, cap_b, m, p_ok, dup)
     args = [a.to(cuda_device) for a in _t(
-        q, codebook, cent, *_pq_packed(rng, nlist, cap_b, m, p_ok, dup))]
+        q, codebook, cent, codes.astype(np.uint8), slot, ok)]
     want = ref.pq_topk(*args, nprobe, k)
     got = ops.pq_topk(*args, nprobe, k)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-
-
-def _grid(rng, n, d):
-    """Entries in {-0.5, -0.25, 0, 0.25, 0.5}: with small integer codes and
-    a scale of 1, every dot product is exact in fp32 whatever the summation
-    order, so ties are real ties."""
-    return (rng.integers(-2, 3, (n, d)) / 4).astype(np.float32)
 
 
 @pytest.mark.cuda
@@ -282,3 +484,148 @@ def test_sq8_topk_kernel_tie_order(cuda_device, k):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     exact = ref.quant_score(*args[:3])
     assert torch.equal(ops.quant_score(*args[:3]), exact)
+
+
+def _sq8_lists(cuda_device, q, codes, scale, live, k):
+    """sq8_topk's C entry point on the card: the [nq, G, k] per-block lists
+    and G."""
+    from repro_torch.kernels import _build
+
+    nq, d = q.shape
+    n = codes.shape[0]
+    g = min(-(-n // _build.tile_rows("sq8_topk")),
+            torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    limbs, e = tfr.sq8_limbs(q * scale[None, :])
+    out_s = torch.empty((nq, g, k), device=cuda_device)
+    out_i = torch.empty((nq, g, k), dtype=torch.int32, device=cuda_device)
+    top_s = torch.empty((nq, k), device=cuda_device)
+    top_i = torch.empty((nq, k), dtype=torch.int32, device=cuda_device)
+    lib, fn = _build.entry("sq8_topk", 8, 5, "s8")
+    _build.check(lib, "sq8_topk", fn(
+        limbs.data_ptr(), e.data_ptr(), codes.data_ptr(),
+        live.view(torch.uint8).data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        top_s.data_ptr(), top_i.data_ptr(), nq, n, d, k, g,
+        torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    return out_s, out_i, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [24, 48, 384])   # cp.async, TMA, TMA
+@pytest.mark.parametrize("k", [1, 16, 128])
+def test_sq8_topk_entry_point_equals_limb_model(cuda_device, d, k):
+    """Each of the entry point's lists (block b: tiles b, b + G, ...) is the
+    limb model's top-k over its rows bit for bit, at 70 queries (two query
+    blocks) and over 2-3 tiles a list; the wrapper's result (the entry
+    point's merge) is the model's top-k over all rows."""
+    from repro_torch.kernels import _build
+
+    rng = np.random.default_rng(d * 1000 + k)
+    n = 20000
+    q = _unit(rng, 70, d)
+    codes, scale = _sq8(rng, n, d)
+    live = rng.random(n) < 0.9
+    q, codes, scale, live = (a.to(cuda_device)
+                             for a in _t(q, codes, scale, live))
+    out_s, out_i, g = _sq8_lists(cuda_device, q, codes, scale, live, k)
+    model = tfr.sq8_limb_scores(*tfr.sq8_limbs(q * scale[None, :]), codes)
+    block = (torch.arange(n, device=cuda_device)
+             // _build.tile_rows("sq8_topk")) % g
+    for b in range(g):
+        want = ref.masked_topk(model, live & (block == b), k)
+        assert torch.equal(out_s[:, b], want[0]), b
+        assert torch.equal(out_i[:, b], want[1]), b
+    got = ops.sq8_topk(q, codes, scale, live, k)
+    want = ref.masked_topk(model, live, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    par = compare_topk(*ref.sq8_topk(q, codes, scale, live, k), *got)
+    assert par["violations"] == 0, par
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k", [(256, 16), (512, 16), (512, 67)])
+def test_sq8_topk_kernel_wide_rows_equal_limb_model(cuda_device, d, k):
+    """Rows of two and four 128-column chunks (the kernel's other
+    instantiations), up to the widest the shared memory takes: the limb
+    model's top-k bit for bit; one past it raises."""
+    rng = np.random.default_rng(d + k)
+    q = _unit(rng, 10, d)
+    codes, scale = _sq8(rng, 5000, d)
+    live = rng.random(5000) < 0.9
+    args = [a.to(cuda_device) for a in _t(q, codes, scale, live)]
+    got = ops.sq8_topk(*args, k)
+    q, codes, scale, live = args
+    want = ref.masked_topk(tfr.sq8_limb_scores(
+        *tfr.sq8_limbs(q * scale[None, :]), codes), live, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if (d, k) == (512, 67):
+        with pytest.raises(ValueError, match="shared"):
+            ops.sq8_topk(*args, 68)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16, 128])
+def test_sq8_topk_kernel_ties_across_a_blocks_tiles(cuda_device, k):
+    """Each query's best row planted in three tiles that one block folds
+    into one list, on exact scores: ids and scores equal the plain
+    version's, the planted rows lead in row order."""
+    from repro_torch.kernels import _build
+
+    rng = np.random.default_rng(300 + k)
+    tile = _build.tile_rows("sq8_topk")
+    g = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    n, nq, b = 3 * g * tile + 77, tile, g // 2   # one planted row a query
+    codes = rng.integers(-3, 4, (n, 32)).astype(np.int8)
+    q = _grid(rng, nq, 32)
+    live = rng.random(n) < 0.9
+    j = np.arange(nq)
+    planted = np.stack([b * tile + j, (b + g) * tile + tile - 1 - j,
+                        (b + 2 * g) * tile + (j + 10) % tile], 1)
+    for col in range(3):
+        codes[planted[:, col]] = 3 * np.sign(q).astype(np.int8)
+    live[planted] = True
+    scale = np.full(32, 0.5, np.float32)
+    args = [a.to(cuda_device) for a in _t(q, codes, scale, live)]
+    want, got = ref.sq8_topk(*args, k), ops.sq8_topk(*args, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    lead = torch.from_numpy(planted[:, :min(k, 3)]).int().to(cuda_device)
+    assert torch.equal(got[1][:, :min(k, 3)], lead)
+
+
+@pytest.mark.cuda
+def test_pq_topk_kernel_takes_uint8_codes(cuda_device):
+    """On the card the mirror's codes are uint8: int32 codes raise."""
+    rng = np.random.default_rng(8)
+    q, cent = _unit(rng, 3, 16), _unit(rng, 4, 16)
+    codebook = (0.3 * rng.standard_normal((4, 256, 4))).astype(np.float32)
+    codes, slot, ok = _pq_packed(rng, 4, 32, 4, 0.5)
+    args = [a.to(cuda_device) for a in _t(q, codebook, cent, codes, slot, ok)]
+    with pytest.raises(ValueError, match="packed_codes"):
+        ops.pq_topk(*args, 2, 5)
+    args[3] = args[3].to(torch.uint8)
+    got, want = ops.pq_topk(*args, 2, 5), ref.pq_topk(*args, 2, 5)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_db_pq_packed_mirror_is_uint8_on_card(cuda_device):
+    """The PQ DB's packed mirror on the card is uint8, gathered from the
+    int32 codes, and its fused rung equals the plain rung."""
+    from repro_torch.core.vectordb import DBConfig, TorchVectorDB
+    from repro_torch.core.interfaces import Chunk
+
+    rng = np.random.default_rng(12)
+    db = TorchVectorDB(DBConfig(dim=32, quant="pq", pq_m=8, capacity=600,
+                                nlist=8, nprobe=6, flat_capacity=64,
+                                use_kernel="fused"), device="cuda")
+    db.insert(_unit(rng, 500, 32), [Chunk(-1, i // 4, "") for i in range(500)])
+    db.build_index()
+    codes = db.packed["codes"]
+    assert codes.dtype == torch.uint8 and codes.is_cuda
+    assert db.pq_codes.dtype == torch.int32
+    assert torch.equal(codes, db.pq_codes[
+        db.packed["slot"].clamp(min=0).long()].to(torch.uint8))
+    q = torch.from_numpy(_unit(rng, 9, 32)).to(cuda_device)
+    par = compare_topk(*db.search_arrays(q, 7, rung="off"),
+                       *db.search_arrays(q, 7))
+    assert par["violations"] == 0, par

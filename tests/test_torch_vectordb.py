@@ -355,7 +355,8 @@ def test_threshold_rebuild_refreshes_pq_packed_mirror():
     tdb.insert(_corpus(), _chunks(Chunk, N))
     tdb.build_index()
     codes0, cb0 = tdb.packed["codes"].clone(), tdb.pq_codebook.clone()
-    assert tdb.packed["codes"].dtype == torch.int32
+    assert tdb.packed["codes"].dtype == torch.uint8   # one byte a code
+    assert tdb.pq_codes.dtype == torch.int32          # as in the reference
     assert not tdb.pq_codes[N:].any()
     tdb.insert(_corpus(40, seed=9), _chunks(Chunk, 40, doc0=500))  # 40 >= 36
     assert tdb.counters["rebuilds"] == 2 and tdb.stats()["fresh"] == 0
@@ -365,7 +366,7 @@ def test_threshold_rebuild_refreshes_pq_packed_mirror():
         not torch.equal(tdb.pq_codebook, cb0)
     slot = tdb.packed["slot"]
     assert torch.equal(tdb.packed["codes"],
-                       tdb.pq_codes[slot.clamp(min=0).long()])
+                       tdb.pq_codes[slot.clamp(min=0).long()].to(torch.uint8))
     q = torch.from_numpy(_queries())
     assert compare_topk(*tdb.search_arrays(q, 5, rung="off"),
                         *tdb.search_arrays(q, 5))["violations"] == 0
