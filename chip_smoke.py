@@ -11,28 +11,36 @@ Phases, each of which raises on failure and prints its wall seconds:
    shared memory per block;
 3. kernels against their plain versions, on the card: tie order on
    exact-arithmetic inputs (ids and scores equal; for topk_search and
-   sq8_topk also across the several tiles one block folds, for pq_topk
-   across two buckets of one probe group), sq8_topk bit for bit against
-   its int8 limb model on both load paths (d 24 by cp.async, d 384 by
-   TMA), the edge-case shapes and the deployment shapes (64 queries;
-   1,048,576 x 384 fp32 rows or int8 codes; IVF with 1024 lists of 4096
-   slots, nprobe 16, PQ with 48 subspaces; k 16), with the time of the
-   kernel's wrapper, its plain version and one PyTorch yardstick (CUDA
-   events, medians of 20: around 10 back-to-back calls and around single
-   calls), the kernel's ratio to the yardstick under both and its share of
-   its bound on this card (int8 products at the int8 tensor cores' rate);
-   topk_search, sq8_topk and pq_topk also through their C entry points
-   alone. topk_search and ivf_topk, then quant_score, sq8_topk and
-   pq_topk;
+   sq8_topk also across the several tiles one block folds, sq8_topk at d
+   32, 768 and 1,024; for ivf_topk across two probed buckets, for pq_topk
+   across two buckets of one probe group), quant_score and sq8_topk bit
+   for bit against their int8 limb model with the limbs resident and
+   streamed (quant_score at d 8 to 2,052 on both load paths, sq8_topk at
+   d 24 and 2,052 by cp.async and 384, 768, 1,024 by TMA), pq_topk on the
+   reference's int32 codes against its uint8 mirror, the edge-case shapes
+   and the deployment shapes (64 queries; 1,048,576 x 384 fp32 rows or
+   int8 codes; IVF with 1024 lists of 4096 slots, nprobe 16, and the main
+   path's IVF16 at nprobe 8 and 4, with the bytes ivf_topk reads against
+   a (query, probe) grid's and the bound's; PQ with 48 subspaces; k 16;
+   sq8_topk also at d 768 and 1,024), with the time of the kernel's
+   wrapper, its plain version and one PyTorch yardstick (CUDA events,
+   medians of 20: around 10 back-to-back calls and around single calls),
+   the kernel's ratio to the yardstick under both and its share of its
+   bound on this card (int8 products at the int8 tensor cores' rate);
+   topk_search, quant_score, sq8_topk and pq_topk also through their C
+   entry points alone. topk_search and ivf_topk, then quant_score,
+   sq8_topk and pq_topk;
 4. the vector DB at deployment size (``TorchVectorDB``), three
    configurations built one after the other from one seeded row set:
    1,048,576 clustered unit rows, the index build, 32,768 fresh rows in the
    freshness buffer, 1% of the documents removed, 20 batches of 64 queries:
    IVF1024 (``fused`` rung: ivf_topk + topk_search), flat + SQ8 (``fused``
-   rung: sq8_topk + topk_search; ``op`` rung: quant_score + topk_search)
-   and IVF1024 + PQ48 (``fused`` rung: pq_topk + topk_search). Every rung's
-   results must equal the plain ``off`` rung on the same state; the launch
-   counts of each rung's run show it went through its kernels;
+   rung: sq8_topk + topk_search; ``op`` rung: quant_score + topk_search,
+   selecting by (score, row) keys) and IVF1024 + PQ48 (``fused`` rung:
+   pq_topk + topk_search); then flat + SQ8 at d 768 (262,144 rows, 8,192
+   fresh) on ``fused`` and ``op``. Every rung's results must equal the
+   plain ``off`` rung on the same state; the launch counts of each rung's
+   run show it went through its kernels;
 5. serve: ``repro_torch.launch.serve`` on each vector-DB spec of
    ``src/repro_torch/specs`` must answer its requests through its kernels
    with a quality report;
@@ -61,6 +69,7 @@ outside a checkout, it exits non-zero before printing a result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -106,6 +115,23 @@ DEVICE = "cuda"
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and integer or bool template arguments from its
+    mangled name, as in ``quant_score_kernel<0, false>``: the source name
+    is the length-prefixed part that ends in ``kernel``."""
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(m.start(), m.end()):
+            name = mangled[m.end():m.end() + int(mangled[i:m.end()])]
+            if name.endswith("kernel") and name.isidentifier():
+                rest = mangled[m.end() + len(name):]
+                tmpl = re.match(r"I((?:L[ib]-?\d+E)+)E", rest)
+                args = [("false", "true")[int(v)] if t == "b" else v
+                        for t, v in re.findall(r"L([ib])(-?\d+)E",
+                                               tmpl.group(1) if tmpl else "")]
+                return name + (f"<{', '.join(args)}>" if args else "")
+    return mangled
 
 
 def median_ms(fn, torch) -> float:
@@ -201,6 +227,15 @@ def check_ties(torch, name, want, got) -> None:
     say(f"{name}: ids equal the plain version's, tie order included")
 
 
+def limb_scores(torch, tfr, q, codes, scale, rows=1 << 17):
+    """``fused_retrieve.sq8_limb_scores`` of ``q * scale`` against
+    ``codes``, ``rows`` code rows at a time (its fp64 products hold 8 bytes
+    a code)."""
+    limbs, e = tfr.sq8_limbs(q * scale[None, :])
+    return torch.cat([tfr.sq8_limb_scores(limbs, e, codes[lo:lo + rows])
+                      for lo in range(0, codes.shape[0], rows)], 1)
+
+
 def draws(torch, seed):
     """Seeded input makers on the card: the generator, unit rows, live
     masks, and grid rows, whose entries in {-0.5, ..., 0.5} by 0.25 make
@@ -223,13 +258,47 @@ def draws(torch, seed):
     return gen, unit, live_mask, grid
 
 
+def ivf_packed(torch, draw, nlist, cap_b, d, fill_lo, fill_hi):
+    """A packed IVF mirror from ``draw`` (``draws``' makers): clustered
+    buckets filled from the front, 1% tombstones."""
+    gen, unit, live_mask, _ = draw
+    dev = torch.device(DEVICE)
+    cent = unit(nlist, d)
+    fill = torch.randint(fill_lo, fill_hi + 1, (nlist,), generator=gen,
+                         device=dev)
+    pos = torch.arange(cap_b, device=dev)
+    member = (pos[None, :] < fill[:, None]).reshape(-1)
+    ok = member & live_mask(nlist * cap_b, 0.99)
+    vecs = torch.nn.functional.normalize(
+        cent.repeat_interleave(cap_b, 0)
+        + 0.6 * unit(nlist * cap_b, d), dim=1)
+    slot = torch.where(member, torch.randperm(
+        nlist * cap_b, generator=gen, device=dev).int(), -1).int()
+    return cent, vecs, slot, ok
+
+
+def ivf_case(torch, draw, nq, nlist, cap_b, d, nprobe, k, lo, hi):
+    """``ops.ivf_topk``'s arguments: a packed mirror and queries near its
+    centroids."""
+    gen, unit = draw[:2]
+    cent, pv, slot, ok = ivf_packed(torch, draw, nlist, cap_b, d, lo, hi)
+    q = torch.nn.functional.normalize(
+        cent[torch.randint(nlist, (nq,), generator=gen,
+                           device=torch.device(DEVICE))]
+        + 0.5 * unit(nq, d), dim=1)
+    return q, cent, pv, slot, ok, nprobe, k
+
+
 def phase_kernels(torch, ops, ref, compare_topk):
-    """Every kernel against its plain version; returns the kernel records."""
+    """Every kernel against its plain version; returns the kernel records
+    and the IVF calls to profile by kernel once every timing is taken, as
+    (shape, maker of a call)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import topk_search as tts
 
     dev = torch.device(DEVICE)
-    gen, unit, live_mask, grid = draws(torch, 0)
+    draw = draws(torch, 0)
+    gen, unit, live_mask, grid = draw
     records = {}
 
     # -- topk_search: tie order on rows repeated across sub-tiles and tiles
@@ -326,49 +395,88 @@ def phase_kernels(torch, ops, ref, compare_topk):
     # -- ivf_topk: edge cases, then the deployment shapes
     worst = {"max_abs_diff": 0.0, "id_mismatches": 0}
 
-    def packed(nlist, cap_b, d, fill_lo, fill_hi):
-        """Clustered buckets filled from the front, 1% tombstones."""
-        cent = unit(nlist, d)
-        fill = torch.randint(fill_lo, fill_hi + 1, (nlist,), generator=gen,
-                             device=dev)
-        pos = torch.arange(cap_b, device=dev)
-        member = (pos[None, :] < fill[:, None]).reshape(-1)
-        ok = member & live_mask(nlist * cap_b, 0.99)
-        vecs = torch.nn.functional.normalize(
-            cent.repeat_interleave(cap_b, 0)
-            + 0.6 * unit(nlist * cap_b, d), dim=1)
-        slot = torch.where(member, torch.randperm(
-            nlist * cap_b, generator=gen, device=dev).int(), -1).int()
-        return cent, vecs, slot, ok
+    profiles = []
+
+    def profiled(*shape):
+        """A maker of an ``ops.ivf_topk`` call at ``shape`` on inputs of
+        their own (seed 1), drawn when it is called."""
+        def make():
+            args = ivf_case(torch, draws(torch, 1), *shape)
+            return lambda: ops.ivf_topk(*args)
+        return make
 
     # tie order: every even packed row repeated in the next one
     for nq, nlist, cap_b, d, nprobe, k in [(5, 4, 24, 16, 3, 6),
                                            (9, 16, 256, 64, 5, 128)]:
-        cent, pv, slot, ok = packed(nlist, cap_b, d, 0, cap_b)
+        cent, pv, slot, ok = ivf_packed(torch, draw, nlist, cap_b, d, 0,
+                                        cap_b)
         pv = grid(nlist * cap_b, d)
         pv[1::2] = pv[0::2]
         q = grid(nq, d)
         args = (q, cent, pv, slot, ok, nprobe, k)
         check_ties(torch, f"ivf_topk ties nq={nq} cap_b={cap_b} k={k}",
                    ref.ivf_topk(*args), ops.ivf_topk(*args))
-
     for nq, nlist, cap_b, d, nprobe, k, lo, hi in [
             (3, 4, 64, 16, 2, 8, 8, 40), (1, 4, 16, 8, 4, 32, 0, 16),
             (5, 8, 100, 24, 3, 5, 0, 0), (9, 16, 256, 64, 5, 128, 50, 256),
-            (NQ, NLIST, CAP_B, DIM, NPROBE, K, 512, 1536)]:
-        cent, pv, slot, ok = packed(nlist, cap_b, d, lo, hi)
-        q = torch.nn.functional.normalize(
-            cent[torch.randint(nlist, (nq,), generator=gen, device=dev)]
-            + 0.5 * unit(nq, d), dim=1)
-        args = (q, cent, pv, slot, ok, nprobe, k)
+            (NQ, NLIST, CAP_B, DIM, NPROBE, K, 512, 1536),   # deployment
+            (70, 8, 120, 772, 5, 16, 0, 120),
+            (NQ, 16, 512, DIM, 8, K, 96, 160),     # the main path's IVF16
+            (NQ, 16, 2048, DIM, 4, K, 384, 640)]:  # fused_ivf.json
+        args = ivf_case(torch, draw, nq, nlist, cap_b, d, nprobe, k, lo, hi)
         got = check(f"ivf_topk nq={nq} nlist={nlist} cap_b={cap_b}",
                     compare_topk(*ref.ivf_topk(*args), *ops.ivf_topk(*args)),
                     "plain")
+        reads = ivf_reads(torch, ref, args)
         say(f"ivf_topk nq={nq} nlist={nlist} cap_b={cap_b} d={d} "
             f"nprobe={nprobe} k={k}: max|dscore| {got['max_abs_diff']:.3g}, "
-            f"id mismatches {got['id_mismatches']}")
+            f"id mismatches {got['id_mismatches']}; {reads['buckets']} "
+            f"buckets probed, {reads['items']} work items; modeled bytes "
+            f"of rows and ok bytes (from the probes and the ok counts, not "
+            f"counted on the card) {reads['per_pair']} a (query, probe) at "
+            f"a time, {reads['per_item']} bucket-major")
+        if d == DIM and nlist == 16:   # the main path's shapes
+            profiles.append((f"nlist={nlist} nprobe={nprobe} cap_b={cap_b}",
+                             profiled(nq, nlist, cap_b, d, nprobe, k, lo,
+                                      hi)))
+            alone = ivf_entry_ms(torch, args)
+            say(f"ivf_topk at the main path's nlist=16 nprobe={nprobe} "
+                f"cap_b={cap_b}: kernel "
+                f"{kernel_ms(lambda: ops.ivf_topk(*args), torch):.4f} ms "
+                f"back to back, "
+                f"{median_ms(lambda: ops.ivf_topk(*args), torch):.4f} ms in "
+                f"single calls; the C entry point alone {alone[0]:.4f} ms "
+                f"back to back, {alone[1]:.4f} ms in single calls")
         worst["max_abs_diff"] = max(worst["max_abs_diff"], got["max_abs_diff"])
         worst["id_mismatches"] += got["id_mismatches"]
+        if nlist == NLIST:
+            deployment = (args, reads)
+            profiles.append(("deployment", profiled(nq, nlist, cap_b, d,
+                                                    nprobe, k, lo, hi)))
+
+    # ... and across two probed buckets: each query's row of probe rank 0
+    # copied into its rank-2 bucket; equal scores, the lower rank first
+    for nq, nlist, cap_b, d, nprobe, k in [(70, 16, 64, 32, 8, 128),
+                                           (64, 16, 512, 384, 4, 16)]:
+        cent, pv, slot, ok = ivf_packed(torch, draw, nlist, cap_b, d, 0,
+                                        cap_b)
+        pv, q = grid(nlist * cap_b, d), grid(nq, d)
+        probes = ref.probe(q, cent, nprobe).long()
+        j = torch.arange(nq, device=dev)
+        src = probes[:, 0] * cap_b + j % cap_b
+        dst = probes[:, 2] * cap_b + (j + 5) % cap_b
+        pv[dst] = pv[src]
+        ok[src] = ok[dst] = True
+        slot = torch.randperm(nlist * cap_b, generator=gen,
+                              device=dev).int()
+        args = (q, cent, pv, slot, ok, nprobe, k)
+        got = ops.ivf_topk(*args)
+        check_ties(torch, f"ivf_topk ties across two probed buckets nq={nq} "
+                   f"nlist={nlist} nprobe={nprobe} k={k}",
+                   ref.ivf_topk(*args), got)
+
+    args, reads = deployment
+    q, cent, pv, slot, ok = args[:5]
     pv3, ok2 = pv.view(NLIST, CAP_B, DIM), ok.view(NLIST, CAP_B)
 
     def library():
@@ -392,6 +500,12 @@ def phase_kernels(torch, ops, ref, compare_topk):
                + NQ * DIM * 4 + NLIST * DIM * 4 + NQ * K * 8)
     n_flop = 2.0 * DIM * (int(ok_rows[probe].sum()) + NQ * NLIST)
     bms, by = bound(n_bytes, n_flop)
+    # the C entry point alone (the probe's selection, the inversion, the
+    # scan and the merge; the centroid scores made once), and the plain
+    # probe the wrapper no longer runs
+    t["kernel_only_ms"], t["kernel_only_call_ms"] = ivf_entry_ms(
+        torch, args)
+    t["plain_probe_ms"] = kernel_ms(lambda: ref.probe(q, cent, NPROBE), torch)
     records["ivf_topk"] = dict(
         name="ivf_topk", route="cuda", source="src/repro_torch/csrc/ivf_topk.cu",
         replaces="src/repro/kernels/fused_retrieve.py:264",
@@ -399,11 +513,95 @@ def phase_kernels(torch, ops, ref, compare_topk):
         **errors(worst),
         bound_ms=bms, bound_by=by, **t)
     say(f"ivf_topk at nq={NQ} nlist={NLIST} cap_b={CAP_B} d={DIM} "
-        f"nprobe={NPROBE} k={K} ({len(buckets)} buckets probed): kernel "
-        f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, gather+bmm+topk "
-        f"{t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}); "
-        f"{speed(t, bms)}")
-    return records
+        f"nprobe={NPROBE} k={K} ({len(buckets)} distinct buckets probed; "
+        f"modeled bytes of rows and ok bytes {reads['per_item']} "
+        f"bucket-major, {reads['per_pair']} for a (query, probe) grid; the "
+        f"bound counts {n_bytes}): kernel {t['ms']:.4f} ms (the C entry point "
+        f"alone {t['kernel_only_ms']:.4f} ms back to back, "
+        f"{t['kernel_only_call_ms']:.4f} ms in single calls; the plain "
+        f"probe, now selected in the entry point, "
+        f"{t['plain_probe_ms']:.4f} ms), plain "
+        f"{t['plain_ms']:.4f} ms, gather+bmm+topk {t['library_ms']:.4f} ms, "
+        f"bound {bms:.4f} ms ({by}); {speed(t, bms)}")
+    return records, profiles
+
+
+def device_times(torch, fn, calls=20) -> dict:
+    """Device microseconds a call of ``fn`` spends in each kernel it
+    launches, by kernel name (torch.profiler over ``calls`` calls; empty
+    where the profiler sees no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in sorted(prof.key_averages(),
+                    key=lambda e: -e.self_device_time_total):
+        if e.self_device_time_total > 0:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            out[name[-48:]] = (out.get(name[-48:], 0.0)
+                               + e.self_device_time_total / calls)
+    return out
+
+
+def ivf_entry_ms(torch, args):
+    """ivf_topk's C entry point alone (the probe's selection, the inversion,
+    the bucket scan and the merge) on ``ops.ivf_topk``'s arguments, the
+    centroid scores made once: its time back to back and in single
+    calls."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_retrieve as tfr
+
+    q, cent, pv, slot, ok, nprobe, k = args
+    nq, d = q.shape
+    nlist = cent.shape[0]
+    dev = q.device
+    lib, fn = _build.entry("ivf_topk", 12, 7)
+    cscores = (q @ cent.T).contiguous()
+    probes = torch.empty((nq, nprobe), dtype=torch.int32, device=dev)
+    scratch = torch.empty(tfr._scratch_ints(lib, nq, nprobe, nlist),
+                          dtype=torch.int32, device=dev)
+    outs = [torch.empty(shape, dtype=dt, device=dev)
+            for shape, dt in (((nq, nprobe, k), torch.float32),
+                              ((nq, nprobe, k), torch.int32),
+                              ((nq, nprobe, k), torch.int32),
+                              ((nq, k), torch.float32), ((nq, k), torch.int32))]
+    launch = (q.data_ptr(), pv.data_ptr(), slot.data_ptr(),
+              ok.view(torch.uint8).data_ptr(), cscores.data_ptr(),
+              probes.data_ptr(), scratch.data_ptr(),
+              *(o.data_ptr() for o in outs), nq, d, nlist,
+              pv.shape[0] // nlist, nprobe, k,
+              torch.cuda.get_device_properties(dev).multi_processor_count,
+              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "ivf_topk", fn(*launch))
+    return kernel_ms(lambda: fn(*launch), torch), median_ms(
+        lambda: fn(*launch), torch)
+
+
+def ivf_reads(torch, ref, args) -> dict:
+    """A model of the bytes of packed rows and ok bytes an IVF scan reads
+    for these inputs, computed from the probes and the ok counts (no
+    counter of the card's): reading each probed bucket's ok rows
+    (and its cap_b ok bytes) once per (query, probe) pair, as a (query,
+    probe) grid does, or once per work item of up to IVF_QUERIES queries,
+    as the bucket-major kernel does; with the distinct buckets and the
+    work items."""
+    from repro_torch.kernels import fused_retrieve as tfr
+
+    q, cent, pv, _, ok, nprobe, _ = args
+    nlist, d = cent.shape
+    cap_b = pv.shape[0] // nlist
+    per_bucket = ok.view(nlist, cap_b).sum(1) * d * 4 + cap_b
+    counts = torch.bincount(ref.probe(q, cent, nprobe).long().reshape(-1),
+                            minlength=nlist)
+    items = (counts + tfr.IVF_QUERIES - 1) // tfr.IVF_QUERIES
+    return {"buckets": int((counts > 0).sum()), "items": int(items.sum()),
+            "per_pair": int((counts * per_bucket).sum()),
+            "per_item": int((items * per_bucket).sum())}
 
 
 def phase_quant_kernels(torch, ops, ref, compare_topk):
@@ -440,27 +638,52 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
                              "plain version's")
     say("quant_score ties: scores equal the plain version's")
 
-    # -- quant_score: edge cases, then the deployment shapes (every element)
+    # -- quant_score: edge cases, then the deployment shapes (every element):
+    # bit for bit the limb model on both load paths (cp.async at d 24, 516),
+    # with the limbs resident (d <= 384) and streamed (with the integer-add
+    # conversion at d 512, the converter above), and within TOL of the plain
+    # version
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_retrieve as tfr
+
     worst = {"max_abs_diff": 0.0, "id_mismatches": 0}
     for nq, n, d in [(3, 100, 32), (1, 5, 8), (65, 1025, 24),
-                     (70, 3000, 48), (NQ, N, DIM)]:
+                     (70, 3000, 48), (70, 3000, 512), (70, 3001, 516), (65, 1025, 768),
+                     (70, 3000, 1024), (9, 2000, 2052), (NQ, 1 << 18, 768),
+                     (NQ, 1 << 18, 1024), (NQ, N, DIM)]:
         q = unit(nq, d)
         codes, scale = sq8(n, d)
         got, want = ops.quant_score(q, codes, scale), ref.quant_score(
             q, codes, scale)
         diff = float((got - want).abs().max())
-        say(f"quant_score nq={nq} N={n} d={d}: max|dscore| {diff:.3g}")
-        if not diff <= TOL or got.shape != want.shape:
+        exact = torch.equal(got, limb_scores(torch, tfr, q, codes, scale))
+        say(f"quant_score nq={nq} N={n} d={d}: max|dscore| {diff:.3g}; "
+            f"{'equal to' if exact else 'DIFFERS from'} the limb model")
+        if not diff <= TOL or got.shape != want.shape or not exact:
             raise AssertionError(f"quant_score nq={nq} N={n} d={d} "
-                                 f"disagrees with plain: {diff}")
+                                 f"disagrees with plain ({diff}) or the "
+                                 f"limb model ({exact})")
         worst["max_abs_diff"] = max(worst["max_abs_diff"], diff)
         del got, want
     t = timings(torch, lambda: ops.quant_score(q, codes, scale),
                 lambda: ref.quant_score(q, codes, scale),
                 lambda: (q * scale) @ codes.float().T)
+    # the C entry point alone (no limb split)
+    lib, fn = _build.entry("quant_score", 4, 4, "s8")
+    limbs, expo = tfr.sq8_limbs(q * scale[None, :])
+    out = torch.empty((NQ, N), device=dev)
+    launch = (limbs.data_ptr(), expo.data_ptr(), codes.data_ptr(),
+              out.data_ptr(), NQ, N, DIM,
+              min(-(-N // _build.tile_rows("quant_score")),
+                  torch.cuda.get_device_properties(dev).multi_processor_count),
+              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "quant_score", fn(*launch))
+    t["kernel_only_ms"] = kernel_ms(lambda: fn(*launch), torch)
+    t["kernel_only_call_ms"] = median_ms(lambda: fn(*launch), torch)
+    del out, limbs
     # bytes: the codes, the query block, the scale, the [nq, N] output;
     # FLOP: one d-long dot product per (query, row)
-    # (the products sq8_topk runs on the int8 tensor cores: their rate)
+    # (the products run on the int8 tensor cores: their rate)
     bms, by = bound(N * DIM + NQ * DIM * 4 + DIM * 4 + NQ * N * 4,
                     2.0 * NQ * N * DIM, INT8_OPS_PER_S)
     records["quant_score"] = dict(
@@ -469,8 +692,10 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
         replaces="src/repro/kernels/quant_score.py:40",
         jax="src/repro/kernels/quant_score.py:quant_score_pallas",
         **errors(worst), bound_ms=bms, bound_by=by, **t)
-    say(f"quant_score at nq={NQ} N={N} d={DIM}: kernel {t['ms']:.4f} ms, "
-        f"plain {t['plain_ms']:.4f} ms, (q*scale)@codes.T "
+    say(f"quant_score at nq={NQ} N={N} d={DIM}: kernel {t['ms']:.4f} ms "
+        f"(the kernel alone {t['kernel_only_ms']:.4f} ms back to back, "
+        f"{t['kernel_only_call_ms']:.4f} ms in single calls), plain "
+        f"{t['plain_ms']:.4f} ms, (q*scale)@codes.T "
         f"{t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}); "
         f"{speed(t, bms)}")
 
@@ -478,40 +703,40 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
     # G blocks (block b takes 64-row tiles b, b + G, ...) over 3G + 1 tiles
     # of exact codes, each query's best row (3 sign(q), the highest score a
     # code row reaches) planted live in tiles G/2, G/2 + G and G/2 + 2G
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import fused_retrieve as tfr
-
+    # (at d 32, and at 768 and 1,024, where the limbs stream)
     tile = _build.tile_rows("sq8_topk")
     g = torch.cuda.get_device_properties(dev).multi_processor_count
     n, nq, b = 3 * g * tile + 77, tile, g // 2
-    codes = torch.randint(-3, 4, (n, 32), generator=gen,
-                          device=dev).to(torch.int8)
-    scale = torch.full((32,), 0.5, device=dev)
-    q, live = grid(nq, 32), live_mask(n, 0.9)
-    j = torch.arange(nq, device=dev)
-    planted = torch.stack([b * tile + j, (b + g) * tile + tile - 1 - j,
-                           (b + 2 * g) * tile + (j + 10) % tile], 1)
-    for col in range(3):
-        codes[planted[:, col]] = (3 * torch.sign(q)).to(torch.int8)
-    live[planted] = True
-    for k in (1, 16, 128):
-        got = ops.sq8_topk(q, codes, scale, live, k)
-        check_ties(torch, f"sq8_topk ties across a block's tiles (N={n}, "
-                   f"{g} lists) k={k}", ref.sq8_topk(q, codes, scale, live,
-                                                     k), got)
-        if not torch.equal(got[1][:, :3], planted[:, :k].int()):
-            raise AssertionError(f"sq8_topk k={k}: the planted best rows "
-                                 f"do not lead")
+    for d in (32, 768, 1024):
+        codes = torch.randint(-3, 4, (n, d), generator=gen,
+                              device=dev).to(torch.int8)
+        scale = torch.full((d,), 0.5, device=dev)
+        q, live = grid(nq, d), live_mask(n, 0.9)
+        j = torch.arange(nq, device=dev)
+        planted = torch.stack([b * tile + j, (b + g) * tile + tile - 1 - j,
+                               (b + 2 * g) * tile + (j + 10) % tile], 1)
+        for col in range(3):
+            codes[planted[:, col]] = (3 * torch.sign(q)).to(torch.int8)
+        live[planted] = True
+        for k in (1, 16, 128):
+            got = ops.sq8_topk(q, codes, scale, live, k)
+            check_ties(torch, f"sq8_topk ties across a block's tiles (N={n}, "
+                       f"d={d}, {g} lists) k={k}",
+                       ref.sq8_topk(q, codes, scale, live, k), got)
+            if not torch.equal(got[1][:, :3], planted[:, :k].int()):
+                raise AssertionError(f"sq8_topk d={d} k={k}: the planted "
+                                     f"best rows do not lead")
 
     def limb_model(q, codes, scale, live, k):
         """The kernel's own arithmetic in torch: its result bit for bit."""
         return ref.masked_topk(tfr.sq8_limb_scores(
             *tfr.sq8_limbs(q * scale[None, :]), codes), live, k)
 
-    # both load paths (cp.async at d % 16 != 0, TMA at d % 16 == 0), two
-    # query blocks, 2-3 tiles a list: bit for bit the limb model, and the
-    # plain version under the parity rule
-    for d in (24, 384):
+    # both load paths (cp.async at d % 16 != 0, TMA at d % 16 == 0), the
+    # limbs resident (d <= 384) and streamed (768, 1,024, 2,052), two query
+    # blocks, 2-3 tiles a list: bit for bit the limb model, and the plain
+    # version under the parity rule
+    for d in (24, 384, 768, 1024, 2052):
         q, live = unit(70, d), live_mask(20000, 0.9)
         codes, scale = sq8(20000, d)
         for k in (1, 16, 128):
@@ -592,6 +817,32 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
         f"{t['plain_ms']:.4f} ms, torch.topk {t['library_ms']:.4f} ms, bound "
         f"{bms:.4f} ms ({by}); {speed(t, bms)}")
     del q, codes, scale, live
+    # ... and at Fig. 11's 768 and public embedders' 1,024, where the limbs
+    # stream with the codes: against the plain version, with the time and
+    # the bound
+    records["sq8_topk"]["wide"] = {}
+    for d in (768, 1024):
+        q, live = unit(NQ, d), live_mask(N, 0.99)
+        codes, scale = sq8(N, d)
+        check(f"sq8_topk nq={NQ} N={N} d={d} k={K}", compare_topk(
+            *ref.sq8_topk(q, codes, scale, live, K),
+            *ops.sq8_topk(q, codes, scale, live, K)), "plain")
+        n_live = int(live.sum())
+        wb, wby = bound(n_live * d + N + NQ * d * 4 + d * 4 + NQ * K * 8,
+                        2.0 * NQ * n_live * d, INT8_OPS_PER_S)
+        tw = {"ms": kernel_ms(lambda: ops.sq8_topk(q, codes, scale, live, K),
+                              torch),
+              "call_ms": median_ms(
+                  lambda: ops.sq8_topk(q, codes, scale, live, K), torch),
+              "bound_ms": wb, "bound_by": wby}
+        records["sq8_topk"]["wide"][d] = tw
+        say(f"sq8_topk at nq={NQ} N={N} d={d} k={K} ({n_live} live; limbs "
+            f"streamed): equal to the plain version under the parity rule; "
+            f"kernel {tw['ms']:.4f} ms back to back, {tw['call_ms']:.4f} ms "
+            f"in single calls, bound {wb:.4f} ms ({wby}), "
+            f"{100 * wb / tw['ms']:.1f} % of it")
+        del q, codes, scale, live
+    torch.cuda.empty_cache()
 
     # -- pq_topk
     def packed(nlist, cap_b, d, m, fill_lo, fill_hi):
@@ -665,6 +916,15 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
             f"id mismatches {got['id_mismatches']}")
         worst["max_abs_diff"] = max(worst["max_abs_diff"], got["max_abs_diff"])
         worst["id_mismatches"] += got["id_mismatches"]
+    # the reference's int32 codes, narrowed by the wrapper: the same ids
+    # and scores as the uint8 mirror
+    got, want = ops.pq_topk(*args[:3], codes.int(), *args[4:]), ops.pq_topk(
+        *args)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("pq_topk: int32 codes differ from the uint8 "
+                             "mirror")
+    say(f"pq_topk at nq={NQ} nlist={NLIST} cap_b={CAP_B} m={PQ_M}: int32 "
+        f"codes give the uint8 mirror's ids and scores")
     pc3, ok2 = codes.view(NLIST, CAP_B, PQ_M), ok.view(NLIST, CAP_B)
     offs = torch.arange(PQ_M, device=dev) * 256
 
@@ -735,32 +995,36 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
     return records
 
 
-def make_rows(torch):
-    """One seeded row set for the three DB phases: N clustered unit rows,
-    N_FRESH fresh rows, the removed documents (1% of them; row s belongs to
-    document s // 4) and 20 batches of NQ queries near surviving rows."""
+def make_rows(torch, n=N, dim=DIM, n_fresh=N_FRESH, capacity=DB_CAPACITY,
+              flat_capacity=FLAT_CAPACITY):
+    """One seeded row set for the DB phases: n clustered unit rows of width
+    dim, n_fresh fresh rows, the removed documents (1% of them; row s
+    belongs to document s // 4) and 20 batches of NQ queries near surviving
+    rows; with the DB's capacities."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(1)
     centers = torch.nn.functional.normalize(
-        torch.randn(4096, DIM, generator=gen, device=dev), dim=1)
-    pick = torch.randint(4096, (N + N_FRESH,), generator=gen, device=dev)
+        torch.randn(4096, dim, generator=gen, device=dev), dim=1)
+    pick = torch.randint(4096, (n + n_fresh,), generator=gen, device=dev)
     rows = torch.nn.functional.normalize(
         centers[pick] + 0.6 * torch.nn.functional.normalize(
-            torch.randn(N + N_FRESH, DIM, generator=gen, device=dev), dim=1),
+            torch.randn(n + n_fresh, dim, generator=gen, device=dev), dim=1),
         dim=1)
-    n_docs = (N + N_FRESH) // 4
+    n_docs = (n + n_fresh) // 4
     gone = torch.randperm(n_docs, generator=torch.Generator().manual_seed(2))[
         :n_docs // 100]
-    live = torch.ones(N + N_FRESH, dtype=torch.bool, device=dev)
+    live = torch.ones(n + n_fresh, dtype=torch.bool, device=dev)
     live[(gone[:, None] * 4 + torch.arange(4)).reshape(-1).to(dev)] = False
     picks = torch.nonzero(live)[:, 0]
     batches = []
     for _ in range(20):
         at = picks[torch.randint(len(picks), (NQ,), generator=gen, device=dev)]
         batches.append(torch.nn.functional.normalize(
-            rows[at] + 0.1 * torch.randn(NQ, DIM, generator=gen, device=dev),
+            rows[at] + 0.1 * torch.randn(NQ, dim, generator=gen, device=dev),
             dim=1))
-    return {"rows": rows, "gone": gone.tolist(), "batches": batches}
+    return {"rows": rows, "gone": gone.tolist(), "batches": batches, "n": n,
+            "dim": dim, "n_fresh": n_fresh, "capacity": capacity,
+            "flat_capacity": flat_capacity}
 
 
 def run_db(torch, ops, ref, compare_topk, data, name, cfg, rungs, kernels,
@@ -778,14 +1042,15 @@ def run_db(torch, ops, ref, compare_topk, data, name, cfg, rungs, kernels,
 
     dev = torch.device(DEVICE)
     rows, batches = data["rows"], data["batches"]
+    n, n_fresh = data["n"], data["n_fresh"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    db = TorchVectorDB(DBConfig(dim=DIM, capacity=DB_CAPACITY,
-                                flat_capacity=FLAT_CAPACITY, **cfg),
+    db = TorchVectorDB(DBConfig(dim=data["dim"], capacity=data["capacity"],
+                                flat_capacity=data["flat_capacity"], **cfg),
                        device=DEVICE)
     t0 = time.perf_counter()
-    step = min(1 << 17, N)
-    for lo in range(0, N, step):
+    step = min(1 << 17, n)
+    for lo in range(0, n, step):
         db.insert(rows[lo:lo + step], [Chunk(-1, (lo + i) // 4, "")
                                        for i in range(step)])
     t1 = time.perf_counter()
@@ -795,7 +1060,7 @@ def run_db(torch, ops, ref, compare_topk, data, name, cfg, rungs, kernels,
     # a flat index counts as built from the start, so its bulk inserts
     # already fold the buffer in; what matters is that the fresh rows stay
     rebuilds = db.counters["rebuilds"]
-    db.insert(rows[N:], [Chunk(-1, (N + i) // 4, "") for i in range(N_FRESH)])
+    db.insert(rows[n:], [Chunk(-1, (n + i) // 4, "") for i in range(n_fresh)])
     removed = sum(db.remove(d) for d in data["gone"])
     st = db.stats()
     fill = (f" (max bucket fill {int(db.bucket_live.sum(1).max())} of "
@@ -804,8 +1069,9 @@ def run_db(torch, ops, ref, compare_topk, data, name, cfg, rungs, kernels,
         pc = db.packed["codes"]
         fill += (f"; packed PQ mirror {pc.dtype} {tuple(pc.shape)}, "
                  f"{pc.numel() * pc.element_size()} bytes")
-    say(f"{name}: inserted {N} rows in {t1 - t0:.1f} s, build_index "
-        f"{t2 - t1:.1f} s{fill}, {N_FRESH} fresh rows, {removed} rows of "
+    say(f"{name}: inserted {n} rows of width {data['dim']} in "
+        f"{t1 - t0:.1f} s, build_index {t2 - t1:.1f} s{fill}, {n_fresh} "
+        f"fresh rows, {removed} rows of "
         f"{len(data['gone'])} docs removed; live {int(st['live'])}, fresh "
         f"{int(st['fresh'])}, rebuilds {int(st['rebuilds'])}, index_bytes "
         f"{int(st['index_bytes'])}")
@@ -884,8 +1150,10 @@ def run_db(torch, ops, ref, compare_topk, data, name, cfg, rungs, kernels,
 
 def phase_dbs(torch, ops, ref, compare_topk):
     """The three deployment-size DBs from one row set, each freed before
-    the next; returns each kernel's launches in the DB run that drives
-    it."""
+    the next, then a flat + SQ8 DB at d 768; returns each kernel's launches
+    in the DB run that drives it."""
+    from repro_torch.kernels import topk_search as tts
+
     data = make_rows(torch)
 
     def packed_ok(db, main_live):
@@ -898,13 +1166,20 @@ def phase_dbs(torch, ops, ref, compare_topk):
             q, db.centroids, db.packed["vecs"], slot, ok, NPROBE, K)}
 
     def sq8_kernels(db, q, main_live):
+        scores = ops.quant_score(q, db.sq_codes, db.sq_scale)
+        key = tts._row_key(scores, torch.arange(
+            scores.shape[1], device=scores.device)[None, :])
         return {"sq8_topk": lambda: ops.sq8_topk(
                     q, db.sq_codes, db.sq_scale, main_live, K),
+                "select_by_row alone": lambda: tts.select_by_row(
+                    scores, main_live, K),
+                "its torch.topk of the keys alone": lambda: torch.topk(
+                    key, K, dim=1),
                 "quant_score": lambda: ops.quant_score(
                     q, db.sq_codes, db.sq_scale),
-                "quant_score + stable top-k": lambda: ref.masked_topk(
-                    ops.quant_score(q, db.sq_codes, db.sq_scale), main_live,
-                    K)}
+                "quant_score + select_by_row (the op rung)": lambda:
+                    tts.select_by_row(ops.quant_score(
+                        q, db.sq_codes, db.sq_scale), main_live, K)}
 
     def pq_kernels(db, q, main_live):
         slot, ok = packed_ok(db, main_live)
@@ -953,6 +1228,19 @@ def phase_dbs(torch, ops, ref, compare_topk):
     launches.update(pq_topk=got["fused"]["pq_topk"])
     say(f"db ivf+pq: PQ training {sum(pq_s):.1f} s (within build_index); "
         f"phase {time.perf_counter() - t0:.1f} s")
+    del data
+    torch.cuda.empty_cache()
+
+    # Fig. 11's widest embedding (768) on flat + SQ8, at a quarter of the
+    # rows: sq8_topk and quant_score with the limbs streamed
+    t0 = time.perf_counter()
+    wide = make_rows(torch, n=1 << 18, dim=768, n_fresh=8192,
+                     capacity=(1 << 18) + 16384, flat_capacity=16384)
+    run_db(torch, ops, ref, compare_topk, wide, "db flat+sq8 d=768", dict(
+        index_type="flat", quant="sq8", use_kernel="fused"),
+        {"fused": ("sq8_topk", "topk_search"),
+         "op": ("quant_score", "topk_search")}, sq8_kernels, off_chunk=NQ)
+    say(f"db flat+sq8 d=768: phase {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -1342,20 +1630,24 @@ def main() -> int:
     say(f"build: {len(reports)} kernels in {time.perf_counter() - t0:.1f} s")
     # shared memory per block each launcher requests, at the main path's
     # row widths and k (flash_attention: the Hopper kernel at dh 128 and 64)
-    widths = {"topk_search": [DIM], "ivf_topk": [DIM], "quant_score": [DIM],
-              "sq8_topk": [DIM], "pq_topk": [PQ_M],
+    widths = {"topk_search": [DIM], "ivf_topk": [DIM],
+              "quant_score": [DIM, 768, 1024],
+              "sq8_topk": [DIM, 768, 1024], "pq_topk": [PQ_M],
               "flash_attention": [128, 64]}
     for name, log in reports.items():
+        entry = ""
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = kernel_name(line.split("'")[1])
             if "registers" in line or "spill" in line:
-                say(f"  {name}: {line.strip()}")
+                say(f"  {name}: {entry}: {line.strip()}")
         say(f"  {name}: shared memory per block " + ", ".join(
             f"{_build.smem_bytes(name, d, K)} bytes at width {d}"
             for d in widths[name]))
 
     timings = {"build": time.perf_counter() - t0}
     t0 = time.perf_counter()
-    records = phase_kernels(torch, ops, ref, compare_topk)
+    records, profiles = phase_kernels(torch, ops, ref, compare_topk)
     timings["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     records.update(phase_quant_kernels(torch, ops, ref, compare_topk))
@@ -1377,6 +1669,16 @@ def main() -> int:
     t0 = time.perf_counter()
     flash_launches = phase_model_full(torch, ops)
     timings["model full width"] = time.perf_counter() - t0
+    # ivf_topk by kernel, once every timing is taken (the profiler's
+    # tracing stays on the host's launch path after it ends)
+    torch.cuda.empty_cache()
+    records["ivf_topk"]["device_us"] = {}
+    for shape, make_call in profiles:
+        us = device_times(torch, make_call())
+        records["ivf_topk"]["device_us"][shape] = us
+        say(f"ivf_topk at the {shape} shape, device time a call by kernel "
+            f"(torch.profiler): " + ", ".join(
+                f"{k} {v:.2f} us" for k, v in us.items()))
     say("phase wall seconds: " + ", ".join(
         f"{name} {sec:.1f}" for name, sec in timings.items()))
 

@@ -27,7 +27,8 @@ reference's ``off`` rung already calls ``quant_score`` for flat + sq8; the
 port routes it to the plain version on purpose (both compute the same
 function), so that ``off`` runs no kernel. ``op`` sends flat scans through
 the ``topk_search`` kernel and flat + sq8 through the ``quant_score``
-kernel (then a stable top-k); ``fused`` sends flat + sq8 through
+kernel (then one ``torch.topk`` over (score, row) keys, the stable
+top-k's order); ``fused`` sends flat + sq8 through
 ``sq8_topk`` and the IVF main index through ``ivf_topk`` (fp32 rows) or
 ``pq_topk`` (PQ codes) over the packed mirror. IVF + pq on ``off``/``op``
 is the plain ``_pq_ivf_search``. On CPU tensors every rung runs the
@@ -48,6 +49,7 @@ from repro_torch.core.interfaces import Chunk, DBInstance, SearchResult
 from repro_torch.core.registry import register
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import topk_search as kts
 from repro_torch.kernels.ref import NEG, stable_topk
 
 KERNEL_LADDER = ("off", "op", "fused")
@@ -192,14 +194,17 @@ def _sq8_flat_search(q, codes, scale, live, k: int, rung: str = "off"):
     """Scalar-quantized exact search. codes:[cap,d] int8, scale:[d],
     live:[cap] bool -> [nq,k] ``(scores, idx)`` with ``(NEG, -1)`` padding.
 
-    ``off`` and ``op`` score the whole corpus (``[nq, cap]``, the plain
-    ``quant_score`` or its kernel) and take a stable top-k afterwards;
-    ``fused`` selects inside the ``sq8_topk`` kernel.
+    ``off`` and ``op`` score the whole corpus (``[nq, cap]``): ``off``
+    with the plain ``quant_score`` and a stable top-k, ``op`` with its
+    kernel and one ``torch.topk`` over (score, row) keys
+    (``select_by_row``), in the same order; ``fused`` selects inside the
+    ``sq8_topk`` kernel.
     """
     if rung == "fused":
         return kops.sq8_topk(q, codes, scale, live, k)
-    score = kref.quant_score if rung == "off" else kops.quant_score
-    return kref.masked_topk(score(q, codes, scale), live, k)
+    if rung == "op":
+        return kts.select_by_row(kops.quant_score(q, codes, scale), live, k)
+    return kref.masked_topk(kref.quant_score(q, codes, scale), live, k)
 
 
 def _pq_ivf_search(q, codes, codebook, live, cent, buckets, bucket_live,

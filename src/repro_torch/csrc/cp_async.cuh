@@ -1,7 +1,7 @@
 // cp.async copies from device memory to shared memory (16 bytes a thread,
 // zero-filled where the source row does not exist, or 4 bytes), their
-// commit groups and waits. Shared by the tile scans, pq_topk.cu,
-// sq8_topk.cu and flash_attention.cu.
+// commit groups and waits. Shared by topk_search.cu, pq_topk.cu, the int8
+// limb kernels (sq8_limb.cuh) and flash_attention.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,6 +19,15 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(src)
+               : "memory");
+}
+// 4 bytes, zero-filled where pred is false (src is then not read)
+__device__ __forceinline__ void cp_async4z(void* dst, const void* src,
+                                           bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(n)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

@@ -1,14 +1,14 @@
-// The second pass of sq8_topk.cu and pq_topk.cu: the global top-k of a
-// query's L sorted candidate lists, launched by the same C entry point
-// right after the scan, so a search costs the host one call.
+// The last pass of sq8_topk.cu, pq_topk.cu and ivf_topk.cu: the global
+// top-k of a query's L sorted candidate lists, launched by the same C entry
+// point right after the scan, so a search costs the host one call.
 //
 // Each list holds k (score, id, order) entries in descending score, equal
 // scores by ascending order, padded with (NEG, -1). A candidate ranks by
 // one 64-bit key, the score's order-preserving bits (-0.0 as +0.0) above
 // the complement of `order` (distinct per query), so no two real
 // candidates tie: equal scores keep the lower order, the tie order of
-// lax.top_k over the whole score matrix (sq8_topk: order = row; pq_topk:
-// order = probe rank * cap_b + row, the probe-major order of
+// lax.top_k over the whole score matrix (sq8_topk: order = row; pq_topk
+// and ivf_topk: order = probe rank * cap_b + row, the probe-major order of
 // merge_candidates). One warp per query merges the lists by their heads:
 // lane l watches lists l, l + 32, ...; each of the k rounds takes the
 // largest head key over the warp and advances that list. Scores at or

@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks for flash_attention.cu and sq8_topk.cu:
-// mbarriers, named barriers, TMA tile loads through a tensor map (and the
-// host-side encoder of the map), warpgroup register moves and wgmma with
-// shared-memory descriptors in the 128-byte swizzle.
+// Hopper (sm_90a) building blocks for flash_attention.cu, the int8 limb
+// kernels (sq8_limb.cuh) and ivf_topk.cu: mbarriers, named barriers, TMA
+// tile loads through a tensor map (and the host-side encoder of the map),
+// 1-d bulk copies, warpgroup register moves and wgmma with shared-memory
+// descriptors in the 128-byte swizzle.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap (the type only; nothing links libcuda)
@@ -80,6 +81,30 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
+      : "memory");
+}
+
+// The same for a 3-d map: coordinates (c0, c1, c2), innermost first.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Copy `bytes` contiguous bytes from device memory into shared memory
+// (both addresses 16-byte aligned, bytes a multiple of 16); completion
+// goes to `bar` as bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

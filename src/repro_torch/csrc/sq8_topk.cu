@@ -15,51 +15,34 @@
 // byte) the same work takes 0.77 ms.
 //
 // Exact on int8 tensor cores (wgmma ... .s32.s8.s8): the caller splits each
-// prescaled query row qs into LIMBS = 4 int8 limbs
-// (repro_torch.kernels.fused_retrieve.sq8_limbs): with 2^e the least power
-// of two >= max_j |qs_j|, limb 0 = round(qs 2^(6 - e)) and each further
-// limb = round(residue 2^7), every limb in [-64, 64] and every step exact
-// in fp32; it passes the limbs and e. Each limb's dot product a_l with a
-// code row is an exact int32 sum, |a_l| <= 64 * 127 * d, which fits int32
-// for d <= 264,208 and converts to fp32 exactly for d <= 2,064. The score
-// is ((a_0 w_0 + a_1 w_1) + a_2 w_2) + a_3 w_3 with w_l = 2^(e - 6 - 7 l)
-// built from its bits, each product exact, rounded add by add in that
-// order (fused_retrieve.sq8_limb_scores computes the same bits in torch).
-// Besides the fp32 rounding of the adds, the only error is the split:
-// |score - qs . c| <= sum_j |c_j| 2^(e - 28). At the deployment width
-// (d = 384, |c_j| <= 127; unit queries and rows, so |qs_j| <= scale_j <=
-// 1/127 and e <= -6) that is at most 127 * 384 * 2^-34 = 2.8e-6, under the
-// port's 1e-5 parity rule. Where qs are multiples of 2^(e - 27) (the tie
-// inputs: multiples of 1/8) the split is exact and the scores equal the
-// fp32 product's bit for bit.
+// prescaled query row qs into four int8 limbs and the kernel scores them
+// against the codes with the product of sq8_limb.cuh (shared with
+// quant_score.cu), whose header states the arithmetic and its error bound
+// (at most 127 d 2^-34 for unit rows: 2.8e-6 at d = 384, 7.6e-6 at
+// d = 1,024). The scores equal fused_retrieve.sq8_limb_scores bit for bit.
 //
 // The design:
 //  * A block of one consumer warpgroup (four warps) and one producer warp,
 //    one block per SM; block (b, y) takes query rows 64y .. 64y + 63 and
 //    walks code tiles b, b + G, b + 2G, ... (G = gridDim.x) of BN = 64 rows
 //    with one top-k list per query: G lists per query to merge.
-//  * A, the four limbs of the 64 query rows [4][64 x d_pad], stays resident
-//    in shared memory in the 128-byte swizzle (96 KB at d = 384), written
-//    once by every thread; columns past d and rows past nq are zero, so
-//    whatever the code tile holds past d adds nothing. d_pad is d rounded
-//    up to 128, at most 512; with the lists and buffers, a ring stage fits
-//    at every k <= 128 for d <= 384, and at d = 512 for k <= 67.
-//  * B, a [64 x d] code tile, is K-major as it lies in device memory. The
-//    producer warp keeps tiles in flight through a ring of STAGES stages
-//    (full/empty mbarriers; STAGES from the shared memory left after A,
-//    the lists and the buffers: 3 at k = 16, 1 at k = 128, d = 384) with
-//    the tile's 64 liveness bytes, loaded one tile ahead: by TMA
-//    (cp.async.bulk.tensor, 128-column boxes in the 128-byte swizzle) when
-//    d % 16 == 0, the row stride TMA needs; else by 4-byte cp.async into
-//    the same swizzled layout (the contract's d % 4 == 0). The load path is
-//    chosen by d alone.
+//  * A, the four limbs of the 64 query rows, stays resident in shared
+//    memory at d <= 384 (96 KB at d = 384; sq8_limb.cuh), written once by
+//    every thread. B, a [64 x d] code tile, is K-major as it lies in device
+//    memory. The producer warp keeps tiles in flight through a ring of
+//    STAGES stages (full/empty mbarriers; STAGES from the shared memory
+//    left after A, the lists and the buffers: 3 at k = 16, 1 at k = 128,
+//    d = 384) with the tile's 64 liveness bytes, loaded one tile ahead.
+//    Wider rows do not leave room for resident limbs, so a
+//    stage holds one 128-column chunk of the tile and the same chunk of the
+//    four limbs, ceil(d / 128) stages a tile (3 at k = 128, 4 at k = 16);
+//    every tile then reads the block's limbs again, from L2: four times
+//    its own code bytes. Loads by TMA when d % 16 == 0, else by 4-byte cp.async; the load path
+//    is chosen by d alone.
 //  * Per tile and k32 step the warpgroup issues one wgmma m64n64k32 per
 //    limb; each thread then holds the four int32 sums of its 2 queries x 16
 //    rows at the same accumulator positions and combines them in
-//    registers. |a_l| < 2^22 (d <= 512), so a_l converts to fp32 by adding
-//    its bits to those of 1.5 * 2^23 (an integer add, where the converter
-//    runs at a quarter of the rate), and fma(that, w_l, -1.5 * 2^23 w_l)
-//    is a_l w_l exactly.
+//    registers (limb::score).
 //  * Selection from registers, in batches: warp w owns queries 16w ..
 //    16w + 15, the four lanes of a quad share one, and each thread keeps
 //    the thresholds of its two queries (their lists' k-th scores). A
@@ -89,48 +72,51 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "cp_async.cuh"
 #include "merge_lists.cuh"
 #include "sm90.cuh"
+#include "sq8_limb.cuh"
 #include "topk_list.cuh"
 
 namespace {
 
-constexpr int LIMBS = 4;
-constexpr int BQ = 64;              // query rows per block: wgmma's M
-constexpr int BN = 64;              // code rows per tile: wgmma's N
-constexpr int CHUNK_BYTES = 64 * 128;   // 64 rows of one 128-column chunk
+using limb::BN;
+using limb::BQ;
+using limb::CHUNK_BYTES;
+using limb::LIMBS;
 constexpr int CONSUMERS = 128;      // one warpgroup
 constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
 constexpr int MAX_STAGES = 4;
-constexpr int MAX_CH = 4;           // d <= 512
 constexpr int BUF = 64;             // candidates a query's buffer holds:
                                     // a whole tile's
 constexpr int SMEM_MAX = 232448;    // shared memory a block may use (bytes)
 
 // Shared memory, from a 1,024-byte boundary (the swizzle's period): A
-// [LIMBS][ch][64][128], the ring [stages][ch][64][128], the ring's
-// liveness bytes [stages][64], the lists' scores and rows [64][k] each,
-// the buffers' scores and rows [64][BUF] each, the full and
-// empty barriers [stages] each. A row is ch whole 128-column chunks, zero
-// past d in A, so the k32 steps are 4 ch, known at compile time (the
-// kernel is instantiated per ch).
+// [LIMBS][ch][64][128] (resident limbs only), the ring [stages][stage
+// bytes], the ring's liveness bytes [stages][64], the lists' scores and
+// rows [64][k] each, the buffers' scores and rows [64][BUF] each, the full
+// and empty barriers [stages] each. With resident limbs a row is ch whole
+// 128-column chunks, zero past d in A, so the k32 steps are 4 ch, known at
+// compile time (the kernel is instantiated per ch); a stage is a whole
+// tile. Streaming, a stage is one chunk of the tile and of the limbs.
 struct Layout {
-  int ch, stages;
+  int ch, stages, stage_bytes;
+  bool stream;
   int b_off, live_off, ls_off, li_off, bs_off, bi_off, bar_off, bytes;
 };
 
 __host__ __device__ inline Layout layout(int d, int k) {
   Layout L;
   L.ch = (d + 127) / 128;
-  const int a_bytes = LIMBS * L.ch * CHUNK_BYTES;
-  const int stage = L.ch * CHUNK_BYTES + BN + 16;   // tile, live, barriers
+  L.stream = L.ch > limb::RESIDENT_CH;
+  const int a_bytes = L.stream ? 0 : LIMBS * L.ch * CHUNK_BYTES;
+  L.stage_bytes = L.stream ? limb::STREAM_STAGE_BYTES : L.ch * CHUNK_BYTES;
+  const int stage = L.stage_bytes + BN + 16;   // tile, live, barriers
   const int fixed = 1024 + a_bytes + 8 * BQ * (k + BUF);
   L.stages = (SMEM_MAX - fixed) / stage;
   if (L.stages > MAX_STAGES) L.stages = MAX_STAGES;
   const int lists = BQ * k, bufs = BQ * BUF;
   L.b_off = a_bytes;
-  L.live_off = L.b_off + L.stages * L.ch * CHUNK_BYTES;
+  L.live_off = L.b_off + L.stages * L.stage_bytes;
   L.ls_off = L.live_off + L.stages * BN;
   L.li_off = L.ls_off + 4 * lists;
   L.bs_off = L.li_off + 4 * lists;
@@ -138,13 +124,6 @@ __host__ __device__ inline Layout layout(int d, int k) {
   L.bar_off = L.bi_off + 4 * bufs;
   L.bytes = 1024 + L.bar_off + 16 * L.stages;
   return L;
-}
-
-// Byte offset of (row, column byte) of a 64-row tile of 128-column chunks
-// in the 128-byte swizzle: the 16-byte unit u of row r sits at u ^ (r % 8).
-__device__ __forceinline__ int swz(int row, int col) {
-  return (col >> 7) * CHUNK_BYTES + row * 128 +
-         ((((col >> 4) & 7) ^ (row & 7)) << 4) + (col & 15);
 }
 
 // Over the four lanes of a quad (t4 = lane % 4): the sum of v over the
@@ -194,9 +173,24 @@ __device__ __forceinline__ void flush(unsigned need0, unsigned need1,
   }
 }
 
-template <int CH>
+// Liveness of this thread's rows 8j + 2 t4 + c of a tile: bit 2j + c.
+__device__ __forceinline__ uint32_t live_bits(const uint8_t* live_t, int t4) {
+  uint32_t okm = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const uint32_t v =
+        *reinterpret_cast<const uint16_t*>(live_t + 8 * j + 2 * t4);
+    okm |= ((v & 1u) | ((v >> 7) & 2u)) << (2 * j);
+  }
+  return okm;
+}
+
+// CH > 0: the limbs resident, a tile of CH chunks a stage; CH == 0: the
+// limbs stream, a chunk a stage. WIDE: d > limb::EXACT_ADD_D.
+template <int CH, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 1)
 sq8_wgmma_kernel(const __grid_constant__ CUtensorMap codes_map,
+                 const __grid_constant__ CUtensorMap limbs_map,
                  const int8_t* __restrict__ codes,
                  const int8_t* __restrict__ limbs,
                  const int* __restrict__ expo,
@@ -206,9 +200,9 @@ sq8_wgmma_kernel(const __grid_constant__ CUtensorMap codes_map,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
-  const Layout L = layout(d, k);   // L.ch == CH
+  const Layout L = layout(d, k);   // L.ch == CH where CH > 0
   unsigned char* a_s = smem;                 // [LIMBS][ch][64][128]
-  unsigned char* b_s = smem + L.b_off;       // [stages][ch][64][128]
+  unsigned char* b_s = smem + L.b_off;       // [stages][stage bytes]
   uint8_t* live_s = smem + L.live_off;       // [stages][64]
   float* lsb = reinterpret_cast<float*>(smem + L.ls_off);   // [64][k]
   int* lib = reinterpret_cast<int*>(smem + L.li_off);
@@ -221,19 +215,13 @@ sq8_wgmma_kernel(const __grid_constant__ CUtensorMap codes_map,
   const int q0 = blockIdx.y * BQ;
   const int G = gridDim.x;
   const int n_tiles = (n + BN - 1) / BN;
+  // ring stages a tile takes
+  const int per_tile = CH > 0 ? 1 : L.ch;
 
-  // A: the block's limbs as 4-byte words (d % 4 == 0), zero past nq and d
-  constexpr int words = CH * 32;             // words per row of a limb
-  for (int e = tid; e < LIMBS * BQ * words; e += blockDim.x) {
-    const int w = e % words, r = (e / words) % BQ, l = e / (words * BQ);
-    const int col = 4 * w;
-    uint32_t v = 0;
-    if (q0 + r < nq && col < d)
-      v = *reinterpret_cast<const uint32_t*>(
-          limbs + (static_cast<size_t>(l) * nq + q0 + r) * d + col);
-    *reinterpret_cast<uint32_t*>(a_s + l * CH * CHUNK_BYTES + swz(r, col)) = v;
+  if constexpr (CH > 0) {
+    limb::load_resident<CH>(a_s, limbs, nq, d, q0, tid, blockDim.x);
+    sm90::fence_proxy_async();   // A is read by wgmma (the async proxy)
   }
-  sm90::fence_proxy_async();   // A is read by wgmma (the async proxy)
   if (tid == 0) {
     for (int s = 0; s < L.stages; ++s) {
       sm90::mbar_init(&full[s], 32);          // the producer warp's lanes
@@ -245,7 +233,10 @@ sq8_wgmma_kernel(const __grid_constant__ CUtensorMap codes_map,
 
   if (tid >= CONSUMERS) {   // the producer warp
     const int lane = tid - CONSUMERS;
-    if (tma && lane == 0) sm90::tma_prefetch_desc(&codes_map);
+    if (tma && lane == 0) {
+      sm90::tma_prefetch_desc(&codes_map);
+      if (CH == 0) sm90::tma_prefetch_desc(&limbs_map);
+    }
     // a tile's liveness bytes (rows lane and lane + 32) are loaded one tile
     // ahead, so their latency hides behind the wait for a free stage
     auto live_of = [&](int t, int r) {
@@ -253,36 +244,23 @@ sq8_wgmma_kernel(const __grid_constant__ CUtensorMap codes_map,
       return t < n_tiles && g < n && live[g] != 0;
     };
     bool lv0 = live_of(blockIdx.x, lane), lv1 = live_of(blockIdx.x, lane + 32);
-    int it = 0;
-    for (int t = blockIdx.x; t < n_tiles; t += G, ++it) {
-      const int s = it % L.stages;
-      const uint32_t ph = (it / L.stages) & 1;
-      sm90::mbar_wait(&empty[s], ph ^ 1);
-      live_s[s * BN + lane] = lv0;
-      live_s[s * BN + lane + 32] = lv1;
-      unsigned char* dst = b_s + s * CH * CHUNK_BYTES;
-      if (tma) {   // rows and columns past n and d read as zeros
-        if (lane == 0) {
-          sm90::mbar_expect_tx(&full[s], CH * CHUNK_BYTES);
-#pragma unroll
-          for (int c = 0; c < CH; ++c)
-            sm90::tma_load_2d(dst + c * CHUNK_BYTES, &codes_map, &full[s],
-                              c * 128, t * BN);
-        } else {
-          sm90::mbar_arrive(&full[s]);
+    int u = 0;   // stages filled
+    for (int t = blockIdx.x; t < n_tiles; t += G) {
+      for (int c = 0; c < per_tile; ++c, ++u) {
+        const int s = u % L.stages;
+        sm90::mbar_wait(&empty[s], ((u / L.stages) & 1) ^ 1);
+        if (c == 0) {   // a tile's liveness goes with its first stage
+          live_s[s * BN + lane] = lv0;
+          live_s[s * BN + lane + 32] = lv1;
         }
-      } else {     // rows past n keep what they held: their rows are dead
-        const long long base = static_cast<long long>(t) * BN;
-        const int rw = d / 4;
-        for (int e = lane; e < BN * rw; e += 32) {
-          const int r = e / rw, col = 4 * (e % rw);
-          if (base + r < n)
-            cp_async4(dst + swz(r, col), codes + (base + r) * d + col);
-        }
-        cp_async_commit();
-        cp_async_wait_0();
-        sm90::fence_proxy_async();
-        sm90::mbar_arrive(&full[s]);
+        unsigned char* dst = b_s + s * L.stage_bytes;
+        if constexpr (CH > 0)
+          limb::load_stage(&codes_map, &limbs_map, codes, limbs, n, nq, d, t,
+                           0, CH, q0, tma, dst, nullptr, &full[s], lane);
+        else
+          limb::load_stage(&codes_map, &limbs_map, codes, limbs, n, nq, d, t,
+                           c, 1, q0, tma, dst, dst + CHUNK_BYTES, &full[s],
+                           lane);
       }
       lv0 = live_of(t + G, lane);
       lv1 = live_of(t + G, lane + 32);
@@ -295,21 +273,15 @@ sq8_wgmma_kernel(const __grid_constant__ CUtensorMap codes_map,
   for (int qq = 16 * warp; qq < 16 * warp + 16; ++qq)
     list_clear(lsb + qq * k, lib + qq * k, k, lane, 32);
   __syncwarp();
-  // this thread's queries: rows 16 warp + g + 8 i of the block
-  // and the limbs' weights 2^(e - 6 - 7 l), built from their bits, with
-  // -1.5 * 2^23 times each (the conversion's offset)
+  // this thread's queries: rows 16 warp + g + 8 i of the block, and their
+  // limbs' weights
   float thr[2], w[2][LIMBS], wm[2][LIMBS];
   int nb[2] = {0, 0};   // candidates in the buffers of the two queries
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int q = q0 + 16 * warp + g + 8 * i;
     thr[i] = q < nq ? TOPK_NEG : INFINITY;   // a query past nq never selects
-    const int e = q < nq ? expo[q] : 0;
-#pragma unroll
-    for (int l = 0; l < LIMBS; ++l) {
-      w[i][l] = __int_as_float((e - 6 - 7 * l + 127) << 23);
-      wm[i][l] = -12582912.f * w[i][l];
-    }
+    limb::weights(q < nq ? expo[q] : 0, w[i], wm[i]);
   }
   // defined before the first wgmma: an undefined accumulator register makes
   // ptxas serialize every wgmma of the kernel
@@ -319,37 +291,27 @@ sq8_wgmma_kernel(const __grid_constant__ CUtensorMap codes_map,
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[l][e] = 0;
 
-  int it = 0;
-  for (int t = blockIdx.x; t < n_tiles; t += G, ++it) {
-    const int s = it % L.stages;
-    sm90::mbar_wait(&full[s], (it / L.stages) & 1);
-    const unsigned char* bs = b_s + s * CH * CHUNK_BYTES;
-#pragma unroll
-    for (int l = 0; l < LIMBS; ++l) sm90::reg_fence(acc[l]);
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4 * CH; ++kk) {
-      const int off = (kk >> 2) * CHUNK_BYTES + (kk & 3) * 32;
-      const uint64_t db = sm90::desc_sw128(bs + off);
-#pragma unroll
-      for (int l = 0; l < LIMBS; ++l)
-        sm90::wgmma_m64n64k32_s8_ss(
-            acc[l], sm90::desc_sw128(a_s + l * CH * CHUNK_BYTES + off), db,
-            kk > 0);
-    }
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-#pragma unroll
-    for (int l = 0; l < LIMBS; ++l) sm90::reg_fence(acc[l]);
-    // liveness of this thread's rows 8j + 2 t4 + c: bit 2j + c
+  int u = 0;   // stages consumed
+  for (int t = blockIdx.x; t < n_tiles; t += G) {
     uint32_t okm = 0;
+    for (int c = 0; c < per_tile; ++c, ++u) {
+      const int s = u % L.stages;
+      sm90::mbar_wait(&full[s], (u / L.stages) & 1);
+      const unsigned char* bs = b_s + s * L.stage_bytes;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const uint32_t v = *reinterpret_cast<const uint16_t*>(
-          live_s + s * BN + 8 * j + 2 * t4);
-      okm |= ((v & 1u) | ((v >> 7) & 2u)) << (2 * j);
+      for (int l = 0; l < LIMBS; ++l) sm90::reg_fence(acc[l]);
+      sm90::wgmma_fence();
+      if constexpr (CH > 0)
+        limb::tile_products<CH>(acc, a_s, bs);
+      else
+        limb::chunk_products(acc, bs + CHUNK_BYTES, CHUNK_BYTES, bs, c > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int l = 0; l < LIMBS; ++l) sm90::reg_fence(acc[l]);
+      if (c == 0) okm = live_bits(live_s + s * BN, t4);
+      sm90::mbar_arrive(&empty[s]);   // the stage is free for the producer
     }
-    sm90::mbar_arrive(&empty[s]);   // the tile is free for the producer
 
     // the scores: four exact int32 sums, combined in a fixed order
     float sc[2][8][2];
@@ -358,16 +320,8 @@ sq8_wgmma_kernel(const __grid_constant__ CUtensorMap codes_map,
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int e = 4 * j + 2 * i + c;
-          float v = __fmaf_rn(__int_as_float(acc[0][e] + 0x4B400000), w[i][0],
-                              wm[i][0]);
-#pragma unroll
-          for (int l = 1; l < LIMBS; ++l)
-            v = __fadd_rn(v, __fmaf_rn(__int_as_float(acc[l][e] + 0x4B400000),
-                                       w[i][l], wm[i][l]));
-          sc[i][j][c] = v;
-        }
+        for (int c = 0; c < 2; ++c)
+          sc[i][j][c] = limb::score<WIDE>(acc, 4 * j + 2 * i + c, w[i], wm[i]);
 
     // selection: per query slot i, the live pairs above the thresholds
     // (pm, bit 2j + c) go to their query's buffer. A tile adds at most 64
@@ -440,35 +394,17 @@ sq8_wgmma_kernel(const __grid_constant__ CUtensorMap codes_map,
   }
 }
 
-// codes [n, d] int8 as a 2-d uint8 map (d, n) read in boxes of 128 columns x
-// 64 rows in the 128-byte swizzle; columns past d and rows past n read as
-// zeros. TMA needs the row stride, d bytes, to be a multiple of 16.
-bool encode_codes(CUtensorMap* map, const int8_t* codes, int n, int d) {
-  const sm90::EncodeTiled enc = sm90::encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
-                              static_cast<cuuint64_t>(n)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d)};
-  const cuuint32_t box[2] = {128, BN};
-  const cuuint32_t elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-             const_cast<int8_t*>(codes), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int CH>
+template <int CH, bool WIDE>
 int launch(dim3 grid, int smem, cudaStream_t stream, const CUtensorMap& map,
-           const int8_t* codes, const int8_t* limbs, const int* expo,
-           const uint8_t* live, float* out_s, int* out_i, int nq, int n,
-           int d, int k, int tma) {
+           const CUtensorMap& lmap, const int8_t* codes, const int8_t* limbs,
+           const int* expo, const uint8_t* live, float* out_s, int* out_i,
+           int nq, int n, int d, int k, int tma) {
   const cudaError_t err = cudaFuncSetAttribute(
-      sq8_wgmma_kernel<CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      sq8_wgmma_kernel<CH, WIDE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sq8_wgmma_kernel<CH><<<grid, THREADS, smem, stream>>>(
-      map, codes, limbs, expo, live, out_s, out_i, nq, n, d, k, tma);
+  sq8_wgmma_kernel<CH, WIDE><<<grid, THREADS, smem, stream>>>(
+      map, lmap, codes, limbs, expo, live, out_s, out_i, nq, n, d, k, tma);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -477,10 +413,11 @@ int launch(dim3 grid, int smem, cudaStream_t stream, const CUtensorMap& map,
 extern "C" int sq8_topk_tile_rows() { return BN; }
 
 // Dynamic shared memory per block the launcher requests for rows of width d
-// and lists of k; 0 where not even one ring stage fits.
+// and lists of k; 0 where not even one ring stage fits (every k <= 128
+// fits at every d).
 extern "C" int sq8_topk_smem_bytes(int d, int k) {
   const Layout L = layout(d, k);
-  return L.stages >= 1 && L.ch <= MAX_CH ? L.bytes : 0;
+  return L.stages >= 1 ? L.bytes : 0;
 }
 
 extern "C" const char* sq8_topk_error_string(int err) {
@@ -488,8 +425,8 @@ extern "C" const char* sq8_topk_error_string(int err) {
 }
 
 // limbs:[4, nq, d] int8 and expo:[nq] int32 in [-96, 120] (sq8_limbs of
-// q * scale); codes:[n, d] int8 row-major, 16-byte aligned, d % 4 == 0,
-// sq8_topk_smem_bytes(d, k) > 0; live:[n] bytes; out_s/out_i:
+// q * scale); codes:[n, d] int8 row-major, 16-byte aligned, d % 4 == 0;
+// live:[n] bytes; out_s/out_i:
 // [nq, n_lists, k] with 1 <= n_lists <= ceil(n / 64): list b covers tiles
 // b, b + n_lists, b + 2 n_lists, ...; top_s/top_i: [nq, k],
 // their merge. Launches both kernels on `stream` and returns
@@ -505,25 +442,26 @@ extern "C" int sq8_topk_s8(const int8_t* limbs, const int* expo,
       reinterpret_cast<uintptr_t>(codes) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Layout L = layout(d, k);
-  if (L.stages < 1 || L.ch > MAX_CH)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (L.stages < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int tma = d % 16 == 0;
-  CUtensorMap map = {};
-  if (tma && !encode_codes(&map, codes, n, d))
+  CUtensorMap map = {}, lmap = {};
+  if (!limb::encode_maps(&map, &lmap, codes, limbs, n, nq, d, tma, L.stream))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(n_lists, (nq + BQ - 1) / BQ);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SQ8_ARGS grid, L.bytes, st, map, lmap, codes, limbs, expo, live, \
+                 out_s, out_i, nq, n, d, k, tma
   int err;
-  switch (L.ch) {
-    case 1: err = launch<1>(grid, L.bytes, st, map, codes, limbs, expo, live,
-                            out_s, out_i, nq, n, d, k, tma); break;
-    case 2: err = launch<2>(grid, L.bytes, st, map, codes, limbs, expo, live,
-                            out_s, out_i, nq, n, d, k, tma); break;
-    case 3: err = launch<3>(grid, L.bytes, st, map, codes, limbs, expo, live,
-                            out_s, out_i, nq, n, d, k, tma); break;
-    default: err = launch<4>(grid, L.bytes, st, map, codes, limbs, expo,
-                             live, out_s, out_i, nq, n, d, k, tma); break;
+  switch (L.stream ? 0 : L.ch) {
+    case 1: err = launch<1, false>(SQ8_ARGS); break;
+    case 2: err = launch<2, false>(SQ8_ARGS); break;
+    case 3: err = launch<3, false>(SQ8_ARGS); break;
+    default:
+      err = d > limb::EXACT_ADD_D ? launch<0, true>(SQ8_ARGS)
+                                  : launch<0, false>(SQ8_ARGS);
+      break;
   }
+#undef SQ8_ARGS
   if (err != 0) return err;
   return static_cast<int>(merge::launch_merge(
       out_s, out_i, out_i, top_s, top_i, nq, n_lists, k, st));

@@ -2,8 +2,10 @@
 ``csrc/quant_score.cu``.
 
 Replaces ``repro.kernels.quant_score.quant_score_pallas``. The query is
-prescaled here (``q * scale``, the same tensor op as the plain version), the
-kernel upcasts the int8 codes tile by tile and writes every row's score:
+prescaled here (``q * scale``, the same tensor op as the plain version) and
+split into int8 limbs (``fused_retrieve.sq8_limbs``); the kernel scores
+every code row on the int8 tensor cores, bit for bit
+``fused_retrieve.sq8_limb_scores``, and writes the whole ``[nq, N]`` matrix:
 there is no live mask, the caller masks and takes the top-k. The plain
 version is ``repro_torch.kernels.ref.quant_score``;
 ``repro_torch.kernels.ops`` picks between them by the device of the inputs.
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.fused_retrieve import sq8_limbs
 
 launches = 0   # kernel launches since the last ops.reset_launch_counts()
 
@@ -20,7 +23,8 @@ launches = 0   # kernel launches since the last ops.reset_launch_counts()
 def quant_score_cuda(q: torch.Tensor, codes: torch.Tensor,
                      scale: torch.Tensor) -> torch.Tensor:
     """q:[nq,d] fp32, codes:[N,d] int8, scale:[d] fp32, all on one CUDA
-    device; d % 4 == 0. Returns the scores ``[nq, N]`` fp32."""
+    device; d % 4 == 0. Returns the scores ``[nq, N]`` fp32:
+    ``sq8_limb_scores``, within 1e-5 of ``ref.quant_score``."""
     global launches
     dev = q.device
     _build.require(q, "q", (torch.float32,), 2, dev)
@@ -33,10 +37,13 @@ def quant_score_cuda(q: torch.Tensor, codes: torch.Tensor,
                          f"{tuple(codes.shape)} scale {tuple(scale.shape)}")
     if d % 4:
         raise ValueError(f"need d % 4 == 0, got d={d}")
-    lib, fn = _build.entry("quant_score", 3, 3)
-    qs = (q * scale[None, :]).contiguous()
+    lib, fn = _build.entry("quant_score", 4, 4, "s8")
+    blocks = min(-(-n // _build.tile_rows("quant_score")),
+                 torch.cuda.get_device_properties(dev).multi_processor_count)
+    limbs, e = sq8_limbs(q * scale[None, :])
     out = torch.empty((nq, n), dtype=torch.float32, device=dev)
-    err = fn(qs.data_ptr(), codes.data_ptr(), out.data_ptr(), nq, n, d,
+    err = fn(limbs.data_ptr(), e.data_ptr(), codes.data_ptr(),
+             out.data_ptr(), nq, n, d, blocks,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "quant_score", err)
     launches += 1

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import merge_candidates
+from repro_torch.kernels.ref import NEG, merge_candidates
 
 MAX_K = 128
 BLOCKS_PER_SM = 2   # the kernel's residency at k <= 56
@@ -56,15 +56,38 @@ def topk_search_cuda(q: torch.Tensor, vecs: torch.Tensor, live: torch.Tensor,
                         out_i.view(nq, n_lists * k), k)
 
 
+def _row_key(scores: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """A 64-bit key per candidate: the score's order-preserving int32 bits
+    (-0.0 as +0.0) above the row's complement, so that one ``torch.topk``
+    over it takes higher scores first and, among equal scores, the lower
+    row; no two candidates of distinct rows tie. ``rows`` broadcasts."""
+    bits = (scores + 0.0).view(torch.int32)           # -0.0 scores as +0.0
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)          # int order = float order
+    # key * 2^32 + (2^31 - 1 - row), formed in int64 by one add
+    return torch.add(0x7FFFFFFF - rows.long(), key, alpha=1 << 32)
+
+
 def merge_by_row(cand_s: torch.Tensor, cand_i: torch.Tensor, k: int):
     """Global top-k of candidates ``[nq, C]`` in any order of lists, in the
     order of ``lax.top_k`` over the whole score matrix: by score, equal
-    scores by lower row. One ``torch.topk`` over a 64-bit key, the score's
-    order-preserving int32 bits above the row's complement, so no two
-    candidates tie. Padding ``(NEG, -1)`` stays padding."""
-    bits = (cand_s + 0.0).view(torch.int32)          # -0.0 scores as +0.0
-    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)          # int order = float order
-    key = (key.long() << 32) | (0x7FFFFFFF - cand_i.long())
+    scores by lower row. One ``torch.topk`` over ``_row_key``. Padding
+    ``(NEG, -1)`` stays padding."""
+    key = _row_key(cand_s, cand_i)
     pos = torch.topk(key, min(k, key.shape[1]), dim=1).indices
     return merge_candidates(torch.gather(cand_s, 1, pos),
                             torch.gather(cand_i, 1, pos), k)
+
+
+def select_by_row(scores: torch.Tensor, live: torch.Tensor, k: int):
+    """``ref.masked_topk`` (the top-``k`` of ``scores [nq, N]`` over the
+    ``live [N]`` columns, ``(NEG, -1)`` padded, ``lax.top_k``'s order) by
+    one ``torch.topk`` over ``_row_key`` instead of a stable sort of every
+    row."""
+    masked = torch.where(live.bool()[None, :], scores,
+                         torch.tensor(NEG, dtype=scores.dtype,
+                                      device=scores.device))
+    cols = torch.arange(scores.shape[1], device=scores.device,
+                        dtype=torch.int32)
+    pos = torch.topk(_row_key(masked, cols[None, :]),
+                     min(k, scores.shape[1]), dim=1).indices
+    return merge_candidates(torch.gather(masked, 1, pos), pos.int(), k)

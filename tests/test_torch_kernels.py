@@ -303,6 +303,104 @@ def test_ivf_topk_matches_jax(nq, nlist, cap_b, d, nprobe, k, p_ok, dup):
         assert (out[1].numpy() == ji).all()
 
 
+def _bucket_major(q, cent, vecs, slot, ok, nprobe, k, group):
+    """The ivf_topk entry point's order in plain torch: the probes inverted
+    into per-bucket query lists, cut into work items of up to ``group``
+    queries; each item reads its bucket once and gives every (query, probe)
+    pair of it a top-k list by (score desc, row asc); the [nq, nprobe, k]
+    lists merge by (score, probe rank * cap_b + row). Returns the lists
+    (scores, slot ids, orders), their merge and the number of items."""
+    nq, nlist = q.shape[0], cent.shape[0]
+    cap_b = vecs.shape[0] // nlist
+    probes = ref.probe(q, cent, nprobe).long()
+    pv = vecs.view(nlist, cap_b, -1)
+    ps, po = slot.view(nlist, cap_b), ok.view(nlist, cap_b).bool()
+    out_s = torch.full((nq, nprobe, k), ref.NEG)
+    out_i = torch.full((nq, nprobe, k), -1, dtype=torch.int32)
+    out_p = torch.full((nq, nprobe, k), -1, dtype=torch.int32)
+    items = 0
+    for b in range(nlist):
+        pairs = torch.nonzero(probes == b)               # (query, rank)
+        for lo in range(0, len(pairs), group):
+            items += 1
+            grp = pairs[lo:lo + group]
+            s = q[grp[:, 0]] @ pv[b].T                   # one bucket read
+            s = torch.where(po[b][None, :], s, torch.tensor(ref.NEG))
+            top, row = ref.stable_topk(s, k)
+            real = top > ref.NEG / 2
+            row = row.clamp(max=cap_b - 1)
+            for j, (i, r) in enumerate(grp.tolist()):
+                out_s[i, r] = top[j]
+                out_i[i, r] = torch.where(real[j], ps[b][row[j]], -1)
+                out_p[i, r] = torch.where(real[j], r * cap_b + row[j], -1)
+    got = _key_merge(out_s.view(nq, -1), out_i.view(nq, -1),
+                     out_p.view(nq, -1), k)
+    return (out_s, out_i, out_p), got, items
+
+
+def _key_merge(s, i, order, k):
+    """merge_lists.cuh in torch: the top k of candidates [nq, C] by one
+    64-bit key, the score's order-preserving bits above the complement of
+    ``order``; scores at or below NEG/2 come out as (NEG, -1)."""
+    bits = (s + 0.0).view(torch.int32)
+    key = ((bits ^ ((bits >> 31) & 0x7FFFFFFF)).long() << 32) | (
+        0x7FFFFFFF - order.long())
+    pos = torch.topk(key, k, dim=1).indices
+    top = torch.gather(s, 1, pos)
+    real = top > ref.NEG / 2
+    return (torch.where(real, top, torch.tensor(ref.NEG)),
+            torch.where(real, torch.gather(i, 1, pos), -1))
+
+
+@pytest.mark.parametrize("nq,nlist,cap_b,d,nprobe,k,group", [
+    (6, 8, 16, 16, 3, 40, 2),     # k past every probed row
+    (24, 16, 32, 16, 8, 16, 8),   # nlist 16, nprobe 8: buckets shared
+    (24, 16, 32, 16, 8, 5, 3),
+])
+def test_ivf_bucket_major_lists_merge_matches_jax(nq, nlist, cap_b, d,
+                                                  nprobe, k, group):
+    """Per-bucket query groups, per-(query, probe) lists and their merge by
+    (score, probe rank, row) give the TPU kernel's result exactly, on exact
+    scores with rows planted equal in two buckets each query probes, and
+    with buckets shared by most of the queries."""
+    rng = np.random.default_rng(nq * 100 + k)
+    q = _grid(rng, nq, d)
+    cent = _unit(rng, nlist, d)
+    vecs, slot, ok = _packed(rng, nlist, cap_b, d, 0.8)
+    vecs = _grid(rng, nlist * cap_b, d)
+    probes = ref.probe(*_t(q, cent), nprobe).numpy()
+    for i in range(nq):          # a row of rank 0 copied into rank 2's bucket
+        src = probes[i, 0] * cap_b + i % cap_b
+        dst = probes[i, 2] * cap_b + (i + 5) % cap_b
+        vecs[dst] = vecs[src]
+        ok[src] = ok[dst] = 1
+    slot = rng.permutation(nlist * cap_b).astype(np.int32)
+    tin = _t(q, cent, vecs, slot, ok)
+    _, got, items = _bucket_major(*tin, nprobe, k, group)
+    jp = jfr.ivf_topk_pallas(*[jnp.asarray(a) for a in (q, cent, vecs, slot,
+                                                         ok)],
+                             nprobe, k, interpret=True)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(jp[1]))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(jp[0]))
+    want = ops.ivf_topk(*tin, nprobe, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # each bucket is read once per group of queries that probe it
+    counts = np.bincount(probes.ravel(), minlength=nlist)
+    assert items == int((-(-counts // group)).sum()) < nq * nprobe
+    # the planted pairs that still tie come out lower probe rank first
+    hits = 0
+    for i in range(nq):
+        src = probes[i, 0] * cap_b + i % cap_b
+        dst = probes[i, 2] * cap_b + (i + 5) % cap_b
+        row = got[1][i].tolist()
+        a, b = slot[src], slot[dst]
+        if (vecs[src] == vecs[dst]).all() and a in row and b in row:
+            assert row.index(a) < row.index(b)
+            assert got[0][i, row.index(a)] == got[0][i, row.index(b)]
+            hits += 1
+    assert hits or k < 40
+
+
 # -- dispatch and the CUDA wrappers' input checks -------------------------------
 
 
@@ -436,6 +534,120 @@ def test_ivf_topk_kernel_tie_order(cuda_device, nq, nlist, cap_b, d, nprobe,
                                           _unit(rng, nlist, d), vecs, slot,
                                           ok)]
     want, got = ref.ivf_topk(*args, nprobe, k), ops.ivf_topk(*args, nprobe, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _ivf_planted(rng, nq, nlist, cap_b, d, nprobe, p_ok=0.8):
+    """Exact grid rows in clustered-free buckets, each query's rank-0 row
+    copied into its rank-2 bucket (a tie across two probed buckets)."""
+    q = _grid(rng, nq, d)
+    cent = _unit(rng, nlist, d)
+    _, slot, ok = _packed(rng, nlist, cap_b, d, p_ok)
+    vecs = _grid(rng, nlist * cap_b, d)
+    probes = ref.probe(*_t(q, cent), nprobe).numpy()
+    for i in range(nq):
+        src = probes[i, 0] * cap_b + i % cap_b
+        dst = probes[i, 2] * cap_b + (i + 5) % cap_b
+        vecs[dst] = vecs[src]
+        ok[src] = ok[dst] = 1
+    slot = rng.permutation(nlist * cap_b).astype(np.int32)
+    return q, cent, vecs, slot, ok
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nq,nlist,cap_b,d,nprobe,k", [
+    (64, 16, 512, 64, 8, 16),      # nlist 16, nprobe 8: buckets shared
+    (64, 16, 512, 384, 4, 128),    # nprobe 4: the fused_ivf spec's
+    (70, 8, 100, 24, 5, 7),        # cap_b % 16 != 0: ok bytes one by one
+    (9, 4, 40, 772, 3, 50),        # rows past DC columns: three stages
+])
+def test_ivf_topk_entry_point_lists_equal_bucket_major_model(
+        cuda_device, nq, nlist, cap_b, d, nprobe, k):
+    """The entry point's [nq, nprobe, k] lists (scores, slot ids, orders)
+    and their merge equal the bucket-major model's exactly on exact scores,
+    ties across two probed buckets included, and the wrapper equals the
+    plain version."""
+    rng = np.random.default_rng(nq * d + k)
+    tin = _t(*_ivf_planted(rng, nq, nlist, cap_b, d, nprobe))
+    (ms, mi, mp), want, _ = _bucket_major(*tin, nprobe, k, tfr.IVF_QUERIES)
+    q, cent, vecs, slot, ok = (a.to(cuda_device) for a in tin)
+    lib, fn = _build.entry("ivf_topk", 12, 7)
+    probes = torch.empty((nq, nprobe), dtype=torch.int32, device=cuda_device)
+    cscores = (q @ cent.T).contiguous()
+    scratch = torch.empty(tfr._scratch_ints(lib, nq, nprobe, nlist),
+                          dtype=torch.int32, device=cuda_device)
+    out = [torch.empty((nq, nprobe, k), dtype=dt, device=cuda_device)
+           for dt in (torch.float32, torch.int32, torch.int32)]
+    top = [torch.empty((nq, k), dtype=dt, device=cuda_device)
+           for dt in (torch.float32, torch.int32)]
+    _build.check(lib, "ivf_topk", fn(
+        q.data_ptr(), vecs.data_ptr(), slot.data_ptr(),
+        ok.view(torch.uint8).data_ptr(), cscores.data_ptr(),
+        probes.data_ptr(), scratch.data_ptr(), *(t.data_ptr() for t in out),
+        *(t.data_ptr() for t in top), nq, d, nlist, cap_b, nprobe, k,
+        torch.cuda.get_device_properties(cuda_device).multi_processor_count,
+        torch.cuda.current_stream().cuda_stream))
+    torch.cuda.synchronize()
+    assert torch.equal(probes, ref.probe(q, cent, nprobe))
+    for got, model in zip(out, (ms, mi, mp)):
+        assert torch.equal(got.cpu(), model)
+    assert torch.equal(top[0].cpu(), want[0])
+    assert torch.equal(top[1].cpu(), want[1])
+    plain = ref.ivf_topk(q, cent, vecs, slot, ok, nprobe, k)
+    got = ops.ivf_topk(q, cent, vecs, slot, ok, nprobe, k)
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nlist,cap_b,nprobe", [(16, 4096, 8),
+                                                (1024, 128, 16)])
+def test_ivf_topk_kernel_shared_and_deployment_shapes(cuda_device, nlist,
+                                                      cap_b, nprobe):
+    """64 unit queries near their buckets at d 384, k 16: every bucket
+    shared by half the batch (IVF16, nprobe 8), and the deployment's
+    IVF1024 at nprobe 16 with smaller buckets; within the parity rule of
+    the plain version."""
+    rng = np.random.default_rng(nlist + cap_b)
+    cent = _unit(rng, nlist, 384)
+    vecs, slot, ok = _packed(rng, nlist, cap_b, 384, 0.3)
+    q = cent[rng.integers(0, nlist, 64)] + 0.5 * _unit(rng, 64, 384)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    args = [a.to(cuda_device) for a in _t(q, cent, vecs, slot, ok)]
+    got = compare_topk(*ref.ivf_topk(*args, nprobe, 16),
+                       *ops.ivf_topk(*args, nprobe, 16))
+    assert got["violations"] == 0, got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nlist,nprobe", [(64, 9), (1500, 16), (40, 40),
+                                          (300, 100)])
+def test_ivf_topk_kernel_probe_ties(cuda_device, nlist, nprobe):
+    """Centroids repeated in pairs and exact grid queries, so that centroid
+    scores tie, also across the nprobe-th place: the entry point's probe
+    selection keeps the lower list first, as the plain stable sort does
+    (one pass and several of 1,024 columns; nprobe past 32 without the
+    sampled threshold)."""
+    rng = np.random.default_rng(nlist + nprobe)
+    q = _grid(rng, 20, 16)
+    cent = _grid(rng, nlist, 16)
+    cent[1::2] = cent[0::2]
+    _, slot, ok = _packed(rng, nlist, 8, 16, 0.8)
+    vecs = _grid(rng, nlist * 8, 16)             # exact bucket scores too
+    args = [a.to(cuda_device) for a in _t(q, cent, vecs, slot, ok)]
+    want, got = ref.ivf_topk(*args, nprobe, 16), ops.ivf_topk(*args, nprobe,
+                                                             16)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_ivf_topk_kernel_takes_wide_probes(cuda_device):
+    """Past 128 probes the wrapper hands the entry point the plain probe
+    instead of the centroid scores: the same result as the plain version,
+    ties across probed buckets included."""
+    rng = np.random.default_rng(150)
+    tin = _t(*_ivf_planted(rng, 12, 200, 16, 16, 150))
+    args = [a.to(cuda_device) for a in tin]
+    want, got = ref.ivf_topk(*args, 150, 40), ops.ivf_topk(*args, 150, 40)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 

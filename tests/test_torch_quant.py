@@ -255,6 +255,29 @@ def test_sq8_limb_topk_matches_jax(nq, N, d, k, p_live):
 
 
 
+@pytest.mark.parametrize("d", [768, 1024])
+def test_sq8_limb_scores_wide_match_pallas(d):
+    """At the widths the card streams the limbs (Fig. 11's 768 and 1,024):
+    the limb route's scores within 1e-5 of the TPU kernel in interpret
+    mode, and within the split's bound, 127 d 2^-34 for unit rows (7.6e-6
+    at 1,024), of the exact product."""
+    rng = np.random.default_rng(200 + d)
+    q = _unit(rng, 5, d)
+    codes, scale = _sq8(rng, 260, d)
+    tq, tc, ts = _t(q, codes, scale)
+    qs = tq * ts[None, :]
+    lw = tfr.sq8_limbs(qs)
+    got = tfr.sq8_limb_scores(*lw, tc)
+    exact = qs.double() @ tc.double().T
+    slack = exact.abs() * 2.0 ** -22 + 1e-30     # rounding of 3 fp32 adds
+    assert ((got.double() - exact).abs()
+            <= _split_bound(qs, tc, lw) + slack).all()
+    assert float(_split_bound(qs, tc, lw).max()) <= 127 * d * 2.0 ** -34
+    want = quant_score_pallas(*_j(q, codes, scale), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
 # -- pq_topk --------------------------------------------------------------------
 
 
@@ -410,6 +433,72 @@ def test_pq_group_lists_merge_matches_jax(group):
             assert lo < hi and got[0][i, lo] == got[0][i, hi]
 
 
+@pytest.mark.parametrize("codes_dtype", ["int32", "uint8"])
+def test_pq_codes_narrow_to_uint8(codes_dtype):
+    """The card's wrapper narrows the reference's int32 codes to uint8
+    (``narrow_codes``, device-agnostic): the plain version gives the same
+    ids and scores on both, equal to the JAX kernel's; a code outside
+    [0, 256) raises."""
+    rng = np.random.default_rng(31)
+    nq, nlist, cap_b, d, m, nprobe, k = 4, 8, 32, 32, 8, 3, 9
+    q, cent = _unit(rng, nq, d), _unit(rng, nlist, d)
+    codebook = (0.3 * rng.standard_normal((m, 256, d // m))).astype(
+        np.float32)
+    codes, slot, ok = _pq_packed(rng, nlist, cap_b, m, 0.7)
+    codes[0, 0], codes[1, 1] = 0, 255              # both ends of the range
+    tin = _t(q, codebook, cent, codes, slot, ok)
+    narrow = tfr.narrow_codes(tin[3])
+    assert narrow.dtype == torch.uint8
+    assert torch.equal(narrow.to(torch.int32), tin[3])
+    if codes_dtype == "uint8":
+        tin[3] = narrow
+    got = ops.pq_topk(*tin, nprobe, k)
+    want = ops.pq_topk(*tin[:3], torch.from_numpy(codes), *tin[4:], nprobe, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    _assert_parity(jfr.pq_topk_pallas(*_j(q, codebook, cent, codes, slot,
+                                          ok), nprobe, k, interpret=True), got)
+    for bad in (-1, 256):
+        wrong = tin[3].to(torch.int32).clone()
+        wrong[5, 2] = bad
+        with pytest.raises(ValueError, match=r"\[0, 256\)"):
+            tfr.narrow_codes(wrong)
+
+
+@pytest.mark.parametrize("k", [1, 7, 16])
+def test_op_rung_selects_by_key_like_off(k):
+    """The flat + SQ8 DB's ``op`` rung (``quant_score``, then one
+    ``torch.topk`` over (score, row) keys) equals the ``off`` rung (the
+    plain stable sort) on one DB state, ids and scores, with rows repeated
+    so that equal scores tie, tombstones and fresh rows included."""
+    from repro_torch.core.interfaces import Chunk
+    from repro_torch.core.vectordb import DBConfig, TorchVectorDB
+    from repro_torch.kernels import topk_search as tts
+
+    rng = np.random.default_rng(50 + k)
+    base = _unit(rng, 150, 32)
+    rows = np.concatenate([base, base[::-1], base[:60]])
+    db = TorchVectorDB(DBConfig(index_type="flat", quant="sq8", dim=32,
+                                capacity=512, flat_capacity=128,
+                                use_kernel="op"), device="cpu")
+    db.insert(rows, [Chunk(-1, i // 3, "") for i in range(len(rows))])
+    db.build_index()
+    db.insert(base[:40], [Chunk(-1, 200 + i, "") for i in range(40)])
+    for doc in (3, 17, 40):
+        db.remove(doc)
+    q = torch.from_numpy(np.concatenate([base[:5], _unit(rng, 4, 32)]))
+    off = db.search_arrays(q, k, rung="off")
+    op = db.search_arrays(q, k, rung="op")
+    assert torch.equal(op[0], off[0]) and torch.equal(op[1], off[1])
+    assert (op[1] >= 0).all()
+    # the key selection alone, on a score matrix full of ties
+    s = torch.from_numpy(rng.integers(-2, 3, (6, 500)).astype(np.float32))
+    s[:, :3] = -0.0
+    live = torch.from_numpy(rng.random(500) < 0.7)
+    for kk in (k, 499, 600):
+        a, b = ref.masked_topk(s, live, kk), tts.select_by_row(s, live, kk)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 # -- on the card ----------------------------------------------------------------
 
 
@@ -511,7 +600,8 @@ def _sq8_lists(cuda_device, q, codes, scale, live, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [24, 48, 384])   # cp.async, TMA, TMA
+# cp.async, TMA, TMA with the limbs resident; TMA with the limbs streamed
+@pytest.mark.parametrize("d", [24, 48, 384, 768, 1024])
 @pytest.mark.parametrize("k", [1, 16, 128])
 def test_sq8_topk_entry_point_equals_limb_model(cuda_device, d, k):
     """Each of the entry point's lists (block b: tiles b, b + G, ...) is the
@@ -543,11 +633,15 @@ def test_sq8_topk_entry_point_equals_limb_model(cuda_device, d, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,k", [(256, 16), (512, 16), (512, 67)])
+@pytest.mark.parametrize("d,k", [(256, 16), (512, 16), (512, 67), (516, 16),
+                                 (768, 1), (768, 16), (768, 128), (1024, 1),
+                                 (1024, 16), (1024, 128), (2052, 16),
+                                 (4096, 128)])
 def test_sq8_topk_kernel_wide_rows_equal_limb_model(cuda_device, d, k):
-    """Rows of two and four 128-column chunks (the kernel's other
-    instantiations), up to the widest the shared memory takes: the limb
-    model's top-k bit for bit; one past it raises."""
+    """Rows of two chunks (resident limbs) and of four and more (the limbs
+    streamed with the codes; 516 and 2052 by cp.async, the others by TMA;
+    past 512 the converter, past 2,064 rounding as the model rounds): the
+    limb model's top-k bit for bit at every width."""
     rng = np.random.default_rng(d + k)
     q = _unit(rng, 10, d)
     codes, scale = _sq8(rng, 5000, d)
@@ -558,9 +652,24 @@ def test_sq8_topk_kernel_wide_rows_equal_limb_model(cuda_device, d, k):
     want = ref.masked_topk(tfr.sq8_limb_scores(
         *tfr.sq8_limbs(q * scale[None, :]), codes), live, k)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    if (d, k) == (512, 67):
-        with pytest.raises(ValueError, match="shared"):
-            ops.sq8_topk(*args, 68)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [24, 48, 384, 512, 516, 768, 1024, 2052])
+@pytest.mark.parametrize("nq,n", [(70, 3001), (64, 4096), (1, 5)])
+def test_quant_score_kernel_equals_limb_model(cuda_device, d, nq, n):
+    """Every score bit for bit the limb model's, on both load paths (24,
+    516 and 2052 by cp.async), with the limbs resident (d <= 384) and
+    streamed (512: the integer-add conversion), across two query blocks, a ragged last tile and an odd N (the
+    scalar stores), and within 1e-5 of the plain version."""
+    rng = np.random.default_rng(d * 7 + n)
+    q = _unit(rng, nq, d)
+    args = [a.to(cuda_device) for a in _t(q, *_sq8(rng, n, d))]
+    got = ops.quant_score(*args)
+    q, codes, scale = args
+    want = tfr.sq8_limb_scores(*tfr.sq8_limbs(q * scale[None, :]), codes)
+    assert got.shape == (nq, n) and torch.equal(got, want)
+    assert float((got - ref.quant_score(*args)).abs().max()) <= 1e-5
 
 
 @pytest.mark.cuda
@@ -593,18 +702,54 @@ def test_sq8_topk_kernel_ties_across_a_blocks_tiles(cuda_device, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [768, 1024])
+@pytest.mark.parametrize("k", [1, 16, 128])
+def test_sq8_topk_kernel_wide_ties_across_a_blocks_tiles(cuda_device, d, k):
+    """The tie check across the tiles one block folds, with the limbs
+    streamed: each query's best row planted in three such tiles on exact
+    scores; ids and scores equal the plain version's."""
+    from repro_torch.kernels import _build
+
+    rng = np.random.default_rng(400 + d + k)
+    tile = _build.tile_rows("sq8_topk")
+    g = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    n, nq, b = 3 * g * tile + 77, 70, g // 2
+    codes = rng.integers(-3, 4, (n, d)).astype(np.int8)
+    q = _grid(rng, nq, d)
+    live = rng.random(n) < 0.9
+    j = np.arange(nq)
+    planted = np.stack([b * tile + j % tile,
+                        (b + g) * tile + tile - 1 - j % tile,
+                        (b + 2 * g) * tile + (j + 10) % tile], 1)
+    for col in range(3):
+        codes[planted[:, col]] = 3 * np.sign(q).astype(np.int8)
+    live[planted] = True
+    scale = np.full(d, 0.5, np.float32)
+    args = [a.to(cuda_device) for a in _t(q, codes, scale, live)]
+    want, got = ref.sq8_topk(*args, k), ops.sq8_topk(*args, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
 def test_pq_topk_kernel_takes_uint8_codes(cuda_device):
-    """On the card the mirror's codes are uint8: int32 codes raise."""
+    """On the card the mirror's uint8 codes are read as they are, and the
+    reference's int32 codes are narrowed to them: the same ids and scores;
+    an int32 code outside [0, 256) raises."""
     rng = np.random.default_rng(8)
     q, cent = _unit(rng, 3, 16), _unit(rng, 4, 16)
     codebook = (0.3 * rng.standard_normal((4, 256, 4))).astype(np.float32)
     codes, slot, ok = _pq_packed(rng, 4, 32, 4, 0.5)
     args = [a.to(cuda_device) for a in _t(q, codebook, cent, codes, slot, ok)]
+    from_int32 = ops.pq_topk(*args, 2, 5)
+    bad = args[3].clone()
+    bad[7, 1] = 256
     with pytest.raises(ValueError, match="packed_codes"):
-        ops.pq_topk(*args, 2, 5)
+        ops.pq_topk(*args[:3], bad, *args[4:], 2, 5)
     args[3] = args[3].to(torch.uint8)
     got, want = ops.pq_topk(*args, 2, 5), ref.pq_topk(*args, 2, 5)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(from_int32[0], got[0])
+    assert torch.equal(from_int32[1], got[1])
 
 
 @pytest.mark.cuda
