@@ -60,7 +60,21 @@ Phases, each of which raises on failure and prints its wall seconds:
    ``model_llama3_8b.json`` (transformer embedder, fused IVF DB,
    cross-encoder, ModelLLM), which must answer every request with
    ``flash_attention`` launched once per layer of every prefill, embedder
-   and cross-encoder batch.
+   and cross-encoder batch;
+9. serving: every registered scenario but ``shard_scale`` (the sharded DB
+   is not ported) simulated at its ``golden_variant`` size on the fused DB
+   (``ivf_topk`` and the freshness ``topk_search``) on the card and on the
+   CPU: timing fields, scale events, knob timeline and fault events equal,
+   every request's ids equal by the near-tie rule and its answer equal
+   where they are, quality within SIM_QUALITY_TOL; ``steady``,
+   ``update_storm`` and ``replica_failure`` served live on the card (every
+   request answered but the injected kills'); ``model_llama3_8b.json``
+   served closed-loop at concurrency 8 (its rate R), open-loop Poisson at
+   0.5 R and 0.9 R, and elastic at 0.9 R with up to 2 replicas and a
+   Chrome trace under ``build/`` (no failed request, the kernels launched,
+   the elastic run's peak memory at most the closed run's + 2 GiB); and
+   ``--stage-pipeline`` on ``fused_ivf.json``, whose pipelined outputs
+   must equal the lock-step ones.
 
 The last lines are one JSON object on the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a card, or run
@@ -1605,6 +1619,336 @@ def phase_model_full(torch, ops):
     return launches["flash_attention"]
 
 
+
+# the serving phase: scenario sims card vs CPU on the fused DB, live
+# scenarios, the full-width model under closed/open/elastic load, and the
+# pipelined executor
+SCENARIO_DB = "torch_fused"          # ivf_topk + the freshness topk_search
+LIVE_SCENARIOS = ("steady", "update_storm", "replica_failure")
+# quality of a sim on the card against the CPU: equal where every request's
+# retrieval agrees; each request whose ids differ inside a near tie may move
+# a mean quality metric by at most 1/n_queries
+SIM_QUALITY_TOL = 1e-9
+MODEL_REQUESTS = 48
+# the model runs' latency SLO: an interactive answer of 16 tokens from an
+# 8B generator (TTFT ~0.11 s, 15 decode steps of 40-70 ms at batch 8)
+MODEL_SLO_MS = 2000.0
+ELASTIC_MEM_SLACK_GIB = 2.0          # a second KV cache is ~0.52 GiB
+
+
+def fused_scenario(name):
+    """The registered scenario at ``golden_variant`` scale, on the fused
+    DB (its other pipeline overrides, such as replicas, kept)."""
+    from repro_torch.scenarios import golden_variant
+
+    spec = golden_variant(name)
+    pipe = json.loads(json.dumps(spec.pipeline))
+    pipe.setdefault("vectordb", {})["component"] = SCENARIO_DB
+    return spec.replace(pipeline=pipe)
+
+
+class RetrievalLog:
+    """Records every retrieval stage's per-request ``(ids, scores)`` in
+    call order while active (the traces keep the ids, not the scores the
+    near-tie rule needs)."""
+
+    def __init__(self):
+        self.rows = []
+
+    def __enter__(self):
+        from repro_torch.core.stages import RetrieveStage
+
+        self._orig = orig = RetrieveStage._apply
+        rows = self.rows
+
+        def apply(stage, batch):
+            orig(stage, batch)
+            rows.extend((r.chunk_ids.copy(), r.scores.copy())
+                        for r in batch.results)
+
+        RetrieveStage._apply = apply
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.stages import RetrieveStage
+
+        RetrieveStage._apply = self._orig
+        return False
+
+
+def same_outputs(what, want_rows, want_answers, rows, answers):
+    """Hold one run's per-request retrieval and answers against another's:
+    ids by the near-tie rule of ``kernels.parity``, answers equal wherever
+    the ids are. Returns the rows whose ids differ."""
+    import numpy as np
+
+    from repro_torch.kernels.parity import compare_topk
+
+    if len(rows) != len(want_rows) or len(answers) != len(want_answers):
+        raise AssertionError(f"{what}: {len(rows)} retrievals and "
+                             f"{len(answers)} answers, want "
+                             f"{len(want_rows)} and {len(want_answers)}")
+    ids, want_ids = (np.stack([r[0] for r in x]) for x in (rows, want_rows))
+    res = compare_topk(np.stack([r[1] for r in want_rows]), want_ids,
+                       np.stack([r[1] for r in rows]), ids)
+    differ = [i for i in range(len(ids))
+              if not np.array_equal(ids[i], want_ids[i])]
+    bad = [i for i in range(len(answers)) if i not in differ
+           and answers[i] != want_answers[i]]
+    if res["violations"] or bad:
+        raise AssertionError(f"{what}: {res}, answers differ at {bad}")
+    return differ
+
+
+def sim_parity(torch, ops, device, ref_device="cpu"):
+    """Every scenario but shard_scale simulated on ``device`` and on
+    ``ref_device``: the timing fields and event streams equal, requests
+    equal by the near-tie rule, quality within its tolerance."""
+    from repro_torch.scenarios import ScenarioRunner, scenario_names
+
+    out = {}
+    for name in scenario_names():
+        if name == "shard_scale":    # the sharded DB is not ported
+            continue
+        spec = fused_scenario(name)
+        runs = {}
+        for dev in (device, ref_device):
+            ops.reset_launch_counts()
+            runner = ScenarioRunner(spec, device=dev)
+            with RetrievalLog() as log:
+                report = runner.simulate()
+            runs[dev] = (report, log.rows,
+                         [t.answer for t in runner.pipeline.traces],
+                         ops.launch_counts())
+        (got, rows, answers, launches), (want, want_rows, want_answers, _) = \
+            runs[device], runs[ref_device]
+        quality_keys = ("quality_weight_mean", "quality_goodput_qps")
+        for key in ("scaling_events", "knob_timeline", "fault_events",
+                    "stage_report", "trace_decomposition"):
+            if getattr(got, key) != getattr(want, key):
+                raise AssertionError(f"sim {name}: {key} differs on "
+                                     f"{device}")
+        timing = {k: v for k, v in want.summary.items()
+                  if k not in quality_keys}
+        if {k: got.summary.get(k) for k in timing} != timing:
+            raise AssertionError(f"sim {name}: summary timing differs: "
+                                 f"{got.summary} vs {want.summary}")
+        differ = same_outputs(f"sim {name}", want_rows, want_answers, rows,
+                              answers)
+        n = max(len(answers), 1)
+        tol = SIM_QUALITY_TOL + len(differ) / n
+        worst = max([abs(got.quality[k] - v)
+                     for k, v in want.quality.items()]
+                    + [abs(got.summary[k] - want.summary[k])
+                       for k in quality_keys if k in want.summary])
+        if set(got.quality) != set(want.quality) or not worst <= tol:
+            raise AssertionError(f"sim {name}: quality {got.quality} vs "
+                                 f"{want.quality} (tolerance {tol})")
+        if device != "cpu" and launches["ivf_topk"] == 0:
+            raise AssertionError(f"sim {name} on {device}: launches "
+                                 f"{launches}")
+        out[name] = launches
+        say(f"sim {name} ({len(answers)} queries, "
+            f"{int(want.summary['n_mutations'])} mutations, "
+            f"{len(want.scaling_events)} scale events): {device} = "
+            f"{ref_device} on timing and events; {len(differ)} requests' "
+            f"ids differ inside near ties; quality max|d| {worst:.3g} "
+            f"(tolerance {tol:.3g}); launches {launches}")
+    return out
+
+
+def live_scenarios(torch, ops, device):
+    """``ScenarioRunner.serve()`` of the live scenarios on the fused DB:
+    every request answered, except the injected kills' in
+    replica_failure; the kernels launched."""
+    from repro_torch.scenarios import ScenarioRunner
+    from repro_torch.scenarios import runner as scenario_runner
+    from repro_torch.serving.elastic import ReplicaKilled
+    from repro_torch.workload.corpus import CorpusConfig, SyntheticCorpus
+    from repro_torch.workload.generator import WorkloadGenerator
+
+    harness = scenario_runner.ServingHarness
+    for name in LIVE_SCENARIOS:
+        spec = fused_scenario(name)
+        n_stream = len(list(WorkloadGenerator(
+            spec.workload_config(), SyntheticCorpus(CorpusConfig(
+                n_docs=spec.n_docs, seed=spec.seed))).requests()))
+        errors = []
+        orig = harness._finish
+
+        def finish(self, sub, ok, err=None, _orig=orig):
+            if not ok:
+                errors.append(err)
+            return _orig(self, sub, ok, err)
+
+        harness._finish = finish
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            report = ScenarioRunner(spec, device=device).serve()
+        finally:
+            harness._finish = orig
+        launches = ops.launch_counts()
+        s = report.summary
+        injected = sum(e["action"] == "inject" for e in report.fault_events)
+        allowed = name == "replica_failure"
+        if (s["n_requests"] + s["n_failed"] != n_stream
+                or (errors and not allowed)
+                or not all(isinstance(e, ReplicaKilled) for e in errors)
+                or launches["ivf_topk"] == 0
+                or (s.get("n_mutations", 0) and launches["topk_search"] == 0)):
+            raise AssertionError(f"live {name}: {s}, errors {errors[:3]}, "
+                                 f"launches {launches}")
+        say(f"live {name} ({time.perf_counter() - t0:.1f} s): "
+            f"{int(s['n_queries'])} queries, "
+            f"{int(s.get('n_mutations', 0))} mutations, "
+            f"{int(s['n_failed'])} failed (by {injected} injected kills), "
+            f"latency p50/p95/p99 {s['p50_latency_ms']:.2f} / "
+            f"{s['p95_latency_ms']:.2f} / {s['p99_latency_ms']:.2f} ms, "
+            f"SLO {spec.slo_ms:.0f} ms attainment "
+            f"{s['slo_attainment']:.3f}, goodput {s['goodput_qps']:.2f} QPS "
+            f"(quality-aware {s['quality_goodput_qps']:.2f}); "
+            f"{len(report.scaling_events)} scale events; launches "
+            f"{launches}")
+
+
+def model_under_load(torch, ops, device, spec_path, n_requests, trace_path):
+    """The model spec served closed-loop at concurrency 8 (its rate R),
+    open-loop Poisson at 0.5 R and 0.9 R, and elastic at 0.9 R with up to
+    2 replicas and a trace; returns each run's document."""
+    import gc
+
+    from repro_torch.launch import serve
+    from repro_torch.obs.export import validate_chrome_trace
+
+    base = ["--config", str(spec_path), "--device", device, "--docs", "256",
+            "--requests", str(n_requests), "--batch", "8", "--slo-ms",
+            str(MODEL_SLO_MS)]
+    runs = [("closed", ["--mode", "closed", "--concurrency", "8"])]
+    docs = {}
+    while runs:
+        name, flags = runs.pop(0)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        doc = serve.main(base + flags)
+        wall = time.perf_counter() - t0
+        doc["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        launches = ops.launch_counts()
+        s, gen = doc["summary"], doc["gen"]
+        if (s["n_failed"] or sum(doc["ops"].values()) != n_requests
+                or min(launches["flash_attention"], launches["ivf_topk"],
+                       launches["topk_search"]) == 0):
+            raise AssertionError(f"model {name}: {s}, ops {doc['ops']}, "
+                                 f"launches {launches}")
+        docs[name] = doc
+        say(f"model {name} ({' '.join(flags)}; {wall:.1f} s): "
+            f"{int(s['n_queries'])} queries at {s['achieved_qps']:.3f} QPS"
+            + (f" (offered {s['offered_qps']:.3f})" if "offered_qps" in s
+               else "")
+            + f", latency "
+            f"p50/p95/p99 {s['p50_latency_ms']:.1f} / "
+            f"{s['p95_latency_ms']:.1f} / {s['p99_latency_ms']:.1f} ms, "
+            f"TTFT p50 {1e3 * gen['ttft_p50_s']:.2f} ms, TPOT p50 "
+            f"{1e3 * gen['tpot_p50_s']:.2f} ms, goodput "
+            f"{s.get('goodput_qps', 0.0):.3f} QPS (SLO "
+            f"{s.get('slo_ms', 0.0):.0f} ms), "
+            + (f"mean batch {s['mean_batch_size']:.2f}, "
+               if "mean_batch_size" in s else "")
+            + f"{len(doc.get('scaling_events', []))} scale events "
+            f"{doc.get('scaling_events', [])}; max_memory_allocated "
+            f"{doc['peak_gib']:.2f} GiB; launches {launches}")
+        if name == "closed":
+            rate = s["achieved_qps"]
+            for share in (0.5, 0.9):
+                runs.append((f"open {share} R",
+                             ["--mode", "open", "--arrival", "poisson",
+                              "--target-qps", f"{share * rate:.4f}"]))
+            runs.append(("elastic 0.9 R",
+                         ["--mode", "open", "--elastic", "--max-replicas",
+                          "2", "--target-qps", f"{0.9 * rate:.4f}",
+                          "--trace-out", str(trace_path)]))
+    peak = docs["elastic 0.9 R"]["peak_gib"]
+    if peak > docs["closed"]["peak_gib"] + ELASTIC_MEM_SLACK_GIB:
+        raise AssertionError(f"elastic peak {peak:.2f} GiB exceeds the "
+                             f"closed run's {docs['closed']['peak_gib']:.2f}"
+                             f" + {ELASTIC_MEM_SLACK_GIB} GiB")
+    with open(trace_path) as f:
+        trace = json.load(f)
+    errs = validate_chrome_trace(trace)
+    if errs:
+        raise AssertionError(f"trace {trace_path}: {errs[:5]}")
+    say(f"elastic trace: {len(trace['traceEvents'])} events, valid; peak "
+        f"{peak:.2f} GiB against the closed run's "
+        f"{docs['closed']['peak_gib']:.2f} GiB")
+    return docs
+
+
+def stage_pipeline(torch, ops, device, spec_path):
+    """``--stage-pipeline`` on the fused IVF spec (per-stage occupancy),
+    then the same query stream lock-step and pipelined on one indexed
+    pipeline: the same outputs."""
+    from repro_torch.core.registry import build
+    from repro_torch.core.spec import PipelineSpec
+    from repro_torch.launch import serve
+    from repro_torch.serving.staged import StagedExecutor
+    from repro_torch.workload.corpus import CorpusConfig, SyntheticCorpus
+    from repro_torch.workload.generator import (WorkloadConfig,
+                                                WorkloadGenerator)
+
+    ops.reset_launch_counts()
+    doc = serve.main(["--config", str(spec_path), "--device", device,
+                      "--mode", "sync", "--stage-pipeline", "--docs", "256",
+                      "--requests", "64"])
+    rows = doc["stage_pipeline"]["report"]
+    n = rows[0]["n_items"]
+    if (n == 0 or any(r["n_items"] != n or not 0 < r["occupancy"] <= 1
+                      for r in rows)
+            or ops.launch_counts()["ivf_topk"] == 0):
+        raise AssertionError(f"stage pipeline: {rows}")
+    pipe = build(PipelineSpec.from_file(spec_path), device=device)
+    corpus = SyntheticCorpus(CorpusConfig(n_docs=256))
+    pipe.index_documents(corpus.all_documents())
+    reqs = [r for r in WorkloadGenerator(WorkloadConfig(
+        query_frac=1.0, update_frac=0.0, n_requests=64), corpus).requests()]
+    qs = [r.question for r in reqs]
+    with RetrievalLog() as want_log:
+        want = [t.answer for lo in range(0, len(qs), 8)
+                for t in pipe.query(qs[lo:lo + 8])]
+    with RetrievalLog() as log:
+        got = [t.answer for t in StagedExecutor(pipe, default_batch=8)
+               .run(qs).traces]
+    differ = same_outputs("staged vs lock-step", want_log.rows, want,
+                          log.rows, got)
+    say(f"stage pipeline ({spec_path.name}, {int(n)} queries): occupancy "
+        + ", ".join(f"{r['stage']} {r['occupancy']:.3f} (busy "
+                    f"{r['busy_s']:.3f} s, mean batch {r['mean_batch']:.1f})"
+                    for r in rows)
+        + f"; {len(qs)} queries staged = lock-step ({len(differ)} requests' "
+          f"ids differ inside near ties)")
+
+
+def phase_serving(torch, ops):
+    """The serving layer on the card (see the module docstring, phase 9)."""
+    specs = SRC / "repro_torch" / "specs"
+    t0 = time.perf_counter()
+    sim_parity(torch, ops, DEVICE)
+    say(f"serving: sims {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    live_scenarios(torch, ops, DEVICE)
+    say(f"serving: live scenarios {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    model_under_load(torch, ops, DEVICE, specs / "model_llama3_8b.json",
+                     MODEL_REQUESTS, ROOT / "build" / "serving_trace.json")
+    say(f"serving: model under load {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    stage_pipeline(torch, ops, DEVICE, specs / "fused_ivf.json")
+    say(f"serving: stage pipeline {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py runs from the root of a checkout "
@@ -1669,6 +2013,10 @@ def main() -> int:
     t0 = time.perf_counter()
     flash_launches = phase_model_full(torch, ops)
     timings["model full width"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_serving(torch, ops)
+    timings["serving"] = time.perf_counter() - t0
     # ivf_topk by kernel, once every timing is taken (the profiler's
     # tracing stays on the host's launch path after it ends)
     torch.cuda.empty_cache()

@@ -46,8 +46,10 @@ def render_tokens(ids: Sequence[int]) -> str:
 class GenStats:
     """Per-request generation metrics, safe under concurrent recording.
 
-    Only *real* requests are recorded: batch-padding rows never reach
-    ``record``."""
+    Replicated generate-stage workers (``ElasticExecutor`` pools) share one
+    ``GenStats``: every mutation happens under the internal lock, so no
+    sample is lost when two replicas record at once.  Only *real* requests
+    are recorded: batch-padding rows never reach ``record``."""
 
     ttft_s: List[float] = field(default_factory=list)   # guarded-by: _lock
     tpot_s: List[float] = field(default_factory=list)   # guarded-by: _lock
@@ -63,6 +65,17 @@ class GenStats:
             self.tpot_s.append(float(tpot_s))
             self.tokens_out += int(tokens)
             self.n_requests += 1
+
+    def merge(self, other: "GenStats") -> None:
+        """Fold another stats object in (per-engine stats at summary time)."""
+        with other._lock:
+            ttft, tpot = list(other.ttft_s), list(other.tpot_s)
+            tokens, n = other.tokens_out, other.n_requests
+        with self._lock:
+            self.ttft_s.extend(ttft)
+            self.tpot_s.extend(tpot)
+            self.tokens_out += tokens
+            self.n_requests += n
 
     def summary(self) -> Dict[str, float]:
         """The reference's summary keys, plus ``tpot_p50_s``."""
@@ -83,7 +96,9 @@ class GenStats:
 
 def _sync(device: torch.device) -> None:
     """Wait for the device's queued work (the reference's
-    ``block_until_ready``) before a clock is read."""
+    ``block_until_ready``) before a clock is read. It waits for the whole
+    device, so under several generation replicas a replica's TTFT and TPOT
+    include the work the others queued meanwhile."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -92,11 +107,12 @@ class ModelLLM(BaseLLM):
     """Batched prefill + KV-cache greedy decode over a dense architecture.
 
     ``model`` replaces the seeded draw (``repro_torch.convert`` passes the
-    reference's weights this way); it must lie on ``device``."""
+    reference's weights this way); it must lie on ``device``. ``stats``
+    shares one ``GenStats`` between generators."""
 
     def __init__(self, cfg: ModelConfig, max_prompt: int = 256,
                  max_new: int = 16, batch_size: int = 8, seed: int = 0,
-                 device=None, model=None):
+                 device=None, model=None, stats: Optional[GenStats] = None):
         self.cfg = cfg
         family = api.get_model(cfg)
         self.device = resolve_device(device)
@@ -105,9 +121,23 @@ class ModelLLM(BaseLLM):
         require_same_device("ModelLLM", self.model, self.device)
         self.max_prompt = max_prompt
         self.max_new = max_new
+        self._max_new_cap = max_new
         self.batch_size = batch_size
         self.tok = HashTokenizer(cfg.vocab_size)
-        self.stats = GenStats()
+        self.stats = stats if stats is not None else GenStats()
+
+    def clone(self) -> "ModelLLM":
+        """A replica view for pool workers: shares the model (the same
+        weight tensors, never a second draw) and the thread-safe stats;
+        per-call state (the KV cache) is already local to a call."""
+        twin = object.__new__(ModelLLM)
+        twin.__dict__.update(self.__dict__)
+        return twin
+
+    def set_max_new(self, n: int) -> int:
+        """Autoscale knob: clamp decode length to [1, configured max]."""
+        self.max_new = max(1, min(int(n), self._max_new_cap))
+        return self.max_new
 
     def generate(self, prompts: Sequence[str],
                  contexts: Sequence[Sequence[Chunk]]) -> List[str]:

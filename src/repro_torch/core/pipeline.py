@@ -55,6 +55,7 @@ class RAGPipeline:
                                           _context={"device": device},
                                           **spec.llm.options)
 
+        self.tracer = None            # obs.attach_pipeline sets it
         self.stages = build_query_stages(
             self.embedder, self.db, self.reranker, self.llm,
             retrieve_k=spec.retrieve_k, rerank_k=spec.rerank_k,

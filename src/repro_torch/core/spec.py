@@ -9,17 +9,18 @@ pipeline is reproducible from a config file alone::
     spec = PipelineSpec.from_file("src/repro_torch/specs/fused_ivf.json")
     pipe = repro_torch.core.registry.build(spec)
 
-The JAX package's spec format also carries stage ``replicas`` and the
-``autoscale`` and ``gen`` blocks, for serving features the port does not
-have yet. ``from_dict`` reads them only at their off values (one replica,
-``enabled: false``) and raises naming the ROADMAP.md item otherwise, so a
-spec is never served by a path other than the one it asks for.
+Stage ``replicas`` and the ``autoscale`` block drive the elastic executor
+(``repro_torch.serving``). The JAX package's spec format also carries a
+``gen`` block, for the token-level engine the port does not have yet:
+``from_dict`` reads it only at its off value (``enabled: false``) and raises
+naming the ROADMAP.md item otherwise, so a spec is never served by a path
+other than the one it asks for.
 """
 from __future__ import annotations
 
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 # the component slots a pipeline is assembled from, in stage-graph order
 COMPONENT_KINDS = ("embedder", "chunker", "vectordb", "reranker", "llm")
@@ -31,8 +32,6 @@ QUERY_STAGE_NAMES = {"embedder": "query_embed", "vectordb": "retrieval",
 # keys of the JAX package's spec format for serving features not ported
 # yet -> the item of ROADMAP.md queue 1 that ports them
 NOT_PORTED = {
-    "replicas": "queue 1 item 5 (elastic executors and autoscale)",
-    "autoscale": "queue 1 item 5 (elastic executors and autoscale)",
     "gen": "queue 1 item 8 (the token-level engine)",
 }
 
@@ -49,16 +48,24 @@ class StageSpec:
 
     ``batch_size`` is the stage-level micro-batch used by the pipelined
     executor (0 means "inherit the executor default"); the lock-step path
-    ignores it.
+    ignores it.  ``replicas`` is the *initial* worker-pool width the elastic
+    executor runs for this stage (the autoscaler may grow/shrink it at
+    runtime); the single-worker ``StagedExecutor`` and the lock-step path
+    ignore it.
     """
 
     component: str
     options: Dict[str, Any] = field(default_factory=dict)
     batch_size: int = 0
+    replicas: int = 1
+
+    def __post_init__(self):
+        if self.replicas < 1:
+            raise ValueError(f"replicas must be >= 1: {self.replicas}")
 
     def to_dict(self) -> Dict[str, Any]:
         return {"component": self.component, "options": dict(self.options),
-                "batch_size": self.batch_size}
+                "batch_size": self.batch_size, "replicas": self.replicas}
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "StageSpec":
@@ -67,11 +74,51 @@ class StageSpec:
             raise ValueError(f"unknown StageSpec keys: {sorted(unknown)}")
         if "component" not in d:
             raise ValueError(f"StageSpec needs a 'component' name, got {d!r}")
-        if int(d.get("replicas", 1)) != 1:
-            raise _not_ported("replicas", d["replicas"])
         return cls(component=str(d["component"]),
                    options=dict(d.get("options", {})),
-                   batch_size=int(d.get("batch_size", 0)))
+                   batch_size=int(d.get("batch_size", 0)),
+                   replicas=int(d.get("replicas", 1)))
+
+
+@dataclass
+class AutoscaleSpec:
+    """Controller settings for elastic serving
+    (``repro_torch.serving.autoscale``).
+
+    ``ladder`` is the quality ladder the controller walks under SLO
+    pressure: ``[[nprobe, rerank_k], ...]`` from the configured quality
+    (step 0) down to the cheapest acceptable setting.  Empty means "derive a
+    default ladder from the pipeline's configured knobs".
+    """
+
+    enabled: bool = False
+    max_replicas: int = 4
+    interval_ms: float = 200.0
+    slo_ms: float = 500.0
+    max_batch: int = 64                 # batch-size autoscaling ceiling
+    ladder: List[List[int]] = field(default_factory=list)
+
+    _KEYS = ("enabled", "max_replicas", "interval_ms", "slo_ms", "max_batch",
+             "ladder")
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"enabled": self.enabled, "max_replicas": self.max_replicas,
+                "interval_ms": self.interval_ms, "slo_ms": self.slo_ms,
+                "max_batch": self.max_batch,
+                "ladder": [list(step) for step in self.ladder]}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "AutoscaleSpec":
+        unknown = set(d) - set(cls._KEYS)
+        if unknown:
+            raise ValueError(f"unknown AutoscaleSpec keys: {sorted(unknown)}")
+        return cls(enabled=bool(d.get("enabled", False)),
+                   max_replicas=int(d.get("max_replicas", 4)),
+                   interval_ms=float(d.get("interval_ms", 200.0)),
+                   slo_ms=float(d.get("slo_ms", 500.0)),
+                   max_batch=int(d.get("max_batch", 64)),
+                   ladder=[[int(x) for x in step]
+                           for step in d.get("ladder", [])])
 
 
 @dataclass
@@ -90,10 +137,16 @@ class PipelineSpec:
     llm: StageSpec = field(default_factory=lambda: StageSpec("extractive"))
     retrieve_k: int = 16          # initial retrieval depth
     rerank_k: int = 4             # context depth passed to generation
+    autoscale: AutoscaleSpec = field(default_factory=AutoscaleSpec)
 
     def stage(self, kind: str) -> StageSpec:
         assert kind in COMPONENT_KINDS, kind
         return getattr(self, kind)
+
+    def stage_replicas(self) -> Dict[str, int]:
+        """Initial elastic replica count per query-path stage name."""
+        return {name: self.stage(kind).replicas
+                for kind, name in QUERY_STAGE_NAMES.items()}
 
     def stage_batch_sizes(self) -> Dict[str, int]:
         """Per-stage micro-batch overrides keyed by query-path stage name."""
@@ -107,6 +160,7 @@ class PipelineSpec:
             **{k: self.stage(k).to_dict() for k in COMPONENT_KINDS},
             "retrieve_k": self.retrieve_k,
             "rerank_k": self.rerank_k,
+            "autoscale": self.autoscale.to_dict(),
         }
 
     @classmethod
@@ -115,9 +169,8 @@ class PipelineSpec:
                    - {"retrieve_k", "rerank_k", "autoscale", "gen"})
         if unknown:
             raise ValueError(f"unknown PipelineSpec keys: {sorted(unknown)}")
-        for key in ("autoscale", "gen"):
-            if dict(d.get(key, {})).get("enabled", False):
-                raise _not_ported(key, d[key])
+        if dict(d.get("gen", {})).get("enabled", False):
+            raise _not_ported("gen", d["gen"])
         kw: Dict[str, Any] = {}
         for kind in COMPONENT_KINDS:
             if kind in d:
@@ -126,6 +179,8 @@ class PipelineSpec:
             kw["retrieve_k"] = int(d["retrieve_k"])
         if "rerank_k" in d:
             kw["rerank_k"] = int(d["rerank_k"])
+        if "autoscale" in d:
+            kw["autoscale"] = AutoscaleSpec.from_dict(d["autoscale"])
         return cls(**kw)
 
     def to_json(self, indent: int = 2) -> str:
@@ -139,3 +194,24 @@ class PipelineSpec:
     def from_file(cls, path: str) -> "PipelineSpec":
         with open(path) as f:
             return cls.from_json(f.read())
+
+    def merged(self, overrides: Dict[str, Any]) -> "PipelineSpec":
+        """Apply a *partial* spec dict on top of this spec (deep merge).
+
+        Component-slot entries merge key-wise — their ``options`` dicts merge
+        rather than replace, so an override like
+        ``{"vectordb": {"options": {"nprobe": 4}}}`` retunes one knob without
+        restating the component.  Scenario specs use this to carry pipeline
+        deltas instead of full pipeline copies.
+        """
+        base = self.to_dict()
+        for key, val in overrides.items():
+            if key in COMPONENT_KINDS and isinstance(val, dict):
+                slot = dict(base[key])
+                opts = {**slot.get("options", {}), **val.get("options", {})}
+                slot.update(val)
+                slot["options"] = opts
+                base[key] = slot
+            else:
+                base[key] = val
+        return PipelineSpec.from_dict(base)

@@ -9,9 +9,10 @@ Each stage is a first-class schedulable unit with a uniform
     GenerateStage  questions + contexts -> answers
 
 The lock-step ``RAGPipeline.query`` folds a batch through the stage list
-with hard barriers. (The JAX package also runs the same stage objects as
-pipelined and elastic workers; those executors are not ported yet,
-ROADMAP.md queue 1 item 5.)
+with hard barriers; the ``StagedExecutor`` and ``ElasticExecutor`` in
+``repro_torch.serving`` run the *same* stage objects as pipelined workers
+and replica pools.  Every path produces identical outputs — stage
+composition changes scheduling, never semantics.
 
 Every ``run`` records wall time into the shared ``StageTimer`` *and* a
 per-request latency share into the batch, which lands in
@@ -22,7 +23,7 @@ from __future__ import annotations
 import abc
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -72,6 +73,10 @@ class Stage(abc.ABC):
                  timer: Optional[StageTimer] = None):
         self.batch_size = batch_size
         self.timer = timer
+        # optional obs.Tracer for lock-step runs (attach_pipeline); the
+        # staged/elastic executors trace per item themselves and leave this
+        # None to avoid double-recording service time
+        self.tracer = None
 
     def run(self, batch: QueryBatch) -> QueryBatch:
         t0 = time.perf_counter()
@@ -84,7 +89,21 @@ class Stage(abc.ABC):
         if len(batch):
             batch.latency_s[self.name] = (
                 batch.latency_s.get(self.name, 0.0) + dt / len(batch))
+        tr = self.tracer
+        if tr is not None:
+            te = tr.now()
+            tr.add_span(self.name, te - dt, te, cat="service",
+                        tid=self.name, n=len(batch))
         return batch
+
+    def replica_copy(self) -> "Stage":
+        """A stage instance safe for one extra replica worker.
+
+        Stages over shared thread-safe components return ``self``; the
+        generation stage overrides this to hand each replica its own
+        ``ModelLLM`` view (``clone``).
+        """
+        return self
 
     @abc.abstractmethod
     def _apply(self, batch: QueryBatch) -> None:
@@ -163,9 +182,27 @@ class GenerateStage(Stage):
             "GenerateStage needs RerankStage output"
         batch.answers = self.llm.generate(batch.questions, batch.contexts)
 
+    def replica_copy(self) -> "GenerateStage":
+        """Per-replica generators: an LLM exposing ``clone()`` (ModelLLM)
+        gets a view per worker — the same weight tensors and thread-safe
+        GenStats, its own decode length knob — which is what makes
+        replicating the generation stage legal."""
+        if not hasattr(self.llm, "clone"):
+            return self
+        return GenerateStage(self.llm.clone(), batch_size=self.batch_size,
+                             timer=self.timer)
 
-def traces_from_batch(batch: QueryBatch) -> List[StageTrace]:
-    """Assemble the per-request §3.3.2 traces from a fully-processed batch."""
+
+def traces_from_batch(batch: QueryBatch,
+                      latency_s: Optional[List[Dict[str, float]]] = None,
+                      n_attempts: Optional[Sequence[int]] = None
+                      ) -> List[StageTrace]:
+    """Assemble the per-request §3.3.2 traces from a fully-processed batch.
+
+    ``latency_s`` overrides the batch-shared latency dict with per-request
+    dicts (the pipelined executor tracks latency per item, not per batch);
+    ``n_attempts`` carries the elastic retry count per request (default 1).
+    """
     assert batch.answers is not None, "batch has not run all stages"
     traces = []
     for i, q in enumerate(batch.questions):
@@ -177,7 +214,8 @@ def traces_from_batch(batch: QueryBatch) -> List[StageTrace]:
             answer=batch.answers[i],
             ground_truth=batch.ground_truth[i],
             gold_chunk_ids=list(batch.gold_chunks[i]),
-            latency_s=dict(batch.latency_s),
+            latency_s=latency_s[i] if latency_s else dict(batch.latency_s),
+            n_attempts=n_attempts[i] if n_attempts else 1,
         ))
     return traces
 

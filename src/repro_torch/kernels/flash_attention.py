@@ -24,7 +24,6 @@ HEAD_DIMS = (16, 32, 64, 128)
 WGMMA_HEAD_DIMS = (64, 128)   # bf16 on the Hopper kernel
 _ENTRY = {torch.bfloat16: "bf16", torch.float32: "f32"}
 INVALID_VALUE = 1   # cudaErrorInvalidValue: the entry point refused its inputs
-launches = 0   # kernel launches since the last ops.reset_launch_counts()
 
 
 def _check_shapes(q, k, v) -> None:
@@ -95,7 +94,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     views with unit stride in dh and other strides in 16-byte multiples
     (the output keeps q's layout); the other paths copy to contiguous.
     Returns ``[B,H,S,dh]`` in q's dtype."""
-    global launches
     _check_shapes(q, k, v)
     if q.dtype == torch.bfloat16 and q.shape[3] in WGMMA_HEAD_DIMS:
         out = _flash_wgmma(q, k, v, causal)
@@ -112,5 +110,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  H, k.shape[1], S, dh, int(causal),
                  torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, "flash_attention", err)
-    launches += 1
+    from repro_torch.kernels.ops import count_launch  # ops imports this module
+    count_launch("flash_attention")
     return out

@@ -37,8 +37,6 @@ SMEM_MAX = 232_448   # shared memory a block may use on Hopper (bytes)
 SQ8_LIMBS = 4        # int8 limbs of a prescaled query row (csrc LIMBS)
 PQ_GROUP = 4         # probes per pq_topk block: one table load per group
 IVF_QUERIES = 8      # queries an ivf_topk work item scores a bucket for
-# kernel launches since the last ops.reset_launch_counts()
-launches = {"ivf_topk": 0, "sq8_topk": 0, "pq_topk": 0}
 
 
 def ivf_topk_cuda(q: torch.Tensor, cent: torch.Tensor,
@@ -95,7 +93,8 @@ def ivf_topk_cuda(q: torch.Tensor, cent: torch.Tensor,
              top_i.data_ptr(), nq, d, nlist, rows // nlist, nprobe, k, blocks,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "ivf_topk", err)
-    launches["ivf_topk"] += 1
+    from repro_torch.kernels.ops import count_launch  # ops imports this module
+    count_launch("ivf_topk")
     return top_s, top_i
 
 
@@ -192,7 +191,8 @@ def sq8_topk_cuda(q: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
              out_i.data_ptr(), top_s.data_ptr(), top_i.data_ptr(), nq, n, d,
              k, n_lists, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "sq8_topk", err)
-    launches["sq8_topk"] += 1
+    from repro_torch.kernels.ops import count_launch  # ops imports this module
+    count_launch("sq8_topk")
     return top_s, top_i
 
 
@@ -253,7 +253,8 @@ def pq_topk_cuda(q: torch.Tensor, codebook: torch.Tensor, cent: torch.Tensor,
              top_s.data_ptr(), top_i.data_ptr(), nq, m, rows // nlist,
              nprobe, PQ_GROUP, k, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "pq_topk", err)
-    launches["pq_topk"] += 1
+    from repro_torch.kernels.ops import count_launch  # ops imports this module
+    count_launch("pq_topk")
     return top_s, top_i
 
 

@@ -6,11 +6,13 @@ There is no mode variable and no fallback: the device is the only switch,
 so the CPU tests exercise the plain versions and a run on the card
 exercises the kernels.
 
-Each kernel wrapper counts its launches; ``launch_counts`` and
-``reset_launch_counts`` let a caller show that a run went through them.
+Each kernel wrapper counts its launches (``count_launch``, under one lock:
+replica workers on threads launch kernels concurrently); ``launch_counts``
+and ``reset_launch_counts`` let a caller show that a run went through them.
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict
 
 import torch
@@ -83,15 +85,43 @@ def flash_attention(q, k, v, *, causal: bool):
     return ref.flash_attention(q, k, v, causal=causal)
 
 
+KERNELS = ("topk_search", "quant_score", "ivf_topk", "sq8_topk", "pq_topk",
+           "flash_attention")
+
+
+class _LaunchCounts:
+    """Launches per kernel; one lock, since ``+=`` on a shared count from
+    several threads can lose increments."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts = dict.fromkeys(KERNELS, 0)   # guarded-by: _lock
+
+    def add(self, name: str) -> None:
+        with self._lock:
+            self._counts[name] += 1
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts = dict.fromkeys(KERNELS, 0)
+
+
+_COUNTS = _LaunchCounts()
+
+
+def count_launch(name: str) -> None:
+    """Called by a kernel's wrapper where it launches the kernel."""
+    _COUNTS.add(name)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    return {"topk_search": _ts.launches, "quant_score": _qs.launches,
-            **_fr.launches, "flash_attention": _fa.launches}
+    return _COUNTS.snapshot()
 
 
 def reset_launch_counts() -> None:
-    _ts.launches = 0
-    _qs.launches = 0
-    _fa.launches = 0
-    for name in _fr.launches:
-        _fr.launches[name] = 0
+    _COUNTS.reset()

@@ -17,7 +17,6 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_retrieve import sq8_limbs
 
-launches = 0   # kernel launches since the last ops.reset_launch_counts()
 
 
 def quant_score_cuda(q: torch.Tensor, codes: torch.Tensor,
@@ -25,7 +24,6 @@ def quant_score_cuda(q: torch.Tensor, codes: torch.Tensor,
     """q:[nq,d] fp32, codes:[N,d] int8, scale:[d] fp32, all on one CUDA
     device; d % 4 == 0. Returns the scores ``[nq, N]`` fp32:
     ``sq8_limb_scores``, within 1e-5 of ``ref.quant_score``."""
-    global launches
     dev = q.device
     _build.require(q, "q", (torch.float32,), 2, dev)
     _build.require(codes, "codes", (torch.int8,), 2, dev)
@@ -46,5 +44,6 @@ def quant_score_cuda(q: torch.Tensor, codes: torch.Tensor,
              out.data_ptr(), nq, n, d, blocks,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "quant_score", err)
-    launches += 1
+    from repro_torch.kernels.ops import count_launch  # ops imports this module
+    count_launch("quant_score")
     return out

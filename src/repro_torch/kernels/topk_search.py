@@ -19,7 +19,6 @@ from repro_torch.kernels.ref import NEG, merge_candidates
 
 MAX_K = 128
 BLOCKS_PER_SM = 2   # the kernel's residency at k <= 56
-launches = 0   # kernel launches since the last ops.reset_launch_counts()
 
 
 def topk_search_cuda(q: torch.Tensor, vecs: torch.Tensor, live: torch.Tensor,
@@ -27,7 +26,6 @@ def topk_search_cuda(q: torch.Tensor, vecs: torch.Tensor, live: torch.Tensor,
     """q:[nq,d] vecs:[N,d] fp32, live:[N] bool/uint8, all on one CUDA
     device; d % 4 == 0, 1 <= k <= 128. Returns ``(scores [nq,k] f32,
     idx [nq,k] int32)`` with ``(NEG, -1)`` padding."""
-    global launches
     dev = q.device
     _build.require(q, "q", (torch.float32,), 2, dev)
     _build.require(vecs, "vecs", (torch.float32,), 2, dev)
@@ -51,7 +49,8 @@ def topk_search_cuda(q: torch.Tensor, vecs: torch.Tensor, live: torch.Tensor,
              out_s.data_ptr(), out_i.data_ptr(), nq, n, d, k, n_lists,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "topk_search", err)
-    launches += 1
+    from repro_torch.kernels.ops import count_launch  # ops imports this module
+    count_launch("topk_search")
     return merge_by_row(out_s.view(nq, n_lists * k),
                         out_i.view(nq, n_lists * k), k)
 

@@ -173,6 +173,7 @@ class ResourceMonitor:
         self._prev_io = _read_io_bytes()
         self._prev_io_t = time.perf_counter()
         self._flushed = False
+        self._hooks = None   # (ours, the previous) sys.excepthook while started
 
     def add_gauge(self, name: str, fn: Callable[[], float]) -> None:
         if gauge_family(name) is None:
@@ -243,6 +244,7 @@ class ResourceMonitor:
                 prev_hook(tp, val, tb)
 
             sys.excepthook = hook
+            self._hooks = (hook, prev_hook)
         return self
 
     def stop(self) -> None:
@@ -251,6 +253,13 @@ class ResourceMonitor:
         self._stop.set()
         self._thread.join(timeout=5.0)
         self._thread = None
+        # drop the process-wide references start() made, so a stopped
+        # monitor (and whatever its gauges capture: a pipeline, a model on
+        # the card) can be freed by a process that serves again
+        atexit.unregister(self.stop)
+        if self._hooks is not None and sys.excepthook is self._hooks[0]:
+            sys.excepthook = self._hooks[1]
+        self._hooks = None
         if self.cfg.out_path and not self._flushed:
             self.flush(self.cfg.out_path)
 

@@ -188,10 +188,13 @@ def test_serve_main_runs_on_cpu(tmp_path):
     assert doc["db"]["fused_searches"] > 0
 
 
-@pytest.mark.parametrize("argv", [["--mode", "open"], ["--mode", "closed"],
-                                  ["--scenario", "steady"],
-                                  ["--trace-out", "t.json"]])
+@pytest.mark.parametrize("argv", [["--gen-engine"], ["--gen-slots", "4"],
+                                  ["--gen-chunk", "16"],
+                                  ["--gen-admission", "sjf"]])
 def test_serve_rejects_unported_options(argv, capsys):
+    """The token-level engine's flags (ROADMAP.md queue 1 item 8) fail
+    naming their item; the serving modes, scenarios and tracing are
+    ported (tests/test_torch_serving.py runs them)."""
     with pytest.raises(SystemExit):
         serve.main(["--config", SPEC, "--device", "cpu", *argv])
     assert "ROADMAP.md" in capsys.readouterr().err
@@ -201,9 +204,12 @@ def test_serve_rejects_unported_options(argv, capsys):
     ("gen", {"enabled": True}), ("autoscale", {"enabled": True}),
     ("replicas", 4)])
 def test_spec_rejects_unported_serving_features(key, value):
-    """A JAX-format spec loads while its unported serving features are off
-    (the reference's own ``to_dict`` writes them), and raises naming the
-    ROADMAP item once one is on: the lock-step path never serves it."""
+    """A JAX-format spec loads while its unported serving feature (the
+    ``gen`` block of the token-level engine) is off (the reference's own
+    ``to_dict`` writes it), and raises naming the ROADMAP item once it is
+    on: no path serves it. The elastic executor's ``replicas`` and
+    ``autoscale`` keys are ported: they load and write back as the
+    reference writes them."""
     full = JaxSpec.from_dict(PipelineSpec.from_file(SPEC).to_dict()).to_dict()
     assert PipelineSpec.from_dict(full).to_dict() == \
         PipelineSpec.from_file(SPEC).to_dict()
@@ -211,8 +217,14 @@ def test_spec_rejects_unported_serving_features(key, value):
         full["vectordb"]["replicas"] = value
     else:
         full[key] = {**full[key], **value}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        PipelineSpec.from_dict(full)
+    if key == "gen":
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+            PipelineSpec.from_dict(full)
+        return
+    got = PipelineSpec.from_dict(full).to_dict()
+    assert got == {k: v for k, v in full.items() if k != "gen"}
+    if key == "replicas":
+        assert PipelineSpec.from_dict(full).stage_replicas()["retrieval"] == 4
 
 
 def test_port_imports_nothing_of_jax():
