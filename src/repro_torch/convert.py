@@ -13,7 +13,8 @@ the same state, the reference's state goes across as numpy arrays:
   its own packed mirror (fp32 rows, or PQ codes);
 * ``transformer_from_jax`` — a ``repro.models.transformer`` parameter tree
   (stacked ``[L, ...]`` leaves) into the port's per-layer ``Transformer``;
-  ``model_llm_from_jax``, ``transformer_embedder_from_jax`` (with its
+  ``model_llm_from_jax``, ``engine_from_jax`` (the token-level engine's
+  weights and settings), ``transformer_embedder_from_jax`` (with its
   ``proj``) and ``cross_reranker_from_jax`` (with its ``head``) carry the
   model-backed components across with it.
 
@@ -36,6 +37,7 @@ from repro_torch.core.reranker import CrossEncoderReranker
 from repro_torch.core.vectordb import DBConfig, TorchVectorDB
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Transformer
+from repro_torch.serving.genengine import GenEngine, _EngineCore
 
 
 def embedder_from_jax(jax_embedder) -> HashEmbedder:
@@ -126,6 +128,25 @@ def model_llm_from_jax(jax_llm, device=None) -> ModelLLM:
                     max_new=jax_llm.max_new, batch_size=jax_llm.batch_size,
                     device=device,
                     model=transformer_from_jax(jax_llm.params, cfg, device))
+
+
+def engine_from_jax(jax_engine, device=None) -> GenEngine:
+    """A port ``GenEngine`` with a ``repro.serving.genengine.GenEngine``'s
+    config, weights and settings (slots, chunk, prefill budget, admission,
+    prompt length, the ``max_new`` ceiling and its current value), on
+    ``device`` (``None`` is the card); its slot pool starts empty."""
+    device = resolve_device(device)
+    cfg = ModelConfig(**dataclasses.asdict(jax_engine.cfg))
+    model = transformer_from_jax(jax_engine.core.params, cfg, device)
+    eng = GenEngine(core=_EngineCore(cfg, model=model),
+                    slots=jax_engine.slots,
+                    chunk_tokens=jax_engine.chunk_tokens,
+                    prefill_chunks_per_step=jax_engine.prefill_chunks_per_step,
+                    admission=jax_engine.admission,
+                    max_prompt=jax_engine.max_prompt,
+                    max_new=jax_engine._max_new_cap)
+    eng.set_max_new(jax_engine.max_new)
+    return eng
 
 
 def transformer_embedder_from_jax(jax_emb, device=None) -> TransformerEmbedder:

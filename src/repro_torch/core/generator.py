@@ -66,6 +66,21 @@ class GenStats:
             self.tokens_out += int(tokens)
             self.n_requests += 1
 
+    def reset(self, to: Optional["GenStats"] = None) -> None:
+        """Drop every sample, or replace them by ``to``'s (a copy taken
+        earlier: ``serving.harness.warm_up`` puts back what its query
+        found)."""
+        with self._lock:
+            self.ttft_s, self.tpot_s = [], []
+            self.tokens_out = self.n_requests = 0
+        if to is not None:
+            self.merge(to)
+
+    def copy(self) -> "GenStats":
+        twin = GenStats()
+        twin.merge(self)
+        return twin
+
     def merge(self, other: "GenStats") -> None:
         """Fold another stats object in (per-engine stats at summary time)."""
         with other._lock:

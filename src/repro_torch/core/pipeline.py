@@ -51,9 +51,19 @@ class RAGPipeline:
             self.reranker = registry.create(
                 "reranker", spec.reranker.component, _context=ctx,
                 **spec.reranker.options)
-        self.llm = llm or registry.create("llm", spec.llm.component,
+        llm_name, llm_opts = spec.llm.component, dict(spec.llm.options)
+        if spec.gen.enabled and llm_name == "model":
+            # the gen block swaps the lock-step generator for the token-level
+            # continuous-batching engine (same arch/prompt/decode options)
+            llm_name = "model_engine"
+            llm_opts.pop("batch_size", None)   # the slot pool replaces it
+            llm_opts.update(
+                slots=spec.gen.slots, chunk_tokens=spec.gen.chunk_tokens,
+                prefill_chunks_per_step=spec.gen.prefill_chunks_per_step,
+                admission=spec.gen.admission)
+        self.llm = llm or registry.create("llm", llm_name,
                                           _context={"device": device},
-                                          **spec.llm.options)
+                                          **llm_opts)
 
         self.tracer = None            # obs.attach_pipeline sets it
         self.stages = build_query_stages(

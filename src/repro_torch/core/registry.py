@@ -54,6 +54,7 @@ def _ensure_registered() -> None:
     """Import the built-in component modules so their ``@register``
     decorators have run (lazy to avoid import cycles)."""
     from repro_torch.core import chunking, embedder, generator, reranker, vectordb  # noqa: F401
+    from repro_torch.serving import genengine  # noqa: F401  (llm: model_engine)
 
 
 def available(kind: Optional[str] = None) -> List[str]:

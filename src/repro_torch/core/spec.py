@@ -10,11 +10,8 @@ pipeline is reproducible from a config file alone::
     pipe = repro_torch.core.registry.build(spec)
 
 Stage ``replicas`` and the ``autoscale`` block drive the elastic executor
-(``repro_torch.serving``). The JAX package's spec format also carries a
-``gen`` block, for the token-level engine the port does not have yet:
-``from_dict`` reads it only at its off value (``enabled: false``) and raises
-naming the ROADMAP.md item otherwise, so a spec is never served by a path
-other than the one it asks for.
+(``repro_torch.serving``); the ``gen`` block swaps the lock-step generator
+for the token-level engine (``repro_torch.serving.genengine``).
 """
 from __future__ import annotations
 
@@ -28,19 +25,6 @@ COMPONENT_KINDS = ("embedder", "chunker", "vectordb", "reranker", "llm")
 # component slot -> query-path stage name (the chunker has no query stage)
 QUERY_STAGE_NAMES = {"embedder": "query_embed", "vectordb": "retrieval",
                      "reranker": "rerank", "llm": "generation"}
-
-# keys of the JAX package's spec format for serving features not ported
-# yet -> the item of ROADMAP.md queue 1 that ports them
-NOT_PORTED = {
-    "gen": "queue 1 item 8 (the token-level engine)",
-}
-
-
-def _not_ported(key: str, value: Any) -> NotImplementedError:
-    return NotImplementedError(
-        f"spec key {key!r} = {value!r} is not ported yet: ROADMAP.md "
-        f"{NOT_PORTED[key]}")
-
 
 @dataclass
 class StageSpec:
@@ -78,6 +62,49 @@ class StageSpec:
                    options=dict(d.get("options", {})),
                    batch_size=int(d.get("batch_size", 0)),
                    replicas=int(d.get("replicas", 1)))
+
+
+@dataclass
+class GenSpec:
+    """Continuous-batching generation engine settings
+    (``repro_torch.serving.genengine``).
+
+    When ``enabled`` and the llm slot names the ``model`` component, the
+    pipeline is built with the token-level engine (``model_engine``) instead
+    of the lock-step generator: ``slots`` KV-cache slots, ``chunk_tokens``
+    chunked-prefill granularity, ``prefill_chunks_per_step`` chunks of
+    prefill budget between decode steps, and the ``admission`` policy
+    (``fcfs`` | ``sjf``).
+    """
+
+    enabled: bool = False
+    slots: int = 4
+    chunk_tokens: int = 32
+    prefill_chunks_per_step: int = 1
+    admission: str = "fcfs"
+
+    _KEYS = ("enabled", "slots", "chunk_tokens", "prefill_chunks_per_step",
+             "admission")
+
+    def __post_init__(self):
+        assert self.slots >= 1 and self.chunk_tokens >= 1
+        assert self.prefill_chunks_per_step >= 1
+        assert self.admission in ("fcfs", "sjf"), self.admission
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {k: getattr(self, k) for k in self._KEYS}
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "GenSpec":
+        unknown = set(d) - set(cls._KEYS)
+        if unknown:
+            raise ValueError(f"unknown GenSpec keys: {sorted(unknown)}")
+        return cls(enabled=bool(d.get("enabled", False)),
+                   slots=int(d.get("slots", 4)),
+                   chunk_tokens=int(d.get("chunk_tokens", 32)),
+                   prefill_chunks_per_step=int(
+                       d.get("prefill_chunks_per_step", 1)),
+                   admission=str(d.get("admission", "fcfs")))
 
 
 @dataclass
@@ -138,6 +165,7 @@ class PipelineSpec:
     retrieve_k: int = 16          # initial retrieval depth
     rerank_k: int = 4             # context depth passed to generation
     autoscale: AutoscaleSpec = field(default_factory=AutoscaleSpec)
+    gen: GenSpec = field(default_factory=GenSpec)
 
     def stage(self, kind: str) -> StageSpec:
         assert kind in COMPONENT_KINDS, kind
@@ -161,6 +189,7 @@ class PipelineSpec:
             "retrieve_k": self.retrieve_k,
             "rerank_k": self.rerank_k,
             "autoscale": self.autoscale.to_dict(),
+            "gen": self.gen.to_dict(),
         }
 
     @classmethod
@@ -169,8 +198,6 @@ class PipelineSpec:
                    - {"retrieve_k", "rerank_k", "autoscale", "gen"})
         if unknown:
             raise ValueError(f"unknown PipelineSpec keys: {sorted(unknown)}")
-        if dict(d.get("gen", {})).get("enabled", False):
-            raise _not_ported("gen", d["gen"])
         kw: Dict[str, Any] = {}
         for kind in COMPONENT_KINDS:
             if kind in d:
@@ -181,6 +208,8 @@ class PipelineSpec:
             kw["rerank_k"] = int(d["rerank_k"])
         if "autoscale" in d:
             kw["autoscale"] = AutoscaleSpec.from_dict(d["autoscale"])
+        if "gen" in d:
+            kw["gen"] = GenSpec.from_dict(d["gen"])
         return cls(**kw)
 
     def to_json(self, indent: int = 2) -> str:

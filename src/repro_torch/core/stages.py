@@ -183,10 +183,12 @@ class GenerateStage(Stage):
         batch.answers = self.llm.generate(batch.questions, batch.contexts)
 
     def replica_copy(self) -> "GenerateStage":
-        """Per-replica generators: an LLM exposing ``clone()`` (ModelLLM)
-        gets a view per worker — the same weight tensors and thread-safe
-        GenStats, its own decode length knob — which is what makes
-        replicating the generation stage legal."""
+        """Per-replica generators: an LLM exposing ``clone()`` gets a copy
+        per worker: a ``ModelLLM`` a view (the same weight tensors and
+        thread-safe GenStats, its own decode length knob), an ``EngineLLM``
+        a warm engine (the same weights, GenStats and counters, its own KV
+        slot pool and knob). That is what makes replicating the generation
+        stage legal."""
         if not hasattr(self.llm, "clone"):
             return self
         return GenerateStage(self.llm.clone(), batch_size=self.batch_size,

@@ -19,7 +19,11 @@ buckets, the codes, scale and codebook, and the bucket-contiguous packed
 mirror stay on the device (inserted rows are copied in under the lock, so a
 search never re-uploads the corpus); payloads, id maps and the
 ``live``/``indexed`` bit masks are host-side bookkeeping, copied per search
-snapshot and uploaded as masks.
+snapshot and uploaded as masks. The device rows are ``width`` wide: ``dim``
+rounded up to a multiple of 4 (the list kernels read 16-byte units), with
+zero columns past ``dim`` in the vectors, the centroids, the packed mirror
+and the SQ8 codes, and scale 0 there; a search pads its queries once. A
+zero column changes no inner product, so this is the unpadded search.
 
 The ``use_kernel`` ladder picks how the search runs. ``off`` is the plain
 ladder the kernel rungs are held against: plain tensor ops throughout. The
@@ -50,7 +54,7 @@ from repro_torch.core.registry import register
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import topk_search as kts
-from repro_torch.kernels.ref import NEG, stable_topk
+from repro_torch.kernels.ref import NEG, pad_cols, padded_width, stable_topk
 
 KERNEL_LADDER = ("off", "op", "fused")
 QUANTS = ("none", "sq8", "pq")
@@ -298,8 +302,9 @@ class TorchVectorDB(DBInstance):
         self.device = resolve_device(device)
         self._kernel = kernel_ladder(cfg.use_kernel)  # validated ladder rung
         self._mu = threading.RLock()   # serializes mutations vs snapshots
-        d, cap = cfg.dim, cfg.capacity
-        self.vectors = torch.zeros((cap, d), dtype=torch.float32,
+        cap = cfg.capacity
+        self.width = padded_width(cfg.dim)   # device row width
+        self.vectors = torch.zeros((cap, self.width), dtype=torch.float32,
                                    device=self.device)   # guarded-by: _mu
         self.live = np.zeros((cap,), dtype=bool)         # guarded-by: _mu
         self.n_slots = 0                       # guarded-by: _mu
@@ -348,7 +353,7 @@ class TorchVectorDB(DBInstance):
             # fill payloads before flipping live: a concurrent search that
             # snapshotted earlier masks these rows out; one that snapshots
             # after sees complete rows
-            self.vectors[lo:lo + n] = rows.to(self.device)
+            self.vectors[lo:lo + n, :self.cfg.dim] = rows.to(self.device)
             for s, c in zip(range(lo, lo + n), chunks):
                 c.chunk_id = s
                 self.chunks[s] = c
@@ -400,19 +405,22 @@ class TorchVectorDB(DBInstance):
             return None if a is None else torch.as_tensor(
                 np.asarray(a), dtype=dtype).to(self.device)
 
+        def wide(a, dtype):   # rows padded to the device width
+            return None if a is None else pad_cols(dev(a, dtype), self.width)
+
         with self._mu:
-            self.vectors = dev(state["vectors"], torch.float32)
+            self.vectors = wide(state["vectors"], torch.float32)
             self.live = np.asarray(state["live"], dtype=bool).copy()
             self.indexed = np.asarray(state["indexed"], dtype=bool).copy()
             self.n_slots = int(state["n_slots"])
             self.chunks = dict(state["chunks"])
             self.doc_slots = {k: list(v) for k, v in
                               state["doc_slots"].items()}
-            self.centroids = dev(state["centroids"], torch.float32)
+            self.centroids = wide(state["centroids"], torch.float32)
             self.buckets = dev(state["buckets"], torch.int32)
             self.bucket_live = dev(state["bucket_live"], torch.bool)
-            self.sq_codes = dev(state.get("sq_codes"), torch.int8)
-            self.sq_scale = dev(state.get("sq_scale"), torch.float32)
+            self.sq_codes = wide(state.get("sq_codes"), torch.int8)
+            self.sq_scale = wide(state.get("sq_scale"), torch.float32)
             self.pq_codes = dev(state.get("pq_codes"), torch.int32)
             self.pq_codebook = dev(state.get("pq_codebook"), torch.float32)
             self.packed = None
@@ -483,9 +491,10 @@ class TorchVectorDB(DBInstance):
         """Per-dimension scale ``max|x| / 127 + 1e-12`` over the live rows
         and int8 codes ``clamp(round(x / scale), -127, 127)`` of every slot
         used so far, ``ASSIGN_CHUNK`` rows at a time (the reference's
-        ``_train_sq``, in fp32 on the device)."""
+        ``_train_sq``, in fp32 on the device); the codes and the scale are
+        0 past ``dim``."""
         cfg = self.cfg
-        x = self.vectors[: self.n_slots]
+        x = self.vectors[: self.n_slots, :cfg.dim]
         live_t = torch.as_tensor(live_idx).to(self.device)
         if len(live_idx):
             amax = torch.zeros(cfg.dim, dtype=torch.float32,
@@ -497,13 +506,13 @@ class TorchVectorDB(DBInstance):
         else:
             scale = torch.ones(cfg.dim, dtype=torch.float32,
                                device=self.device)
-        codes = torch.zeros((cfg.capacity, cfg.dim), dtype=torch.int8,
+        codes = torch.zeros((cfg.capacity, self.width), dtype=torch.int8,
                             device=self.device)
         for lo in range(0, self.n_slots, ASSIGN_CHUNK):
             hi = min(lo + ASSIGN_CHUNK, self.n_slots)
-            codes[lo:hi] = torch.round(x[lo:hi] / scale).clamp(
+            codes[lo:hi, :cfg.dim] = torch.round(x[lo:hi] / scale).clamp(
                 -127, 127).to(torch.int8)
-        self.sq_scale = scale
+        self.sq_scale = pad_cols(scale, self.width)
         self.sq_codes = codes
 
     def _train_pq(self, live_idx: np.ndarray) -> None:  # locked-by: _mu
@@ -591,9 +600,11 @@ class TorchVectorDB(DBInstance):
             snap = self._snapshot()
         live, indexed = snap["live"], snap["indexed"]
         main_live = live & indexed if cfg.use_hybrid else live
+        qw = pad_cols(q, self.width)   # the queries at the device width
         if not snap["built"]:
             # index never built: brute-force everything (cold start)
-            return _flat_search(q, snap["vectors"], self._mask(live), k, rung)
+            return _flat_search(qw, snap["vectors"], self._mask(live), k,
+                                rung)
         s_main, i_main = self._search_main(q, main_live, k, snap, rung)
         if not cfg.use_hybrid:
             return s_main, i_main
@@ -601,37 +612,46 @@ class TorchVectorDB(DBInstance):
         if not fresh.any():
             return s_main, i_main
         # linear scan of the temp flat buffer (the paper's freshness path)
-        s_fl, i_fl = _flat_search(q, snap["vectors"], self._mask(fresh), k,
+        s_fl, i_fl = _flat_search(qw, snap["vectors"], self._mask(fresh), k,
                                   rung)
         return merge_topk(s_main, i_main, s_fl, i_fl, k)
 
     def _search_main(self, q, main_live: np.ndarray, k: int,
                      snap: Dict[str, object], rung: str):
+        """The main index's top-k of ``q`` (at ``dim`` or ``width``): the
+        PQ paths take it at ``dim`` (their tables split the true row into
+        subspaces), every other path at ``width``, against the padded
+        device rows."""
         cfg = self.cfg
+        q, qw = q[:, :cfg.dim], pad_cols(q, self.width)
         live = self._mask(main_live)
         if cfg.index_type == "flat":
             if cfg.quant == "sq8" and snap["sq_codes"] is not None:
-                return _sq8_flat_search(q, snap["sq_codes"], snap["sq_scale"],
-                                        live, k, rung)
-            return _flat_search(q, snap["vectors"], live, k, rung)
+                return _sq8_flat_search(qw, snap["sq_codes"],
+                                        snap["sq_scale"], live, k, rung)
+            return _flat_search(qw, snap["vectors"], live, k, rung)
         nprobe = min(int(snap["nprobe"]), cfg.nlist)
         packed = snap["packed"]
+        pq = cfg.quant == "pq"
+        cent = snap["centroids"]
+        if pq:
+            cent = cent[:, :cfg.dim].contiguous()
         if rung == "fused" and packed is not None:
             # ok recomputed per search on the device from the snapshot's
             # mask: a tombstone lands as ok=0 on its packed row
             slot = packed["slot"]
             ok = (slot >= 0) & live[slot.clamp(min=0)]
-            if cfg.quant == "pq" and "codes" in packed:
-                return kops.pq_topk(q, snap["pq_codebook"], snap["centroids"],
+            if pq and "codes" in packed:
+                return kops.pq_topk(q, snap["pq_codebook"], cent,
                                     packed["codes"], slot, ok, nprobe, k)
-            return kops.ivf_topk(q, snap["centroids"], packed["vecs"], slot,
-                                 ok, nprobe, k)
-        if cfg.quant == "pq" and snap["pq_codes"] is not None:
+            return kops.ivf_topk(qw, cent, packed["vecs"], slot, ok, nprobe,
+                                 k)
+        if pq and snap["pq_codes"] is not None:
             return _pq_ivf_search(q, snap["pq_codes"], snap["pq_codebook"],
-                                  live, snap["centroids"], snap["buckets"],
+                                  live, cent, snap["buckets"],
                                   snap["bucket_live"], nprobe, k)
-        return _ivf_search(q, snap["vectors"], live, snap["centroids"],
-                           snap["buckets"], snap["bucket_live"], nprobe, k)
+        return _ivf_search(qw, snap["vectors"], live, cent, snap["buckets"],
+                           snap["bucket_live"], nprobe, k)
 
     # -- misc --------------------------------------------------------------
 

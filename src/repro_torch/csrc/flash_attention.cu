@@ -21,8 +21,12 @@
 // Which design runs where (picked by dtype and dh alone):
 //  * bf16, dh 64 or 128 (every deployment shape): the Hopper kernel below
 //    (namespace wg), sm_90a only.
-//  * bf16, dh 16 or 32 (the reference's test shapes only): mma.sync.
-//  * fp32, any dh: scalar fp32 FMAs, exact fp32 as the TPU kernel computes.
+//  * bf16, dh 16, 32 or 256: mma.sync.
+//  * fp32, dh 16, 32, 64, 128 or 256: scalar fp32 FMAs, exact fp32 as the
+//    TPU kernel computes.
+// Other head dims arrive zero-padded to the next of these by the wrapper,
+// with the true dh as an argument: the softmax scale is 1/sqrt(true dh),
+// and zero columns add nothing to q.k or to the output's true columns.
 //
 // What the Hopper design does about the bound:
 //  * A block of three warpgroups per 128-row q tile: one producer thread
@@ -787,7 +791,7 @@ bool encode_heads(CUtensorMap* map, const void* base, int dh, int S,
 template <int DH, bool CAUSAL>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          const long long* st, int B, int H, int Hkv, int S,
-                         int n_sm, cudaStream_t stream) {
+                         int scale_dh, int n_sm, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   if (!encode_heads(&qm, q, DH, S, H, B, st[0], st[1], st[2], wg::BQ) ||
       !encode_heads(&km, k, DH, S, Hkv, B, st[3], st[4], st[5], wg::BK) ||
@@ -800,7 +804,7 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   if (attr != cudaSuccess) return attr;
   const int n_tiles = B * H * ((S + wg::BQ - 1) / wg::BQ);
   const int grid = min(n_sm, n_tiles);   // persistent: one block per SM
-  const double scale = 1.0 / sqrt(static_cast<double>(DH));
+  const double scale = 1.0 / sqrt(static_cast<double>(scale_dh));
   kern<<<grid, wg::THREADS, smem, stream>>>(
       qm, km, vm, static_cast<bf16*>(o), st[9], st[10], st[11], H, H / Hkv, S,
       B * H, static_cast<float>(scale * 1.4426950408889634));
@@ -809,8 +813,9 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
 
 template <typename T, int DH, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int rep, int S, cudaStream_t stream) {
-  const double scale = 1.0 / sqrt(static_cast<double>(DH));
+                   int B, int H, int rep, int S, int scale_dh,
+                   cudaStream_t stream) {
+  const double scale = 1.0 / sqrt(static_cast<double>(scale_dh));
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
   if constexpr (sizeof(T) == 2) {
     const size_t smem = sizeof(bf16) * (BQ + 2 * BK) * (DH + 8);
@@ -841,17 +846,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 template <typename T, bool CAUSAL>
 cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int rep, int S, int dh,
+                        int B, int H, int rep, int S, int dh, int sd,
                         cudaStream_t st) {
   switch (dh) {
-    case 16: return launch<T, 16, CAUSAL>(q, k, v, o, B, H, rep, S, st);
-    case 32: return launch<T, 32, CAUSAL>(q, k, v, o, B, H, rep, S, st);
+    case 16: return launch<T, 16, CAUSAL>(q, k, v, o, B, H, rep, S, sd, st);
+    case 32: return launch<T, 32, CAUSAL>(q, k, v, o, B, H, rep, S, sd, st);
+    case 256: return launch<T, 256, CAUSAL>(q, k, v, o, B, H, rep, S, sd, st);
     default: break;
   }
   if constexpr (sizeof(T) == 4) {   // bf16 at 64 and 128 runs on wgmma
     switch (dh) {
-      case 64: return launch<T, 64, CAUSAL>(q, k, v, o, B, H, rep, S, st);
-      case 128: return launch<T, 128, CAUSAL>(q, k, v, o, B, H, rep, S, st);
+      case 64: return launch<T, 64, CAUSAL>(q, k, v, o, B, H, rep, S, sd, st);
+      case 128:
+        return launch<T, 128, CAUSAL>(q, k, v, o, B, H, rep, S, sd, st);
       default: break;
     }
   }
@@ -860,16 +867,19 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o,
 
 template <typename T>
 int run(const void* q, const void* k, const void* v, void* o, int B, int H,
-        int Hkv, int S, int dh, int causal, void* stream) {
-  if (B < 1 || H < 1 || Hkv < 1 || S < 1 || H % Hkv ||
+        int Hkv, int S, int dh, int causal, int scale_dh, void* stream) {
+  if (B < 1 || H < 1 || Hkv < 1 || S < 1 || H % Hkv || scale_dh < 1 ||
+      scale_dh > dh ||
       static_cast<long long>(B) * H > 0x7fffffffLL ||
       (S + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rep = H / Hkv;
   return static_cast<int>(
-      causal ? dispatch_dh<T, true>(q, k, v, o, B, H, rep, S, dh, st)
-             : dispatch_dh<T, false>(q, k, v, o, B, H, rep, S, dh, st));
+      causal ? dispatch_dh<T, true>(q, k, v, o, B, H, rep, S, dh, scale_dh,
+                                    st)
+             : dispatch_dh<T, false>(q, k, v, o, B, H, rep, S, dh, scale_dh,
+                                     st));
 }
 
 // The SM count of the current device if it is an sm_90 card (the library
@@ -896,15 +906,15 @@ int sm90_count() {
 template <bool CAUSAL>
 cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
                            void* o, const long long* st, int B, int H,
-                           int Hkv, int S, int dh, int n_sm,
+                           int Hkv, int S, int dh, int scale_dh, int n_sm,
                            cudaStream_t stream) {
   switch (dh) {
     case 64:
-      return launch_wgmma<64, CAUSAL>(q, k, v, o, st, B, H, Hkv, S, n_sm,
-                                      stream);
+      return launch_wgmma<64, CAUSAL>(q, k, v, o, st, B, H, Hkv, S, scale_dh,
+                                      n_sm, stream);
     case 128:
-      return launch_wgmma<128, CAUSAL>(q, k, v, o, st, B, H, Hkv, S, n_sm,
-                                       stream);
+      return launch_wgmma<128, CAUSAL>(q, k, v, o, st, B, H, Hkv, S, scale_dh,
+                                       n_sm, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -924,28 +934,31 @@ extern "C" const char* flash_attention_error_string(int err) {
 }
 
 // q/o:[B,H,S,dh], k/v:[B,Hkv,S,dh], contiguous, 16-byte aligned; H % Hkv
-// == 0; bf16 at dh in {16, 32}, fp32 at dh in {16, 32, 64, 128}. Launches
-// on `stream` and returns cudaGetLastError() (0 on success).
+// == 0; bf16 at dh in {16, 32, 256}, fp32 at dh in {16, 32, 64, 128, 256};
+// the softmax scale is 1/sqrt(scale_dh), 1 <= scale_dh <= dh (the head dim
+// before the wrapper's zero padding). Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int B, int H,
                                     int Hkv, int S, int dh, int causal,
-                                    void* stream) {
-  return run<bf16>(q, k, v, o, B, H, Hkv, S, dh, causal, stream);
+                                    int scale_dh, void* stream) {
+  return run<bf16>(q, k, v, o, B, H, Hkv, S, dh, causal, scale_dh, stream);
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, int B, int H,
                                    int Hkv, int S, int dh, int causal,
-                                   void* stream) {
-  return run<float>(q, k, v, o, B, H, Hkv, S, dh, causal, stream);
+                                   int scale_dh, void* stream) {
+  return run<float>(q, k, v, o, B, H, Hkv, S, dh, causal, scale_dh, stream);
 }
 
 // The Hopper path, bf16 at dh in {64, 128}, on an sm_90 card only. One
-// array of 26 int64 carries the call, so the host spends little on it:
+// array of 27 int64 carries the call, so the host spends little on it:
 // a[0..4) the q, k, v, o pointers (q/o:[B,H,S,dh], k/v:[B,Hkv,S,dh]);
 // a[4..10) B, H, Hkv, S, dh, causal; a[10..26) the element strides
 // (b, h, s, d) of q, k, v and o: unit stride in dh, 16-byte multiples
-// elsewhere, every base 16-byte aligned, H % Hkv == 0, or
+// elsewhere, every base 16-byte aligned, H % Hkv == 0; a[26] the head dim
+// whose 1/sqrt scales the logits (1 <= a[26] <= dh), or
 // cudaErrorInvalidValue. Launches a persistent grid of at most one block
 // per SM. Returns cudaGetLastError() (0 on success).
 extern "C" int flash_attention_wgmma(const long long* a, void* stream) {
@@ -954,8 +967,9 @@ extern "C" int flash_attention_wgmma(const long long* a, void* stream) {
                          reinterpret_cast<const void*>(a[2]),
                          reinterpret_cast<const void*>(a[3])};
   const long long B = a[4], H = a[5], Hkv = a[6], S = a[7], dh = a[8];
-  const long long causal = a[9];
+  const long long causal = a[9], scale_dh = a[26];
   if (B < 1 || H < 1 || Hkv < 1 || S < 1 || H % Hkv || S > 0x7fffffffLL ||
+      scale_dh < 1 || scale_dh > dh ||
       B * H * ((S + wg::BQ - 1) / wg::BQ) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   // the maps take (b, h, s), a size-1 dim's stride (never read) set to 8
@@ -981,8 +995,10 @@ extern "C" int flash_attention_wgmma(const long long* a, void* stream) {
   return static_cast<int>(
       causal ? dispatch_wgmma<true>(base[0], base[1], base[2],
                                     const_cast<void*>(base[3]), st, b, h, hkv,
-                                    s, d, n_sm, sm)
+                                    s, d, static_cast<int>(scale_dh), n_sm,
+                                    sm)
              : dispatch_wgmma<false>(base[0], base[1], base[2],
                                      const_cast<void*>(base[3]), st, b, h,
-                                     hkv, s, d, n_sm, sm));
+                                     hkv, s, d, static_cast<int>(scale_dh),
+                                     n_sm, sm));
 }

@@ -6,8 +6,11 @@ computes ``softmax(q kᵀ / sqrt(dh)) v`` for every (batch, head), causal or
 not, with grouped-query heads read by index (query head ``h`` reads KV head
 ``h // (H // Hkv)``). bf16 at dh 64 and 128 runs the Hopper kernel (TMA,
 wgmma, sm_90 cards only), which reads strided q/k/v views as they are and
-writes its output in q's memory layout; bf16 at dh 16 and 32 runs mma.sync
-and fp32 runs fp32 FMAs, both on contiguous copies. The plain version is
+writes its output in q's memory layout; bf16 at dh 16, 32 and 256 runs
+mma.sync and fp32 runs fp32 FMAs, both on contiguous copies. Any other
+head dim up to 256 is zero-padded to the next of ``HEAD_DIMS`` (a copy of
+q, k and v), the kernel told the true dh for its softmax scale, and the
+output sliced back. The plain version is
 ``repro_torch.kernels.ref.flash_attention``; ``repro_torch.kernels.ops``
 picks between them by the device of the inputs.
 """
@@ -20,7 +23,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)   # the kernels' instantiated head dims
 WGMMA_HEAD_DIMS = (64, 128)   # bf16 on the Hopper kernel
 _ENTRY = {torch.bfloat16: "bf16", torch.float32: "f32"}
 INVALID_VALUE = 1   # cudaErrorInvalidValue: the entry point refused its inputs
@@ -33,22 +36,28 @@ def _check_shapes(q, k, v) -> None:
             or hkv < 1 or H % hkv or S < 1):
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
+    if not 1 <= dh <= HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {dh} not in [1, {HEAD_DIMS[-1]}]")
 
 
-_CALL = struct.Struct("26q")   # the C entry point's argument array
+def padded_head_dim(dh: int) -> int:
+    """The least instantiated head dim at or above ``dh``."""
+    return next(w for w in HEAD_DIMS if w >= dh)
 
 
-def wgmma_call(q, k, v, o, causal: bool) -> bytes:
+_CALL = struct.Struct("27q")   # the C entry point's argument array
+
+
+def wgmma_call(q, k, v, o, causal: bool, scale_dh: int) -> bytes:
     """The packed arguments of ``flash_attention_wgmma``: the four
     pointers, B, H, Hkv, S, dh, causal, then the element strides of q, k,
     v and o, four each (the C entry point checks them: unit stride in the
-    last dim, 16-byte multiples elsewhere, 16-byte aligned bases)."""
+    last dim, 16-byte multiples elsewhere, 16-byte aligned bases), then
+    the head dim of the softmax scale ``1/sqrt(scale_dh)``."""
     B, H, S, dh = q.shape
     return _CALL.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                       B, H, k.shape[1], S, dh, int(causal), *q.stride(),
-                      *k.stride(), *v.stride(), *o.stride())
+                      *k.stride(), *v.stride(), *o.stride(), scale_dh)
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,7 +67,7 @@ def _card(index: int):
     return (p.major, p.minor), p.name
 
 
-def _flash_wgmma(q, k, v, causal: bool) -> torch.Tensor:
+def _flash_wgmma(q, k, v, causal: bool, scale_dh: int) -> torch.Tensor:
     dev = q.device
     if not q.is_cuda:
         raise ValueError(f"q must be on a CUDA device, got {dev}")
@@ -75,7 +84,7 @@ def _flash_wgmma(q, k, v, causal: bool) -> torch.Tensor:
     lib, fn = _build.entry("flash_attention", 1, 0, "wgmma")
     # the current stream's raw handle (no Stream object: a few microseconds
     # a call, which the encoders' small grids would pay)
-    err = fn(wgmma_call(q, k, v, out, causal),
+    err = fn(wgmma_call(q, k, v, out, causal, scale_dh),
              torch._C._cuda_getCurrentRawStream(dev.index))
     if err == INVALID_VALUE:
         raise ValueError(
@@ -90,26 +99,34 @@ def _flash_wgmma(q, k, v, causal: bool) -> torch.Tensor:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool) -> torch.Tensor:
     """q:[B,H,S,dh], k/v:[B,Hkv,S,dh], one dtype (bf16 or fp32) on one CUDA
-    device; H % Hkv == 0, dh in ``HEAD_DIMS``. bf16 at dh 64/128 takes
-    views with unit stride in dh and other strides in 16-byte multiples
-    (the output keeps q's layout); the other paths copy to contiguous.
-    Returns ``[B,H,S,dh]`` in q's dtype."""
+    device; H % Hkv == 0, 1 <= dh <= 256. bf16 at dh 64/128 takes views
+    with unit stride in dh and other strides in 16-byte multiples (the
+    output keeps q's layout); the other paths copy to contiguous. A dh
+    outside ``HEAD_DIMS`` runs at ``padded_head_dim(dh)`` on zero-padded
+    copies of q, k and v, with the softmax scale of the true dh, and
+    returns a view of the true columns. Returns ``[B,H,S,dh]`` in q's
+    dtype."""
     _check_shapes(q, k, v)
-    if q.dtype == torch.bfloat16 and q.shape[3] in WGMMA_HEAD_DIMS:
-        out = _flash_wgmma(q, k, v, causal)
+    dh = q.shape[3]
+    width = padded_head_dim(dh)
+    if width != dh:
+        pad = (0, width - dh)
+        q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
+    if q.dtype == torch.bfloat16 and width in WGMMA_HEAD_DIMS:
+        out = _flash_wgmma(q, k, v, causal, dh)
     else:
         dev = q.device
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         _build.require(q, "q", tuple(_ENTRY), 4, dev)
         _build.require(k, "k", (q.dtype,), 4, dev)
         _build.require(v, "v", (q.dtype,), 4, dev)
-        B, H, S, dh = q.shape
-        lib, fn = _build.entry("flash_attention", 4, 6, _ENTRY[q.dtype])
+        B, H, S = q.shape[:3]
+        lib, fn = _build.entry("flash_attention", 4, 7, _ENTRY[q.dtype])
         out = torch.empty_like(q)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                 H, k.shape[1], S, dh, int(causal),
+                 H, k.shape[1], S, width, int(causal), dh,
                  torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, "flash_attention", err)
     from repro_torch.kernels.ops import count_launch  # ops imports this module
     count_launch("flash_attention")
-    return out
+    return out if width == dh else out[..., :dh]

@@ -19,6 +19,10 @@ Each replaces the Pallas kernel of the same name in
   second kernel by (score, row).
 
 The second kernels are launched by the same C entry point as the first.
+Above ``MAX_K``, and for a ``pq_topk`` table larger than shared memory, the
+wrappers take ``topk_large`` (every candidate's score, then an exact
+select, in the same order); at row widths that are not a multiple of 4 the
+list kernels read zero-padded copies.
 
 The plain versions are in ``repro_torch.kernels.ref``;
 ``repro_torch.kernels.ops`` picks between them by the device of the inputs.
@@ -29,8 +33,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.ref import pq_lut, probe
+from repro_torch.kernels import _build, topk_large
+from repro_torch.kernels.ref import pad_cols, padded_width, pq_lut, probe
 
 MAX_K = 128
 SMEM_MAX = 232_448   # shared memory a block may use on Hopper (bytes)
@@ -44,10 +48,13 @@ def ivf_topk_cuda(q: torch.Tensor, cent: torch.Tensor,
                   packed_ok: torch.Tensor, nprobe: int, k: int):
     """q:[nq,d] cent:[nlist,d] packed_vecs:[nlist*cap_b,d] fp32,
     packed_slot:[nlist*cap_b] int32, packed_ok:[nlist*cap_b] bool/uint8,
-    all on one CUDA device; d % 4 == 0, 1 <= nprobe <= nlist,
-    1 <= k <= 128. Returns ``(scores [nq,k] f32, slot ids [nq,k] int32)``
-    with ``(NEG, -1)`` padding, in ``ref.ivf_topk``'s order: equal scores
-    keep the lower probe rank, then the lower packed row."""
+    all on one CUDA device; 1 <= nprobe <= nlist, k >= 1. Returns
+    ``(scores [nq,k] f32, slot ids [nq,k] int32)`` with ``(NEG, -1)``
+    padding, in ``ref.ivf_topk``'s order: equal scores keep the lower probe
+    rank, then the lower packed row. At k <= ``MAX_K`` and d % 4 != 0 the
+    kernel reads q, cent and packed_vecs zero-padded to a multiple of 4
+    columns: a copy of the mirror per call (``TorchVectorDB`` keeps its
+    mirror padded instead)."""
     dev = q.device
     _build.require(q, "q", (torch.float32,), 2, dev)
     _build.require(cent, "cent", (torch.float32,), 2, dev)
@@ -64,10 +71,19 @@ def ivf_topk_cuda(q: torch.Tensor, cent: torch.Tensor,
             f"shapes q {tuple(q.shape)} cent {tuple(cent.shape)} packed "
             f"{tuple(packed_vecs.shape)} slot {tuple(packed_slot.shape)} "
             f"ok {tuple(packed_ok.shape)}")
-    if d % 4 or not 1 <= k <= MAX_K or not 1 <= nprobe <= nlist:
-        raise ValueError(f"need d % 4 == 0, 1 <= k <= {MAX_K}, "
-                         f"1 <= nprobe <= nlist; got d={d} k={k} "
+    if k < 1 or not 1 <= nprobe <= nlist:
+        raise ValueError(f"need k >= 1 and 1 <= nprobe <= nlist; got k={k} "
                          f"nprobe={nprobe} nlist={nlist}")
+    from repro_torch.kernels.ops import count_launch  # ops imports this module
+    if k > MAX_K:
+        out = topk_large.ivf_topk(q, probe(q, cent, nprobe).contiguous(),
+                                  packed_vecs, packed_slot, packed_ok,
+                                  rows // nlist, k)
+        count_launch("ivf_topk")
+        return out
+    d = padded_width(d)
+    q, cent = pad_cols(q, d), pad_cols(cent, d)
+    packed_vecs = pad_cols(packed_vecs, d)
     lib, fn = _build.entry("ivf_topk", 12, 7)
     # the centroid scores as the plain probe computes them; the entry point
     # selects the probe from them (up to MAX_K probes; wider, it takes the
@@ -93,7 +109,6 @@ def ivf_topk_cuda(q: torch.Tensor, cent: torch.Tensor,
              top_i.data_ptr(), nq, d, nlist, rows // nlist, nprobe, k, blocks,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "ivf_topk", err)
-    from repro_torch.kernels.ops import count_launch  # ops imports this module
     count_launch("ivf_topk")
     return top_s, top_i
 
@@ -155,12 +170,16 @@ def sq8_limb_scores(limbs: torch.Tensor, e: torch.Tensor,
 def sq8_topk_cuda(q: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                   live: torch.Tensor, k: int):
     """q:[nq,d] fp32, codes:[N,d] int8, scale:[d] fp32, live:[N]
-    bool/uint8, all on one CUDA device; d % 4 == 0 (the kernel keeps the
+    bool/uint8, all on one CUDA device; k >= 1 (the kernel keeps the
     query block's limbs resident in shared memory at d <= 384 and streams
-    them with the codes above that), 1 <= k <= 128. Returns
-    ``(scores [nq,k] f32, idx [nq,k] int32)`` with ``(NEG, -1)`` padding:
-    the top-k of ``sq8_limb_scores``, within 1e-5 of ``ref.sq8_topk``'s
-    scores."""
+    them with the codes above that; above ``MAX_K`` the scores come from
+    ``quant_score``'s kernel and ``topk_large.select`` takes the top k).
+    Returns ``(scores [nq,k] f32, idx [nq,k] int32)`` with ``(NEG, -1)``
+    padding: the top-k of ``sq8_limb_scores``, within 1e-5 of
+    ``ref.sq8_topk``'s scores. At d % 4 != 0 the kernels read q, codes and
+    scale zero-padded to a multiple of 4 columns (scale 0 in the pad): a
+    copy of the codes per call (``TorchVectorDB`` keeps them padded
+    instead)."""
     dev = q.device
     _build.require(q, "q", (torch.float32,), 2, dev)
     _build.require(codes, "codes", (torch.int8,), 2, dev)
@@ -174,9 +193,16 @@ def sq8_topk_cuda(q: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"shapes q {tuple(q.shape)} codes "
                          f"{tuple(codes.shape)} scale {tuple(scale.shape)} "
                          f"live {tuple(live.shape)}")
-    if d % 4 or not 1 <= k <= MAX_K:
-        raise ValueError(f"need d % 4 == 0 and 1 <= k <= {MAX_K}, got "
-                         f"d={d} k={k}")
+    if k < 1:
+        raise ValueError(f"need k >= 1, got k={k}")
+    d = padded_width(d)
+    q, codes, scale = pad_cols(q, d), pad_cols(codes, d), pad_cols(scale, d)
+    from repro_torch.kernels.ops import count_launch  # ops imports this module
+    if k > MAX_K:
+        from repro_torch.kernels.quant_score import score_matrix
+        out = topk_large.select(score_matrix(q, codes, scale), k, live=live)
+        count_launch("sq8_topk")
+        return out
     lib, fn = _build.entry("sq8_topk", 8, 5, "s8")
     n_tiles = -(-n // _build.tile_rows("sq8_topk"))
     n_lists = min(n_tiles, torch.cuda.get_device_properties(
@@ -191,7 +217,6 @@ def sq8_topk_cuda(q: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
              out_i.data_ptr(), top_s.data_ptr(), top_i.data_ptr(), nq, n, d,
              k, n_lists, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "sq8_topk", err)
-    from repro_torch.kernels.ops import count_launch  # ops imports this module
     count_launch("sq8_topk")
     return top_s, top_i
 
@@ -204,9 +229,11 @@ def pq_topk_cuda(q: torch.Tensor, codebook: torch.Tensor, cent: torch.Tensor,
     or int32 in [0, 256) (the reference's codes: range-checked, then
     narrowed to uint8 on the device; a code outside raises ValueError),
     packed_slot:[nlist*cap_b] int32, packed_ok:[nlist*cap_b] bool/uint8,
-    all on one CUDA device; 1 <= nprobe <= nlist, 1 <= k <= 128, and the
-    query's [m, 256] table must fit in shared memory. Returns ``(scores
-    [nq,k] f32, slot ids [nq,k] int32)`` with ``(NEG, -1)`` padding."""
+    all on one CUDA device; 1 <= nprobe <= nlist, k >= 1. Returns
+    ``(scores [nq,k] f32, slot ids [nq,k] int32)`` with ``(NEG, -1)``
+    padding. Above ``MAX_K``, or when the query's ``[m, 256]`` table and
+    the lists exceed shared memory, ``topk_large.pq_topk`` reads the table
+    from global memory."""
     dev = q.device
     _build.require(q, "q", (torch.float32,), 2, dev)
     _build.require(codebook, "codebook", (torch.float32,), 3, dev)
@@ -231,16 +258,20 @@ def pq_topk_cuda(q: torch.Tensor, codebook: torch.Tensor, cent: torch.Tensor,
     # probe group's 32-row groups
     smem = (4 * m * 256 + 8 * 8 * (k + 32)
             + 8 * PQ_GROUP * -(-(rows // nlist) // 32))
-    if not 1 <= k <= MAX_K or not 1 <= nprobe <= nlist or smem > SMEM_MAX:
-        raise ValueError(f"need 1 <= k <= {MAX_K}, 1 <= nprobe <= nlist and "
-                         f"a table of at most {SMEM_MAX} bytes with the "
-                         f"lists; got k={k} nprobe={nprobe} nlist={nlist} "
-                         f"m={m} ({smem} bytes)")
+    if k < 1 or not 1 <= nprobe <= nlist:
+        raise ValueError(f"need k >= 1 and 1 <= nprobe <= nlist; got k={k} "
+                         f"nprobe={nprobe} nlist={nlist}")
     if packed_codes.dtype == torch.int32:
         packed_codes = narrow_codes(packed_codes)
-    lib, fn = _build.entry("pq_topk", 10, 6, "u8")
     lut = pq_lut(q, codebook).contiguous()
-    probes = probe(q, cent, nprobe)
+    probes = probe(q, cent, nprobe).contiguous()
+    from repro_torch.kernels.ops import count_launch  # ops imports this module
+    if k > MAX_K or smem > SMEM_MAX:
+        out = topk_large.pq_topk(lut, probes, packed_codes, packed_slot,
+                                 packed_ok, rows // nlist, k)
+        count_launch("pq_topk")
+        return out
+    lib, fn = _build.entry("pq_topk", 10, 6, "u8")
     groups = -(-nprobe // PQ_GROUP)
     out_s = torch.empty((nq, groups, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, groups, k), dtype=torch.int32, device=dev)
@@ -253,7 +284,6 @@ def pq_topk_cuda(q: torch.Tensor, codebook: torch.Tensor, cent: torch.Tensor,
              top_s.data_ptr(), top_i.data_ptr(), nq, m, rows // nlist,
              nprobe, PQ_GROUP, k, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "pq_topk", err)
-    from repro_torch.kernels.ops import count_launch  # ops imports this module
     count_launch("pq_topk")
     return top_s, top_i
 

@@ -16,14 +16,27 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_retrieve import sq8_limbs
-
+from repro_torch.kernels.ref import pad_cols, padded_width
 
 
 def quant_score_cuda(q: torch.Tensor, codes: torch.Tensor,
                      scale: torch.Tensor) -> torch.Tensor:
     """q:[nq,d] fp32, codes:[N,d] int8, scale:[d] fp32, all on one CUDA
-    device; d % 4 == 0. Returns the scores ``[nq, N]`` fp32:
-    ``sq8_limb_scores``, within 1e-5 of ``ref.quant_score``."""
+    device. Returns the scores ``[nq, N]`` fp32: ``sq8_limb_scores``,
+    within 1e-5 of ``ref.quant_score``. At d % 4 != 0 the kernel reads q,
+    codes and scale zero-padded to a multiple of 4 columns (scale 0 in the
+    pad, so the limbs and scores are those of the unpadded rows): a copy of
+    the codes per call (``TorchVectorDB`` keeps them padded instead)."""
+    out = score_matrix(q, codes, scale)
+    from repro_torch.kernels.ops import count_launch  # ops imports this module
+    count_launch("quant_score")
+    return out
+
+
+def score_matrix(q: torch.Tensor, codes: torch.Tensor,
+                 scale: torch.Tensor) -> torch.Tensor:
+    """``quant_score_cuda`` without counting a launch: ``sq8_topk``'s
+    large-k path takes its scores from here and counts its own."""
     dev = q.device
     _build.require(q, "q", (torch.float32,), 2, dev)
     _build.require(codes, "codes", (torch.int8,), 2, dev)
@@ -33,8 +46,8 @@ def quant_score_cuda(q: torch.Tensor, codes: torch.Tensor,
     if codes.shape[1] != d or scale.shape[0] != d or n < 1 or nq < 1:
         raise ValueError(f"shapes q {tuple(q.shape)} codes "
                          f"{tuple(codes.shape)} scale {tuple(scale.shape)}")
-    if d % 4:
-        raise ValueError(f"need d % 4 == 0, got d={d}")
+    d = padded_width(d)
+    q, codes, scale = pad_cols(q, d), pad_cols(codes, d), pad_cols(scale, d)
     lib, fn = _build.entry("quant_score", 4, 4, "s8")
     blocks = min(-(-n // _build.tile_rows("quant_score")),
                  torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -44,6 +57,4 @@ def quant_score_cuda(q: torch.Tensor, codes: torch.Tensor,
              out.data_ptr(), nq, n, d, blocks,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "quant_score", err)
-    from repro_torch.kernels.ops import count_launch  # ops imports this module
-    count_launch("quant_score")
     return out

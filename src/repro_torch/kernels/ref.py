@@ -15,6 +15,20 @@ import math
 import torch
 
 NEG = -3.0e38
+ROW_ALIGN = 4   # the list kernels read rows in 16-byte units: d % 4 == 0
+
+
+def padded_width(d: int) -> int:
+    """``d`` rounded up to ``ROW_ALIGN``."""
+    return -(-d // ROW_ALIGN) * ROW_ALIGN
+
+
+def pad_cols(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t [..., d]`` with zero columns up to ``[..., width]``: a copy, or
+    ``t`` itself when ``d == width``. A zero column changes no inner
+    product, so the padded search is the same search."""
+    d = t.shape[-1]
+    return t if d == width else torch.nn.functional.pad(t, (0, width - d))
 
 
 def stable_topk(scores: torch.Tensor, k: int):

@@ -6,16 +6,18 @@ corpus tiles against a block of queries; block ``b`` of ``G`` walks tiles
 ``b, b + G, ...`` with one top-k list per query (``[nq, G, k]``
 candidates, ``G`` at most two blocks per SM). The global merge takes the
 top k by score, equal scores by lower row: the order of ``lax.top_k`` over
-the whole score matrix, with which the JAX package merges. The plain version is
-``repro_torch.kernels.ref.topk_search``; ``repro_torch.kernels.ops`` picks
-between them by the device of the inputs.
+the whole score matrix, with which the JAX package merges. Above ``MAX_K`` the wrapper
+takes ``topk_large.flat_topk`` (every score, then an exact select, in the
+same order). The plain version is ``repro_torch.kernels.ref.topk_search``;
+``repro_torch.kernels.ops`` picks between them by the device of the inputs.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels.ref import NEG, merge_candidates
+from repro_torch.kernels import _build, topk_large
+from repro_torch.kernels.ref import (NEG, merge_candidates, pad_cols,
+                                     padded_width)
 
 MAX_K = 128
 BLOCKS_PER_SM = 2   # the kernel's residency at k <= 56
@@ -24,8 +26,10 @@ BLOCKS_PER_SM = 2   # the kernel's residency at k <= 56
 def topk_search_cuda(q: torch.Tensor, vecs: torch.Tensor, live: torch.Tensor,
                      k: int):
     """q:[nq,d] vecs:[N,d] fp32, live:[N] bool/uint8, all on one CUDA
-    device; d % 4 == 0, 1 <= k <= 128. Returns ``(scores [nq,k] f32,
-    idx [nq,k] int32)`` with ``(NEG, -1)`` padding."""
+    device; k >= 1. Returns ``(scores [nq,k] f32, idx [nq,k] int32)`` with
+    ``(NEG, -1)`` padding. At k <= ``MAX_K`` and d % 4 != 0 the kernel
+    reads q and vecs zero-padded to a multiple of 4 columns: a copy of the
+    corpus per call (``TorchVectorDB`` keeps its rows padded instead)."""
     dev = q.device
     _build.require(q, "q", (torch.float32,), 2, dev)
     _build.require(vecs, "vecs", (torch.float32,), 2, dev)
@@ -36,9 +40,15 @@ def topk_search_cuda(q: torch.Tensor, vecs: torch.Tensor, live: torch.Tensor,
     if vecs.shape[1] != d or live.shape[0] != n or n < 1 or nq < 1:
         raise ValueError(f"shapes q {tuple(q.shape)} vecs "
                          f"{tuple(vecs.shape)} live {tuple(live.shape)}")
-    if d % 4 or not 1 <= k <= MAX_K:
-        raise ValueError(f"need d % 4 == 0 and 1 <= k <= {MAX_K}, got "
-                         f"d={d} k={k}")
+    if k < 1:
+        raise ValueError(f"need k >= 1, got k={k}")
+    from repro_torch.kernels.ops import count_launch  # ops imports this module
+    if k > MAX_K:
+        out = topk_large.flat_topk(q, vecs, live, k)
+        count_launch("topk_search")
+        return out
+    d = padded_width(d)
+    q, vecs = pad_cols(q, d), pad_cols(vecs, d)
     lib, fn = _build.entry("topk_search", 5, 5)
     n_tiles = -(-n // _build.tile_rows("topk_search"))
     n_lists = min(n_tiles, BLOCKS_PER_SM * torch.cuda.get_device_properties(
@@ -49,7 +59,6 @@ def topk_search_cuda(q: torch.Tensor, vecs: torch.Tensor, live: torch.Tensor,
              out_s.data_ptr(), out_i.data_ptr(), nq, n, d, k, n_lists,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "topk_search", err)
-    from repro_torch.kernels.ops import count_launch  # ops imports this module
     count_launch("topk_search")
     return merge_by_row(out_s.view(nq, n_lists * k),
                         out_i.view(nq, n_lists * k), k)

@@ -19,18 +19,21 @@ per-stage pipelined ``StagedExecutor`` and prints per-stage occupancy.
 per-stage replica pools driven by an ``AutoscaleController``. ``--trace-out``
 writes a Chrome/Perfetto trace plus a ``.jsonl`` sibling. ``--scenario NAME``
 runs a registered scenario (``--scenario-sim``: the deterministic replay;
-``--scenario list``: the catalog). The token-level engine's flags
-(``--gen-engine*``) fail naming the ROADMAP.md item that ports it.
+``--scenario list``: the catalog). ``--gen-engine`` (with ``--gen-slots``,
+``--gen-chunk`` and ``--gen-admission``) serves the ``model`` generator
+through the token-level continuous-batching engine, as the spec's ``gen``
+block does.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
 
 from repro_torch.core.registry import build
-from repro_torch.core.spec import PipelineSpec, StageSpec
+from repro_torch.core.spec import GenSpec, PipelineSpec, StageSpec
 from repro_torch.metrics.quality import evaluate_traces
 from repro_torch.monitor.monitor import MonitorConfig, ResourceMonitor
 from repro_torch.obs import (MetricsRegistry, Tracer, VirtualClock, WallClock,
@@ -44,16 +47,6 @@ from repro_torch.serving.staged import StagedExecutor
 from repro_torch.workload.corpus import CorpusConfig, SyntheticCorpus
 from repro_torch.workload.generator import WorkloadConfig, WorkloadGenerator
 from repro_torch.workload.runner import gold_chunks_for, run_workload
-
-# flags of repro.launch.serve that the port does not take yet -> the item
-# of ROADMAP.md queue 1 that ports them
-NOT_PORTED = {
-    "--gen-engine": "queue 1 item 8 (the token-level engine)",
-    "--gen-slots": "queue 1 item 8 (the token-level engine)",
-    "--gen-chunk": "queue 1 item 8 (the token-level engine)",
-    "--gen-admission": "queue 1 item 8 (the token-level engine)",
-}
-
 
 def write_trace(path: str, tracer, registry=None) -> None:
     """Emit the Chrome/Perfetto ``trace_event`` JSON plus a line-delimited
@@ -157,6 +150,17 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="device of every component (cuda or cpu)")
     ap.add_argument("--monitor-out", default="")
+    # continuous-batching generation engine (token-level scheduling)
+    ap.add_argument("--gen-engine", action="store_true",
+                    help="serve generation through the token-level "
+                         "continuous-batching engine (model llm only)")
+    ap.add_argument("--gen-slots", type=int, default=4,
+                    help="KV-cache slot pool size for --gen-engine")
+    ap.add_argument("--gen-chunk", type=int, default=32,
+                    help="chunked-prefill granularity for --gen-engine")
+    ap.add_argument("--gen-admission", default="fcfs",
+                    choices=["fcfs", "sjf"],
+                    help="slot admission policy for --gen-engine")
     ap.add_argument("--json-out", default="",
                     help="write the run document (summary, per-stage "
                          "occupancy table, scaling events, quality, stage "
@@ -209,13 +213,7 @@ def main(argv=None):
     # default None so run_scenario can tell "--seed 0" from "not given"
     # (a scenario's own seed must only be overridden explicitly)
     ap.add_argument("--seed", type=int, default=None)
-    for flag in NOT_PORTED:
-        ap.add_argument(flag, default=None, nargs="?", const=True,
-                        help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    for flag, item in NOT_PORTED.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            ap.error(f"{flag} is not ported yet: ROADMAP.md {item}")
     if args.scenario:
         return run_scenario(args)
     if args.seed is None:
@@ -237,6 +235,13 @@ def main(argv=None):
             "arch": args.arch, "smoke": args.smoke, "batch_size": args.batch,
             "max_new": args.max_new, "max_prompt": 128},
             batch_size=args.batch)
+    if args.gen_engine:
+        if spec.llm.component != "model":
+            ap.error("--gen-engine needs the 'model' llm "
+                     "(--arch or a spec with llm.component == 'model')")
+        spec = dataclasses.replace(spec, gen=GenSpec(
+            enabled=True, slots=args.gen_slots, chunk_tokens=args.gen_chunk,
+            admission=args.gen_admission))
     # --elastic forces it; otherwise the spec's autoscale block opts in
     elastic_on = args.elastic or (args.mode != "sync"
                                   and spec.autoscale.enabled)
@@ -251,6 +256,9 @@ def main(argv=None):
             # lock-step / staged paths: batch-level stage spans; the elastic
             # executor records richer per-item spans itself (never both)
             attach_pipeline(tracer, pipe)
+        eng = getattr(pipe.llm, "engine", None)
+        if eng is not None:   # token-level instants (clones inherit it)
+            eng.tracer = tracer
     monitor = ResourceMonitor(MonitorConfig(out_path=args.monitor_out)).start()
     monitor.add_gauge("db_live", lambda: pipe.db.stats()["live"])
 
@@ -396,6 +404,11 @@ def main(argv=None):
     doc["gen"] = gen_block
     if gen_block:
         print("gen stats:", {k: round(v, 4) for k, v in gen_block.items()})
+    eng = getattr(pipe.llm, "engine", None)
+    if eng is not None:   # the engine's scheduling counts, clones included
+        doc["engine"] = eng.counters.summary()
+        print("gen engine:", {k: round(v, 3)
+                              for k, v in doc["engine"].items()})
     print("stage breakdown (s):",
           {k: round(v, 3) for k, v in pipe.breakdown().items()})
     monitor.stop()

@@ -77,6 +77,11 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.n_heads
 
+    @property
+    def uses_tokens(self) -> bool:
+        """Whether the primary input is token ids (vs precomputed embeddings)."""
+        return self.family not in ("vlm",)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

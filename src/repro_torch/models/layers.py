@@ -1,16 +1,18 @@
 """Layers of the dense transformer: the port of ``repro.models.layers``
-(norm, RoPE, MLP variants, grouped-query attention, full-sequence and one
-cached decode step).
+(norm, RoPE, MLP variants, grouped-query attention, full-sequence, one
+cached decode step and one chunk of a chunked prefill).
 
 Tensors keep the reference's layouts: activations ``[B, S, D]``, heads
 ``[B, S, H, hd]``, weights ``[in, out]`` applied as ``x @ W``, KV caches
 ``[B, max_len, Hkv, hd]``. Full-sequence attention goes through
 ``repro_torch.kernels.ops.flash_attention`` (the hand-written kernel on the
-card, its plain version on the CPU); the decode step against the cache is
-plain torch, as the reference computes it outside any Pallas kernel. The
-reference's ``constrain`` (a sharding hint, a no-op on one device) is
-dropped; M-RoPE, sinusoidal positions, chunked prefill and cross attention
-wait for the items that need them (ROADMAP.md queue 1 items 7, 8 and 9).
+card, its plain version on the CPU); the decode step and the prefill chunk
+against the cache are plain torch, as the reference computes them outside
+any Pallas kernel (a chunk's queries and the cache's keys differ in length,
+which the kernel's contract does not take). The reference's ``constrain``
+(a sharding hint, a no-op on one device) is dropped; M-RoPE, sinusoidal
+positions and cross attention wait for the items that need them (ROADMAP.md
+queue 1 items 7 and 9).
 """
 from __future__ import annotations
 
@@ -180,3 +182,42 @@ def cached_attention_step(params: Params, x: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bkrqm,bmkd->bqkrd", probs, cache_v)
     return out.reshape(B, 1, cfg.n_heads * hd) @ params["wo"]
+
+
+def cached_attention_chunk(params: Params, x: torch.Tensor,
+                           cache_k: torch.Tensor, cache_v: torch.Tensor,
+                           offset: int, cfg: ModelConfig):
+    """Chunked-prefill attention: the ``C`` prompt tokens ``x [B,C,D]`` at
+    positions ``[offset, offset + C)`` attend causally to the earlier
+    chunks already in ``cache_k/v [B,max_len,Hkv,hd]`` and to themselves.
+    Their K/V are written into the caches in place at those positions;
+    keys past each query's position are masked, so stale K/V of a slot's
+    previous occupant is never attended. Returns the attention output
+    ``[B,C,D]``, as the reference computes it."""
+    require_full_attention(cfg)
+    hd = cfg.resolved_head_dim
+    B, C = x.shape[:2]
+    q = _split_heads(x @ params["wq"], cfg.n_heads, hd)          # [B,C,H,hd]
+    k = _split_heads(x @ params["wk"], cfg.n_kv_heads, hd)
+    v = _split_heads(x @ params["wv"], cfg.n_kv_heads, hd)
+    pos = offset + torch.arange(C, device=x.device)              # [C]
+    if cfg.rope_type == "rope":
+        posb = pos[None, :].expand(B, C)
+        q = apply_rope(q, posb, cfg.rope_theta)
+        k = apply_rope(k, posb, cfg.rope_theta)
+    elif cfg.rope_type != "none":
+        raise NotImplementedError(
+            f"rope_type {cfg.rope_type!r} is not ported yet: ROADMAP.md "
+            f"queue 1 item 7 (vlm, M-RoPE)")
+    cache_k[:, offset:offset + C] = k.to(cache_k.dtype)
+    cache_v[:, offset:offset + C] = v.to(cache_v.dtype)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    q = q.reshape(B, C, cfg.n_kv_heads, n_rep, hd)
+    scores = torch.einsum("bqkrd,bmkd->bkrqm", q, cache_k).float()
+    scores = scores / math.sqrt(hd)
+    kpos = torch.arange(cache_k.shape[1], device=x.device)
+    ok = kpos[None, :] <= pos[:, None]                           # [C, M]
+    scores = scores.masked_fill(~ok[None, None, None], float("-inf"))
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bkrqm,bmkd->bqkrd", probs, cache_v)
+    return out.reshape(B, C, cfg.n_heads * hd) @ params["wo"]

@@ -160,6 +160,25 @@ class Transformer(nn.Module):
         x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
         return (x @ self.head())[:, 0], cache
 
+    def prefill_chunk(self, tokens: torch.Tensor, cache: Dict, offset: int):
+        """Chunked prefill: the ``C`` prompt tokens ``[B,C]`` at positions
+        ``[offset, offset + C)`` against the cache, whose earlier chunks of
+        the same sequences lie below ``offset``; their K/V are written in
+        place. Returns ``(logits [B,C,V], cache)``: every position's
+        logits, so the caller can take the last real token's from a
+        right-padded chunk. ``cache["pos"]`` is left to the caller (the
+        engine keeps per-slot positions itself)."""
+        cfg = self.cfg
+        x = self._embed(tokens)
+        for i, blk in enumerate(self.layers):
+            h = L.rmsnorm(x, blk.attn_norm, cfg.norm_eps)
+            x = x + L.cached_attention_chunk(blk.attn, h, cache["k"][i],
+                                             cache["v"][i], offset, cfg)
+            h = L.rmsnorm(x, blk.mlp_norm, cfg.norm_eps)
+            x = x + L.mlp_apply(blk.mlp, h, cfg.activation)
+        x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
+        return x @ self.head(), cache
+
     def decode_step(self, tokens: torch.Tensor, cache: Dict):
         """One-token decode, tokens ``[B,1]``; ``cache["pos"]`` is an int
         (lock-step) or a ``[B]`` tensor (per-row positions). Writes the new

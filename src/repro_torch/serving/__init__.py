@@ -1,8 +1,8 @@
 """Concurrent serving layer of the port: load generation, continuous
 batching, latency accounting, and pipelined and elastic replicated execution
 (the "serving benchmark" regime on top of the offline replay in
-``repro_torch.workload.runner``). The port of ``repro.serving``, without the
-token-level engine (ROADMAP.md queue 1 item 8)."""
+``repro_torch.workload.runner``), and the token-level continuous-batching
+generation engine. The port of ``repro.serving``."""
 from repro_torch.serving.accounting import (LatencyAccountant, RequestRecord,
                                             percentile)
 from repro_torch.serving.arrival import ArrivalConfig, arrival_times
@@ -16,6 +16,7 @@ from repro_torch.serving.elastic import (ElasticExecutor, ElasticResult,
                                          ReplicaKilled)
 from repro_torch.serving.faults import (FAULT_KINDS, FaultEvent,
                                         FaultInjector, FaultSpec)
+from repro_torch.serving.genengine import EngineLLM, GenEngine, GenRequest
 from repro_torch.serving.harness import (ServingConfig, ServingHarness,
                                          ServingResult)
 from repro_torch.serving.staged import StagedExecutor, StagedResult, StageStats
@@ -26,6 +27,7 @@ __all__ = [
     "StageSample", "default_ladder",
     "BatchPolicy", "ContinuousBatcher", "Submission",
     "ElasticExecutor", "ElasticResult", "ReplicaKilled",
+    "EngineLLM", "GenEngine", "GenRequest",
     "FAULT_KINDS", "FaultEvent", "FaultInjector", "FaultSpec",
     "LatencyAccountant", "RequestRecord", "percentile",
     "ServingConfig", "ServingHarness", "ServingResult",

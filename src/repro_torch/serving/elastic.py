@@ -213,8 +213,9 @@ class ElasticExecutor:
                     rerank_k: Optional[int] = None,
                     max_new: Optional[int] = None) -> None:
         """Set quality knobs; takes effect on the next batch.  ``max_new``
-        reaches every generation replica's generator (later batches decode
-        shorter), joining ``nprobe``/``rerank_k`` on the quality ladder."""
+        reaches every generation replica's generator or engine (later
+        batches, or newly admitted requests, decode shorter), joining
+        ``nprobe``/``rerank_k`` on the quality ladder."""
         for st in self.stages:
             if nprobe is not None and isinstance(st, RetrieveStage) \
                     and hasattr(st.db, "set_nprobe"):

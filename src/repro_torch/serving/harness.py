@@ -47,13 +47,22 @@ def warm_up(pipeline) -> None:
     """One query through the pipeline before traffic, so first-call costs
     stay out of the measured tail. On the card it first compiles every
     kernel of ``csrc/`` that is not built yet (nvcc, once per checkout):
-    the freshness scan's kernel, say, first launches only after a write."""
+    the freshness scan's kernel, say, first launches only after a write.
+    The generator's ``GenStats`` (and a token-level engine's counters) are
+    left as the query found them: it is not a request of the run."""
     dev = getattr(pipeline.db, "device", None)
     if dev is not None and torch.device(dev).type == "cuda":
         from repro_torch.kernels import _build
         _build.build_all()
+    llm = pipeline.llm
+    kept = [(obj, obj.copy()) for obj in (
+        getattr(llm, "stats", None),
+        getattr(getattr(llm, "engine", None), "counters", None))
+        if hasattr(obj, "reset")]
     pipeline.query(["warmup query"])
     pipeline.traces.clear()
+    for obj, before in kept:
+        obj.reset(before)
 
 
 @dataclass

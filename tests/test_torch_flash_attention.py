@@ -122,6 +122,34 @@ def test_flash_attention_strided_views(B, H, Hkv, S, dh, causal, dtype):
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dh", [8, 24, 80, 96, 200])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_any_head_dim_matches_jax(dh, dtype):
+    """Head dims off the kernel's widths (24 is the granite smoke config's,
+    80 zamba2's): the plain version against the JAX reference. In fp32,
+    the card's wrapper's padding is exact: q, k, v zero-padded to
+    ``padded_head_dim(dh)`` and scored at the true dh's scale (q scaled by
+    sqrt(width / dh) for the plain version, which scales by its width)
+    give the same output in the true columns and zeros past them."""
+    jdt, tdt, tol = DTYPES[dtype]
+    arrays = _qkv(np.random.default_rng(dh), 2, 4, 2, 40, dh)
+    want = jref.flash_attention(*(jnp.asarray(a, jdt) for a in arrays),
+                                causal=True)
+    got = ops.flash_attention(*_torch(arrays, tdt), causal=True)
+    assert got.shape == (2, 4, 40, dh)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+    width = tfa.padded_head_dim(dh)
+    assert width in tfa.HEAD_DIMS and width >= dh
+    if dtype == "float32":
+        q, k, v = (torch.nn.functional.pad(t, (0, width - dh))
+                   for t in _torch(arrays, tdt))
+        padded = ref.flash_attention(q * (width / dh) ** 0.5, k, v,
+                                     causal=True)
+        np.testing.assert_allclose(padded[..., :dh].numpy(), got.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        assert (padded[..., dh:] == 0).all()
+
+
 # -- on the card ----------------------------------------------------------------
 
 
@@ -228,3 +256,25 @@ def test_flash_wgmma_refuses_other_cards(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError, match="sm_90"):
         ops.flash_attention(*args, causal=True)
     assert ops.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [8, 24, 80, 96, 200, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernel_any_head_dim(cuda_device, dh, dtype, causal):
+    """Any dh <= 256 on the card: zero-padded to the next instantiated
+    width with the true dh's softmax scale (a wrong scale moves every
+    score), against the plain version at the true dh."""
+    _, tdt, tol = DTYPES[dtype]
+    args = _torch(_qkv(np.random.default_rng(dh + causal), 2, 6, 2, 130,
+                       dh), tdt, cuda_device)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(*args, causal=causal)
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert got.shape == (2, 6, 130, dh) and got.dtype == tdt
+    want = ref.flash_attention(*args, causal=causal)
+    assert not bool(got.isnan().any())
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+    if dtype == "bfloat16":
+        assert _row_rel_err(got, want) <= ATTN_ROW_REL_LIMIT

@@ -30,6 +30,11 @@ from repro_torch.kernels import fused_retrieve as tfr  # noqa: E402
 from repro_torch.kernels import quant_score as tqs  # noqa: E402
 from repro_torch.kernels import topk_search as tts  # noqa: E402
 from repro_torch.kernels.parity import compare_topk  # noqa: E402
+from repro.core.interfaces import Chunk as JChunk  # noqa: E402
+from repro.core.vectordb import DBConfig as JDBConfig  # noqa: E402
+from repro.core.vectordb import JaxVectorDB  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.core.interfaces import Chunk  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -401,6 +406,67 @@ def test_ivf_bucket_major_lists_merge_matches_jax(nq, nlist, cap_b, d,
     assert hits or k < 40
 
 
+# -- any row width, any k --------------------------------------------------------
+
+
+@pytest.mark.parametrize("d", [1, 3, 130, 383])
+def test_zero_columns_change_no_search(d):
+    """``ref.pad_cols`` to ``padded_width(d)`` (what the card's wrappers
+    and ``TorchVectorDB`` do at d % 4 != 0) leaves the plain searches'
+    results as they are, bit for bit."""
+    rng = np.random.default_rng(d)
+    q, vecs, cent = _t(_unit(rng, 5, d), _unit(rng, 96, d), _unit(rng, 4, d))
+    live = torch.from_numpy(rng.random(96) < 0.8)
+    w = ref.padded_width(d)
+    assert w % 4 == 0 and 0 <= w - d < 4
+    assert ref.pad_cols(q, d) is q
+    pq, pv, pc = (ref.pad_cols(t, w) for t in (q, vecs, cent))
+    assert pq.shape == (5, w) and (pq[:, d:] == 0).all()
+    for want, got in [
+            (ref.topk_search(q, vecs, live, 200),
+             ref.topk_search(pq, pv, live, 200)),
+            (ref.ivf_topk(q, cent, vecs, torch.arange(96, dtype=torch.int32),
+                          live, 2, 30),
+             ref.ivf_topk(pq, pc, pv, torch.arange(96, dtype=torch.int32),
+                          live, 2, 30))]:
+        assert torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
+
+
+@pytest.mark.parametrize("index_type", ["flat", "ivf"])
+@pytest.mark.parametrize("d", [3, 130])
+@pytest.mark.parametrize("k", [200, 300])
+def test_db_at_any_width_and_large_k_matches_jax(index_type, d, k):
+    """The port's DB at a row width off the kernels' 16-byte unit and k above
+    their lists' 128, held to the JAX DB on the same state: its device rows
+    and centroids padded with zero columns, results equal by the parity
+    rule, ``(NEG, -1)`` past the live candidates (k = 300 > 240 rows)."""
+    rng = np.random.default_rng(d + k)
+    n = 240
+    jdb = JaxVectorDB(JDBConfig(index_type=index_type, dim=d, capacity=n + 64,
+                                nlist=4, nprobe=2, flat_capacity=48,
+                                use_kernel="fused"))
+    jdb.insert(_unit(rng, n, d), [JChunk(chunk_id=-1, doc_id=i // 4,
+                                         text=f"c{i}") for i in range(n)])
+    jdb.build_index()
+    tdb = convert.db_from_jax(jdb, device="cpu")
+    assert tdb.vectors.shape[1] == tdb.width == ref.padded_width(d)
+    assert (tdb.vectors[:, d:] == 0).all()
+    fresh = _unit(rng, 12, d)
+    jdb.insert(fresh.copy(), [JChunk(chunk_id=-1, doc_id=900, text="f")
+                              for _ in range(12)])
+    tdb.insert(fresh.copy(), [Chunk(chunk_id=-1, doc_id=900, text="f")
+                              for _ in range(12)])
+    q = _unit(rng, 6, d)
+    js, ji = jdb._search_arrays(jnp.asarray(q), k)
+    ts, ti = tdb.search_arrays(torch.from_numpy(q), k)
+    assert ts.shape == (6, k)
+    got = compare_topk(np.asarray(js), np.asarray(ji), ts, ti)
+    assert got["violations"] == 0, got
+    assert (ti >= 0).sum(1).max() <= n + 12
+    off = tdb.search_arrays(torch.from_numpy(q), k, rung="off")
+    assert compare_topk(*off, ts, ti)["violations"] == 0
+
+
 # -- dispatch and the CUDA wrappers' input checks -------------------------------
 
 
@@ -728,3 +794,52 @@ def test_topk_search_kernel_dead_tiles(cuda_device, k):
         want, got = ref.topk_search(*args, k), ops.topk_search(*args, k)
         assert compare_topk(*want, *got)["violations"] == 0
         _padding_contract(got[0].cpu(), got[1].cpu(), int(mask.sum()))
+
+
+# the card's limits lifted: k above the lists' 128 (the large-k path), row
+# widths off the 16-byte unit (zero-padded), k above the live rows
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 130, 383])
+@pytest.mark.parametrize("k", [16, 129, 500, 1024])
+def test_topk_search_kernel_any_width_and_k(cuda_device, d, k):
+    rng = np.random.default_rng(d * 7 + k)
+    q, vecs = _unit(rng, 9, d), _unit(rng, 3000, d)
+    for p_live in (0.9, 0.1):      # 0.1: fewer live rows than k at k >= 500
+        live = rng.random(3000) < p_live
+        args = [a.to(cuda_device) for a in _t(q, vecs, live)]
+        ops.reset_launch_counts()
+        got = ops.topk_search(*args, k)
+        assert ops.launch_counts()["topk_search"] == 1
+        want = ref.topk_search(*args, k)
+        assert compare_topk(*want, *got)["violations"] == 0
+        _padding_contract(got[0].cpu(), got[1].cpu(), int(live.sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 130, 383])
+@pytest.mark.parametrize("k", [16, 129, 500, 1024])
+def test_ivf_topk_kernel_any_width_and_k(cuda_device, d, k):
+    rng = np.random.default_rng(d * 11 + k)
+    nq, nlist, cap_b = 6, 8, 96
+    q, cent = _unit(rng, nq, d), _unit(rng, nlist, d)
+    args = [a.to(cuda_device) for a in _t(q, cent, *_packed(
+        rng, nlist, cap_b, d, 0.7, dup=True))]
+    ops.reset_launch_counts()
+    got = ops.ivf_topk(*args, 4, k)
+    assert ops.launch_counts()["ivf_topk"] == 1
+    want = ref.ivf_topk(*args, 4, k)
+    assert compare_topk(*want, *got)["violations"] == 0
+    assert torch.equal(got[1], want[1])   # exact ties keep lax.top_k's order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [129, 500, 1024])
+def test_topk_search_kernel_large_k_tie_order(cuda_device, k):
+    """Grid rows (exact fp32 scores, many equal): the large-k path keeps
+    the lower row first on equal scores, as ``lax.top_k`` does."""
+    rng = np.random.default_rng(k)
+    q, vecs = _grid(rng, 5, 24), _grid(rng, 5000, 24)
+    live = rng.random(5000) < 0.8
+    args = [a.to(cuda_device) for a in _t(q, vecs, live)]
+    want, got = ref.topk_search(*args, k), ops.topk_search(*args, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

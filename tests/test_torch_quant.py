@@ -27,6 +27,10 @@ from repro.kernels.quant_score import quant_score_pallas  # noqa: E402
 from repro_torch.kernels import fused_retrieve as tfr  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.parity import compare_topk  # noqa: E402
+from repro.core.interfaces import Chunk as JChunk  # noqa: E402
+from repro.core.vectordb import DBConfig as JDBConfig  # noqa: E402
+from repro.core.vectordb import JaxVectorDB  # noqa: E402
+from repro_torch import convert  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -502,6 +506,73 @@ def test_op_rung_selects_by_key_like_off(k):
 # -- on the card ----------------------------------------------------------------
 
 
+@pytest.mark.parametrize("index_type,quant", [("flat", "sq8"),
+                                              ("ivf", "pq")])
+@pytest.mark.parametrize("d", [3, 130])
+@pytest.mark.parametrize("k", [200, 300])
+def test_quantized_db_at_any_width_and_large_k_matches_jax(index_type, quant,
+                                                           d, k):
+    """The quantized DBs at a row width off the kernels' 16-byte unit and k
+    above their lists' 128, on the fused rung, held to the JAX DB on the
+    same state: the SQ8 codes padded with zero columns and scale 0 there
+    (the PQ tables keep the true width), results equal by the parity rule,
+    ``(NEG, -1)`` past the live candidates."""
+    rng = np.random.default_rng(d * 3 + k)
+    n = 240
+    jdb = JaxVectorDB(JDBConfig(index_type=index_type, quant=quant, dim=d,
+                                capacity=n + 64, nlist=4, nprobe=2,
+                                flat_capacity=48, pq_m=1 if d % 2 else 2,
+                                use_kernel="fused"))
+    jdb.insert(_unit(rng, n, d), [JChunk(chunk_id=-1, doc_id=i // 4,
+                                         text=f"c{i}") for i in range(n)])
+    jdb.build_index()
+    tdb = convert.db_from_jax(jdb, device="cpu")
+    w = ref.padded_width(d)
+    if quant == "sq8":
+        assert tdb.sq_codes.shape[1] == tdb.sq_scale.shape[0] == w
+        assert (tdb.sq_codes[:, d:] == 0).all()
+        assert (tdb.sq_scale[d:] == 0).all()
+    q = _unit(rng, 6, d)
+    js, ji = jdb._search_arrays(jnp.asarray(q), k)
+    ts, ti = tdb.search_arrays(torch.from_numpy(q), k)
+    got = compare_topk(np.asarray(js), np.asarray(ji), ts, ti)
+    assert got["violations"] == 0, got
+    off = tdb.search_arrays(torch.from_numpy(q), k, rung="off")
+    assert compare_topk(*off, ts, ti)["violations"] == 0
+
+
+@pytest.mark.parametrize("index_type,quant", [("ivf", "none"),
+                                              ("flat", "sq8"), ("ivf", "pq")])
+def test_db_builds_its_own_index_at_any_width(index_type, quant):
+    """A DB at d = 130 that trains its own index (k-means, SQ8 scale and
+    codes, PQ codebooks) on its padded rows: zero columns in the rows and
+    centroids, SQ8 codes and scale 0 in the pad, and the fused rung equal
+    to the plain one at k = 150, before and after fresh inserts."""
+    from repro_torch.core.interfaces import Chunk
+    from repro_torch.core.vectordb import DBConfig, TorchVectorDB
+
+    rng = np.random.default_rng(130)
+    d = 130
+    db = TorchVectorDB(DBConfig(index_type=index_type, quant=quant, dim=d,
+                                capacity=400, nlist=4, nprobe=3, pq_m=2,
+                                flat_capacity=64, use_kernel="fused"),
+                       device="cpu")
+    db.insert(_unit(rng, 300, d), [Chunk(-1, i // 4, "") for i in range(300)])
+    db.build_index()
+    assert db.width == 132 and (db.vectors[:, d:] == 0).all()
+    if index_type == "ivf":
+        assert db.centroids.shape[1] == 132
+        assert (db.centroids[:, d:] == 0).all()
+    if quant == "sq8":
+        assert (db.sq_codes[:, d:] == 0).all() and (db.sq_scale[d:] == 0).all()
+    q = torch.from_numpy(_unit(rng, 7, d))
+    for _ in range(2):
+        got = compare_topk(*db.search_arrays(q, 150, rung="off"),
+                           *db.search_arrays(q, 150))
+        assert got["violations"] == 0, got
+        db.insert(_unit(rng, 20, d), [Chunk(-1, 500, "") for _ in range(20)])
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -774,3 +845,59 @@ def test_db_pq_packed_mirror_is_uint8_on_card(cuda_device):
     par = compare_topk(*db.search_arrays(q, 7, rung="off"),
                        *db.search_arrays(q, 7))
     assert par["violations"] == 0, par
+
+
+# the card's limits lifted: row widths off the 16-byte unit (zero-padded,
+# scale 0 in the pad), k above the lists' 128, a PQ table larger than
+# shared memory
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 130, 383])
+def test_quant_score_kernel_any_width(cuda_device, d):
+    rng = np.random.default_rng(d)
+    q = _unit(rng, 7, d)
+    args = [a.to(cuda_device) for a in _t(q, *_sq8(rng, 1500, d))]
+    ops.reset_launch_counts()
+    got = ops.quant_score(*args)
+    assert ops.launch_counts()["quant_score"] == 1 and got.shape == (7, 1500)
+    assert float((got - ref.quant_score(*args)).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 130, 383])
+@pytest.mark.parametrize("k", [16, 129, 500, 1024])
+def test_sq8_topk_kernel_any_width_and_k(cuda_device, d, k):
+    rng = np.random.default_rng(d * 5 + k)
+    q = _unit(rng, 9, d)
+    codes, scale = _sq8(rng, 3000, d)
+    for p_live in (0.9, 0.1):
+        live = rng.random(3000) < p_live
+        args = [a.to(cuda_device) for a in _t(q, codes, scale, live)]
+        ops.reset_launch_counts()
+        got = ops.sq8_topk(*args, k)
+        assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0),
+                                       "sq8_topk": 1}
+        want = ref.sq8_topk(*args, k)
+        assert compare_topk(*want, *got)["violations"] == 0
+        _padding_contract(got[0].cpu(), got[1].cpu(), int(live.sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,k", [(256, 512, 16), (256, 512, 500),
+                                   (48, 384, 129), (8, 32, 1024)])
+def test_pq_topk_kernel_large_table_and_k(cuda_device, m, d, k):
+    """m = 256 (a 256 KB table, past shared memory) and k above 128: the
+    table read from global memory, the subspaces added in the plain
+    version's order, so ids and scores are equal."""
+    rng = np.random.default_rng(m + k)
+    nq, nlist, cap_b = 5, 8, 160
+    q, cent = _unit(rng, nq, d), _unit(rng, nlist, d)
+    codebook = (0.3 * rng.standard_normal((m, 256, d // m))).astype(
+        np.float32)
+    codes, slot, ok = _pq_packed(rng, nlist, cap_b, m, 0.6, dup=True)
+    args = [a.to(cuda_device) for a in _t(
+        q, codebook, cent, codes.astype(np.uint8), slot, ok)]
+    ops.reset_launch_counts()
+    got = ops.pq_topk(*args, 4, k)
+    assert ops.launch_counts()["pq_topk"] == 1
+    want = ref.pq_topk(*args, 4, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

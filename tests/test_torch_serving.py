@@ -491,23 +491,12 @@ def test_serve_scenario_list_and_sim(capsys):
     assert doc["quality"]["context_recall"] > 0.5
 
 
-@pytest.mark.parametrize("what", ["shard_scale", "gen-key", "gen-engine"])
+@pytest.mark.parametrize("what", ["shard_scale"])
 def test_unported_features_raise_naming_their_item(what):
-    if what == "shard_scale":
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            ScenarioRunner(golden_variant("shard_scale"), device="cpu")
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            serve.main(["--scenario", "shard_scale", "--scenario-sim",
-                        "--device", "cpu"])
-    elif what == "gen-key":
-        d = PipelineSpec.from_file(SPEC).to_dict()
-        d["gen"] = {"enabled": True, "slots": 4}
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-            PipelineSpec.from_dict(d)
-    else:
-        with pytest.raises(SystemExit):
-            serve.main(["--config", SPEC, "--device", "cpu",
-                        "--gen-engine"])
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        ScenarioRunner(golden_variant(what), device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        serve.main(["--scenario", what, "--scenario-sim", "--device", "cpu"])
 
 
 # -- on the card ---------------------------------------------------------------
