@@ -41,28 +41,38 @@ Phases, each of which raises on failure and prints its wall seconds:
    fresh) on ``fused`` and ``op``. Every rung's results must equal the
    plain ``off`` rung on the same state; the launch counts of each rung's
    run show it went through its kernels;
-5. serve: ``repro_torch.launch.serve`` on each vector-DB spec of
+5. sharded: the IVF1024 DB's rows over 4 shards (``ShardedVectorDB``,
+   417,792 slots, nlist 256 and flat 16,384 a shard, fused: each shard's
+   ivf_topk and freshness topk_search), 20 batches through ``search()``
+   with recall@16, merge time, shard imbalance and peak memory beside the
+   unsharded IVF1024 DB's, fused equal to ``off``; at 262,144 rows a flat
+   4-shard DB against the exact global top-k, a 1-shard DB against a bare
+   ``TorchVectorDB`` on one state (bit for bit), flat + SQ8 and IVF + PQ
+   4-shard DBs fused against ``off`` (sq8_topk, pq_topk); ``shard_scale``
+   simulated on the card and on the CPU (equal) and served live;
+6. serve: ``repro_torch.launch.serve`` on each vector-DB spec of
    ``src/repro_torch/specs`` must answer its requests through its kernels
    with a quality report;
-6. flash_attention against its plain version: the reference's test shapes,
+7. flash_attention against its plain version: the reference's test shapes,
    edge shapes (S 1, 63, 65, 192; GQA groups of 1, 3, 4; causal or not;
    bf16 and fp32), the exact first causal row, and the three deployment
    shapes (the Llama-3-8B prefill at S 512 and a ragged 500, the
-   embedder, the cross-encoder), each also held to a worst-row relative
+   Qwen3-30B-A3B prefill at GQA group 8, the embedder, the
+   cross-encoder), each also held to a worst-row relative
    error that a planted fault (one K/V tile dropped) exceeds, with the
    kernel's, the plain version's and ``scaled_dot_product_attention``'s
    times and the bound;
-7. the model at smoke size: one set of seeded weights on the card and on
+8. the model at smoke size: one set of seeded weights on the card and on
    the CPU (the llama3 smoke config in fp32, then in bf16 through the bf16
    mma kernel); prefill logits and 8 greedy tokens must agree;
-8. the model at full width: Llama-3-8B (8,030,261,248 parameters) built on
+9. the model at full width: Llama-3-8B (8,030,261,248 parameters) built on
    the card from a seed, then ``repro_torch.launch.serve`` with
    ``model_llama3_8b.json`` (transformer embedder, fused IVF DB,
    cross-encoder, ModelLLM), which must answer every request with
    ``flash_attention`` launched once per layer of every prefill, embedder
    and cross-encoder batch;
-9. serving: every registered scenario but ``shard_scale`` (the sharded DB
-   is not ported) simulated at its ``golden_variant`` size on the fused DB
+10. serving: every registered scenario but ``shard_scale`` (phase 5)
+   simulated at its ``golden_variant`` size on the fused DB
    (``ivf_topk`` and the freshness ``topk_search``) on the card and on the
    CPU: timing fields, scale events, knob timeline and fault events equal,
    every request's ids equal by the near-tie rule and its answer equal
@@ -75,7 +85,7 @@ Phases, each of which raises on failure and prints its wall seconds:
    the elastic run's peak memory at most the closed run's + 2 GiB); and
    ``--stage-pipeline`` on ``fused_ivf.json``, whose pipelined outputs
    must equal the lock-step ones;
-10. limits: every DB kernel at k 129, 500 and 1,024 (the large-k path of
+11. limits: every DB kernel at k 129, 500 and 1,024 (the large-k path of
    ``csrc/topk_large.cu``) and at row widths 3, 130 and 383 (zero-padded
    to a multiple of 4), also with fewer live rows than k, against its plain
    version (tie order bit for bit on exact-arithmetic rows); pq_topk with
@@ -84,16 +94,25 @@ Phases, each of which raises on failure and prints its wall seconds:
    the main path's shapes: each DB kernel at k 500 beside k 16, at width
    383 beside 384, pq_topk's 256-subspace table, flash_attention at the
    Llama-3-8B prefill at each head dim beside 128;
-11. engine: Llama-3-8B (random bf16 weights from seed 0) generating for
+12. engine: Llama-3-8B (random bf16 weights from seed 0) generating for
    24 RAG prompts of 16 to 512 tokens lock-step (``ModelLLM``, batch 8)
    and through ``GenEngine`` at (slots 8, chunk 128, budget 4, fcfs) and
    (slots 3, chunk 32, budget 1, sjf): greedy tokens equal but for rows
    whose first difference is a near tie of the lock-step logits; then
-   ``model_llama3_8b_engine.json`` served as phase 9 serves the lock-step
+   ``model_llama3_8b_engine.json`` served as phase 10 serves the lock-step
    spec (closed at concurrency 8, open at 0.5 R and 0.9 R of its own R,
    elastic at 0.9 R with a trace that must hold the engine's ``gen.*``
    instants), every query generated and counted once, with the engine's
-   decode steps, prefill chunks and mean active slots.
+   decode steps, prefill chunks and mean active slots;
+13. moe: Qwen3-30B-A3B (30,532,110,336 random bf16 parameters from seed 0)
+   built on the card, its counts, bytes and model FLOPs against the
+   reference's, ``time_model`` (prefill and decode step against their
+   bounds, the experts a step routes to, launches and idle share), the
+   engine beside lock-step at the served capacity factor (rows that
+   differ counted: the two route other groups, so they drop other tokens)
+   and held to it at full width without drops (fp32, 4 layers), then
+   ``model_qwen3_moe_30b_a3b.json`` served lock-step (flash_attention in
+   every prefill layer), closed at concurrency 8 and open at 0.5 R.
 
 The last lines are one JSON object on the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a card, or run
@@ -1067,7 +1086,9 @@ def run_db(torch, ops, ref, compare_topk, data, name, cfg, rungs, kernels,
     launch}); every rung must equal the plain ``off`` rung (compared
     ``off_chunk`` queries at a time). ``kernels(db, q, main_live)`` gives
     the main index's kernel calls to time alone. Returns the launch counts
-    of each rung's 20 searches."""
+    of each rung's 20 searches and a summary (the configured rung's
+    ``search()`` ms per batch on the host clock and by CUDA events, its
+    recall@16, the peak memory) for the sharded phase to set beside."""
     import numpy as np
 
     from repro_torch.core.interfaces import Chunk
@@ -1111,7 +1132,7 @@ def run_db(torch, ops, ref, compare_topk, data, name, cfg, rungs, kernels,
     if st["rebuilds"] != rebuilds or st["fresh"] == 0:
         raise AssertionError("the freshness buffer was folded in: no scan")
 
-    results, launches = {}, {}
+    results, launches, summary = {}, {}, {}
     for rung, need in rungs.items():
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1126,6 +1147,8 @@ def run_db(torch, ops, ref, compare_topk, data, name, cfg, rungs, kernels,
                    for q in batches]
             how = "search_arrays(rung) to host tensors"
         ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+        if rung == db._kernel:
+            summary["search_host_ms"] = ms
         launches[rung] = ops.launch_counts()
         say(f"{name}: {rung} rung, 20 batches of {NQ} queries at k={K}: "
             f"{ms:.3f} ms per batch (host clock, {how}); launches "
@@ -1154,11 +1177,12 @@ def run_db(torch, ops, ref, compare_topk, data, name, cfg, rungs, kernels,
             hits[rung] += sum(len(set(a.tolist()) & set(e.tolist()))
                               for a, e in zip(ids, exact))
     recall = {rung: h / (len(batches) * NQ * K) for rung, h in hits.items()}
+    summary.update(recall=recall[db._kernel],
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     say(f"{name}: {', '.join(rungs)} equal the off rung (max|dscore| "
         f"{worst:.3g}); recall@{K} against exact fp32 search "
         + ", ".join(f"{r} {v:.4f}" for r, v in recall.items())
-        + f"; max_memory_allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        + f"; max_memory_allocated {summary['peak_gib']:.2f} GiB")
 
     # where a search's time goes: the main index's kernels alone, the
     # freshness scan alone, the device-side search, search() (CUDA events)
@@ -1174,17 +1198,18 @@ def run_db(torch, ops, ref, compare_topk, data, name, cfg, rungs, kernels,
         parts[f"search_arrays {rung}"] = median_ms(
             lambda: db.search_arrays(q, K, rung=rung), torch)
     parts["search"] = median_ms(lambda: db.search(q_np, K), torch)
+    summary["search_ms"] = parts["search"]
     say(f"{name}: per batch of {NQ} queries (ms, median of {RUNS}): "
         + ", ".join(f"{part} {t:.4f}" for part, t in parts.items()))
     del db
     torch.cuda.empty_cache()
-    return launches
+    return launches, summary
 
 
 def phase_dbs(torch, ops, ref, compare_topk):
     """The three deployment-size DBs from one row set, each freed before
     the next, then a flat + SQ8 DB at d 768; returns each kernel's launches
-    in the DB run that drives it."""
+    in the DB run that drives it, and the IVF1024 DB's summary."""
     from repro_torch.kernels import topk_search as tts
 
     data = make_rows(torch)
@@ -1223,15 +1248,16 @@ def phase_dbs(torch, ops, ref, compare_topk):
     ivf = dict(index_type="ivf", nlist=NLIST, nprobe=NPROBE, bucket_cap=CAP_B)
     launches = {}
     t0 = time.perf_counter()
-    got = run_db(torch, ops, ref, compare_topk, data, "db ivf", dict(
-        ivf, use_kernel="fused"), {"fused": ("ivf_topk", "topk_search")},
+    got, ivf_summary = run_db(
+        torch, ops, ref, compare_topk, data, "db ivf", dict(
+            ivf, use_kernel="fused"), {"fused": ("ivf_topk", "topk_search")},
         ivf_kernels, off_chunk=8)
     launches.update(topk_search=got["fused"]["topk_search"],
                     ivf_topk=got["fused"]["ivf_topk"])
     say(f"db ivf: phase {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    got = run_db(torch, ops, ref, compare_topk, data, "db flat+sq8", dict(
+    got, _ = run_db(torch, ops, ref, compare_topk, data, "db flat+sq8", dict(
         index_type="flat", quant="sq8", use_kernel="fused"),
         {"fused": ("sq8_topk", "topk_search"),
          "op": ("quant_score", "topk_search")}, sq8_kernels, off_chunk=NQ)
@@ -1253,7 +1279,7 @@ def phase_dbs(torch, ops, ref, compare_topk):
 
     vectordb.TorchVectorDB._train_pq = timed_train
     try:
-        got = run_db(torch, ops, ref, compare_topk, data, "db ivf+pq", dict(
+        got, _ = run_db(torch, ops, ref, compare_topk, data, "db ivf+pq", dict(
             ivf, quant="pq", pq_m=PQ_M, use_kernel="fused"),
             {"fused": ("pq_topk", "topk_search")}, pq_kernels, off_chunk=8)
     finally:
@@ -1274,6 +1300,281 @@ def phase_dbs(torch, ops, ref, compare_topk):
         {"fused": ("sq8_topk", "topk_search"),
          "op": ("quant_score", "topk_search")}, sq8_kernels, off_chunk=NQ)
     say(f"db flat+sq8 d=768: phase {time.perf_counter() - t0:.1f} s")
+    return launches, ivf_summary
+
+
+# the sharded phase: the deployment's rows over 4 shards (ShardedVectorDB)
+N_SHARDS = 4
+SMALL_N = 1 << 18          # rows of the parity DBs (flat, 1 shard, SQ8, PQ)
+
+
+def sharded_db(cfg, n_shards=N_SHARDS):
+    from repro_torch.sharded import ShardedDBConfig, ShardedVectorDB
+
+    return ShardedVectorDB(ShardedDBConfig(n_shards=n_shards, **cfg),
+                           device=DEVICE)
+
+
+def fill_db(torch, db, data):
+    """Insert ``data``'s rows into ``db`` as ``run_db`` does: the bulk rows,
+    the index build, the fresh rows, the removals. Returns every row's
+    chunk id on the device (a global id on a sharded DB) and the seconds."""
+    from repro_torch.core.interfaces import Chunk
+
+    rows, n, n_fresh = data["rows"], data["n"], data["n_fresh"]
+    chunks = [Chunk(-1, i // 4, "") for i in range(n + n_fresh)]
+    step = min(1 << 17, n)
+    t0 = time.perf_counter()
+    for lo in range(0, n, step):
+        db.insert(rows[lo:lo + step], chunks[lo:lo + step])
+    t1 = time.perf_counter()
+    db.build_index()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    db.insert(rows[n:], chunks[n:])
+    removed = sum(db.remove(d) for d in data["gone"])
+    ids = torch.tensor([c.chunk_id for c in chunks], device=rows.device)
+    return ids, dict(insert_s=t1 - t0, build_s=t2 - t1, removed=removed)
+
+
+def db_state_of(db):
+    """A ``TorchVectorDB``'s index state as ``load_state`` takes it (host
+    arrays at the true width)."""
+    d = db.cfg.dim
+
+    def host(t, cols=None):
+        return None if t is None else t[..., :cols].cpu().numpy()
+
+    return {"vectors": host(db.vectors, d), "live": db.live,
+            "indexed": db.indexed, "n_slots": db.n_slots,
+            "chunks": db.chunks, "doc_slots": db.doc_slots,
+            "centroids": host(db.centroids, d), "buckets": host(db.buckets),
+            "bucket_live": host(db.bucket_live),
+            "sq_codes": host(db.sq_codes, d), "sq_scale": host(db.sq_scale, d),
+            "pq_codes": host(db.pq_codes), "pq_codebook": host(db.pq_codebook)}
+
+
+def live_rows(torch, data):
+    """The rows of ``data`` that survive its removals, as a device mask."""
+    n = data["n"] + data["n_fresh"]
+    live = torch.ones(n, dtype=torch.bool, device=data["rows"].device)
+    gone = torch.tensor(data["gone"], device=live.device)
+    live[(gone[:, None] * 4 + torch.arange(4, device=live.device)
+          ).reshape(-1)] = False
+    return live
+
+
+def exact_topk(torch, ref, data, live, ids, q):
+    """Exact fp32 top-K of ``q`` over the surviving rows, as ``(scores,
+    chunk ids)`` of the DB that holds them."""
+    s, row = ref.topk_search(q, data["rows"], live, K)
+    return s, ids[row.long()].to(torch.int32)
+
+
+def search_all(torch, db, batches):
+    """``search()`` of every batch, the user's call: numpy queries in,
+    host results out; returns (scores, ids) tensors on the device and the
+    host clock's ms per batch."""
+    import numpy as np
+
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    res = [db.search(q.cpu().numpy(), K) for q in batches]
+    ms = 1e3 * (time.perf_counter() - t0) / len(batches)
+    return [(torch.from_numpy(np.stack([r.scores for r in b])).to(dev),
+             torch.from_numpy(np.stack([r.chunk_ids for r in b])).to(dev))
+            for b in res], ms
+
+
+def fused_equals_off(torch, compare_topk, name, db, batches, results,
+                     off_chunk):
+    """Every batch's fused results equal the plain ``off`` rung on the same
+    state (compared ``off_chunk`` queries at a time)."""
+    worst = 0.0
+    for (s, i), q in zip(results, batches):
+        for lo in range(0, NQ, off_chunk):
+            s_off, i_off = db.search_arrays(q[lo:lo + off_chunk], K,
+                                            rung="off")
+            got = check(f"{name} fused", compare_topk(
+                s_off, i_off, s[lo:lo + off_chunk], i[lo:lo + off_chunk]),
+                "off rung")
+            worst = max(worst, got["max_abs_diff"])
+    return worst
+
+
+def recall_of(results, exact):
+    hits = sum(len(set(a.tolist()) & set(e.tolist()))
+               for (_, ids), (_, want) in zip(results, exact)
+               for a, e in zip(ids, want))
+    return hits / (len(results) * NQ * K)
+
+
+def phase_sharded(torch, ops, ref, compare_topk, unsharded):
+    """The sharded DB on the card (see the module docstring, phase 5);
+    returns each kernel's launches in the sharded searches, the user's
+    ``search()`` of each DB (reset just before, read just after)."""
+    from repro_torch.core.vectordb import DBConfig, TorchVectorDB, merge_topk
+    from repro_torch.kernels.ref import NEG
+
+    launches = {}
+
+    def searched(db, batches, need, what):
+        ops.reset_launch_counts()
+        results, ms = search_all(torch, db, batches)
+        got = ops.launch_counts()
+        for kname in need:
+            if got[kname] == 0:
+                raise AssertionError(f"{what}: {kname} never launched")
+            launches[kname] = launches.get(kname, 0) + got[kname]
+        return results, ms, got
+
+    # the deployment: IVF1024 over 4 shards on the fused rung
+    data = make_rows(torch)
+    live = live_rows(torch, data)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    db = sharded_db(dict(index_type="ivf", dim=DIM, capacity=DB_CAPACITY,
+                         nlist=NLIST, nprobe=NPROBE,
+                         flat_capacity=FLAT_CAPACITY, use_kernel="fused"))
+    sc = db.shards[0].cfg
+    ids, secs = fill_db(torch, db, data)
+    st = db.stats()
+    fill = max(int(sh.bucket_live.sum(1).max()) for sh in db.shards)
+    packed = sum(sh.packed["vecs"].numel() * 4 for sh in db.shards)
+    say(f"sharded ivf: {N_SHARDS} shards of {sc.capacity} slots, nlist "
+        f"{sc.nlist}, flat {sc.flat_capacity}, bucket capacity "
+        f"{db.shards[0].buckets.shape[1]} (max fill {fill}); inserted "
+        f"{data['n']} rows in {secs['insert_s']:.1f} s, build_index "
+        f"{secs['build_s']:.1f} s, {data['n_fresh']} fresh rows, "
+        f"{secs['removed']} rows removed; live {int(st['live'])} (a shard "
+        f"{int(st['shard_live_min'])}-{int(st['shard_live_max'])}, "
+        f"imbalance {st['shard_imbalance']:.4f}), fresh {int(st['fresh'])}, "
+        f"rebuilds {int(st['rebuilds'])}; packed mirrors {packed / 1e9:.2f} "
+        f"GB")
+    if st["fresh"] == 0 or st["rebuilds"] != N_SHARDS:
+        raise AssertionError("sharded ivf: the freshness buffer was folded "
+                             "in: no scan")
+    merge0 = db.counters["merge_time_s"]
+    results, host_ms, got = searched(db, data["batches"],
+                                     ("ivf_topk", "topk_search"),
+                                     "sharded ivf")
+    merge_ms = 1e3 * (db.counters["merge_time_s"] - merge0) / len(results)
+    worst = fused_equals_off(torch, compare_topk, "sharded ivf", db,
+                             data["batches"], results, off_chunk=8)
+    exact = [exact_topk(torch, ref, data, live, ids, q)
+             for q in data["batches"]]
+    recall = recall_of(results, exact)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    q = data["batches"][0]
+    q_np = q.cpu().numpy()
+    snaps = db.snapshot()
+    per = [sh.search_arrays(q, K, snap) for sh, snap in zip(db.shards, snaps)]
+    offset = [torch.where(s > NEG / 2, i + j * db.shard_capacity, -1)
+              for j, (s, i) in enumerate(per)]
+
+    def merge_only():
+        s, i = per[0][0], offset[0]
+        for (s2, _), i2 in zip(per[1:], offset[1:]):
+            s, i = merge_topk(s, i, s2, i2, K)
+        return s, i
+
+    parts = {"search": median_ms(lambda: db.search(q_np, K), torch),
+             "search_arrays fused": median_ms(
+                 lambda: db.search_arrays(q, K), torch),
+             "shard 0 search_arrays": median_ms(
+                 lambda: db.shards[0].search_arrays(q, K, snaps[0]), torch),
+             "the 3 merges": median_ms(merge_only, torch)}
+    base = unsharded
+    say(f"sharded ivf: 20 batches of {NQ} queries at k={K}: search() "
+        f"{host_ms:.3f} ms per batch (host clock; unsharded IVF1024 "
+        f"{base['search_host_ms']:.3f}); recall@{K} against exact fp32 "
+        f"{recall:.4f} (unsharded {base['recall']:.4f}); fused equals off "
+        f"(max|dscore| {worst:.3g}); merge_time_s {merge_ms:.4f} ms per "
+        f"batch (host time of the merges' launches); shard_imbalance "
+        f"{st['shard_imbalance']:.4f}; max_memory_allocated {peak:.2f} GiB "
+        f"(unsharded {base['peak_gib']:.2f}); launches {got}")
+    say(f"sharded ivf: per batch of {NQ} queries (ms, median of {RUNS}, CUDA "
+        f"events): " + ", ".join(f"{p} {t:.4f}" for p, t in parts.items())
+        + f" (unsharded search() {base['search_ms']:.4f})")
+    del db, per, offset, snaps, results
+    torch.cuda.empty_cache()
+    # the same rows over 4 shards of the unsharded DB's list size (1,024
+    # lists a shard): is the recall the coarser lists', or the sharding's?
+    db = sharded_db(dict(index_type="ivf", dim=DIM, capacity=DB_CAPACITY,
+                         nlist=N_SHARDS * NLIST, nprobe=NPROBE,
+                         flat_capacity=FLAT_CAPACITY, use_kernel="fused"))
+    ids, _ = fill_db(torch, db, data)
+    results, _ = search_all(torch, db, data["batches"])
+    exact = [exact_topk(torch, ref, data, live, ids, q)
+             for q in data["batches"]]
+    say(f"sharded ivf, {db.shards[0].cfg.nlist} lists a shard (global "
+        f"{N_SHARDS * NLIST}): recall@{K} {recall_of(results, exact):.4f} "
+        f"(256 a shard: {recall:.4f}; unsharded 1,024: "
+        f"{base['recall']:.4f})")
+    del db, results, exact, data, live, ids
+    torch.cuda.empty_cache()
+
+    # the parity DBs, at a quarter of the rows
+    small = make_rows(torch, n=SMALL_N, n_fresh=8192,
+                      capacity=SMALL_N + 16384, flat_capacity=16384)
+    live = live_rows(torch, small)
+    cfg = dict(dim=DIM, capacity=small["capacity"], nlist=NLIST,
+               nprobe=NPROBE, flat_capacity=small["flat_capacity"],
+               use_kernel="fused")
+    # flat over 4 shards: each shard's topk_search, merged: the exact top-k
+    db = sharded_db(dict(cfg, index_type="flat"))
+    ids, _ = fill_db(torch, db, small)
+    results, ms, got = searched(db, small["batches"], ("topk_search",),
+                                "sharded flat")
+    worst = 0.0
+    for (s, i), q in zip(results, small["batches"]):
+        want = exact_topk(torch, ref, small, live, ids, q)
+        worst = max(worst, check("sharded flat", compare_topk(
+            *want, s, i), "exact search")["max_abs_diff"])
+    say(f"sharded flat ({small['n']} rows, 4 shards): ids equal the exact "
+        f"global top-{K} outside near ties (max|dscore| {worst:.3g}); "
+        f"search() {ms:.3f} ms per batch; launches {got}")
+    del db
+    # one shard: a bare TorchVectorDB's results, bit for bit, on one state
+    one = sharded_db(dict(cfg, index_type="ivf"), n_shards=1)
+    bare = TorchVectorDB(DBConfig(index_type="ivf", **cfg), device=DEVICE)
+    if one._shard_cfg() != bare.cfg:
+        raise AssertionError(f"1 shard: {one._shard_cfg()} != {bare.cfg}")
+    fill_db(torch, bare, small)
+    one.shards[0].load_state(db_state_of(bare))
+    for q in small["batches"]:
+        a, b = one.search(q.cpu().numpy(), K), bare.search(q.cpu().numpy(), K)
+        if not all((x.chunk_ids == y.chunk_ids).all()
+                   and (x.scores == y.scores).all() for x, y in zip(a, b)):
+            raise AssertionError("1 shard: results differ from TorchVectorDB")
+    say(f"sharded ivf, 1 shard: {len(small['batches'])} batches equal a bare "
+        f"TorchVectorDB's on its state, bit for bit (ids and scores)")
+    del one, bare
+    # flat + SQ8 and IVF + PQ over 4 shards: fused against off
+    for name, kw, kname, off_chunk in (
+            ("sharded flat+sq8", dict(index_type="flat", quant="sq8"),
+             "sq8_topk", NQ),
+            ("sharded ivf+pq", dict(index_type="ivf", quant="pq"),
+             "pq_topk", 8)):
+        db = sharded_db(dict(cfg, **kw))
+        fill_db(torch, db, small)
+        results, ms, got = searched(db, small["batches"], (kname,), name)
+        worst = fused_equals_off(torch, compare_topk, name, db,
+                                 small["batches"], results, off_chunk)
+        pq = (f", pq_m {db.shards[0].cfg.pq_m}" if kw["quant"] == "pq"
+              else "")
+        say(f"{name} ({small['n']} rows, 4 shards{pq}): fused equals off "
+            f"(max|dscore| {worst:.3g}); search() {ms:.3f} ms per batch; "
+            f"launches {got}")
+        del db
+    del small, live
+    torch.cuda.empty_cache()
+
+    # the shard_scale scenario on the fused sharded DB
+    t0 = time.perf_counter()
+    sim_parity(torch, ops, DEVICE, names=("shard_scale",))
+    live_scenarios(torch, ops, DEVICE, names=("shard_scale",))
+    say(f"sharded: shard_scale sim and live {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -1307,6 +1608,7 @@ def phase_serve(torch, ops):
 # (B, H, Hkv, S, dh, causal) of the kernel's callers on the model path
 FLASH_SHAPES = {
     "llm prefill": (8, 32, 8, 512, 128, True),      # Llama-3-8B, batch 8
+    "qwen3-moe prefill": (8, 32, 4, 512, 128, True),   # GQA group 8
     "llm prefill S=500": (8, 32, 8, 500, 128, True),   # ragged last tile
     "embedder": (64, 4, 4, 128, 64, False),         # d_model 256, batch 64
     "cross-encoder": (32, 4, 4, 192, 64, False),    # d_model 256, batch 32
@@ -1506,13 +1808,20 @@ def model_smoke(torch, ops, dtype):
         f"{float(gaps.min()):.3g}")
 
 
-def time_model(torch, model) -> None:
+def time_model(torch, model) -> dict:
     """Where a generate batch's time goes, at the serving spec's shape
     (8 rows padded to 512 tokens, real lengths 250-350): the prefill and
     one decode step (CUDA events, median of RUNS), and the kernels one
-    decode step launches with their device time (torch.profiler)."""
+    decode step launches with their device time (torch.profiler). The
+    step's bound is every weight read once; an MoE's also beside the
+    bound of reading only the experts its step routes a token to (counted
+    in one step, per layer). Returns the numbers it prints."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.models import api
+    from repro_torch.models import moe as moe_lib
+
+    cfg = model.cfg
     B, S, new = 8, 512, 16
     V = model.cfg.vocab_size
     gen = torch.Generator(device=DEVICE).manual_seed(7)
@@ -1526,6 +1835,20 @@ def time_model(torch, model) -> None:
         logits, cache = model.prefill(tokens, cache, lengths=lengths)
         cur = logits.argmax(-1)[:, None]
         step_ms = median_ms(lambda: model.decode_step(cur, cache), torch)
+        used = []
+        if cfg.moe is not None:       # experts routed to, layer by layer
+            router = moe_lib._router
+
+            def counting(params, x, m):
+                out = router(params, x, m)
+                used.append(int(out[1].unique().numel()))
+                return out
+
+            moe_lib._router = counting
+            try:
+                model.decode_step(cur, cache)
+            finally:
+                moe_lib._router = router
         steps = 4
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1537,20 +1860,42 @@ def time_model(torch, model) -> None:
     n_kernels = sum(e.count for e in kernels) / steps
     busy_ms = sum(e.self_device_time_total for e in kernels) / steps / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
-    # bound of a decode step: every weight read once (16 GB)
-    bound_step = 1e3 * 2 * model.cfg.param_count() / HBM_BYTES_PER_S
-    head = (f"llama3_8b at B={B}, S={S}: prefill {prefill_ms:.2f} ms, "
-            f"decode step {step_ms:.2f} ms (bound {bound_step:.2f} ms: the "
-            f"weights read once)")
+    # bound of a decode step: every weight read once; of the prefill: its
+    # model FLOPs at the bf16 tensor cores' peak
+    weight_bytes = api.param_bytes(model)
+    out = dict(prefill_ms=prefill_ms, step_ms=step_ms,
+               bound_step_ms=1e3 * weight_bytes / HBM_BYTES_PER_S,
+               bound_prefill_ms=1e3 * api.model_flops(cfg, B, S, "prefill")
+               / BF16_FLOP_PER_S)
+    head = (f"{cfg.name} at B={B}, S={S}: prefill {prefill_ms:.2f} ms "
+            f"(bound {out['bound_prefill_ms']:.2f} ms: model FLOPs at the "
+            f"bf16 peak), decode step {step_ms:.2f} ms (bound "
+            f"{out['bound_step_ms']:.2f} ms: the weights read once, "
+            f"{weight_bytes / 1e9:.2f} GB)")
+    if used:
+        m = cfg.moe
+        expert = 3 * cfg.d_model * m.expert_d_ff * 2      # bf16 bytes
+        read = weight_bytes - expert * (cfg.n_layers * m.num_experts
+                                        - sum(used))
+        out.update(experts_used=sum(used) / len(used),
+                   bound_routed_ms=1e3 * read / HBM_BYTES_PER_S)
+        head += (f"; the step routes to {out['experts_used']:.1f} of "
+                 f"{m.num_experts} experts a layer (mean of {len(used)} "
+                 f"layers): bound {out['bound_routed_ms']:.2f} ms if only "
+                 f"those were read ({read / 1e9:.2f} GB); the sort dispatch "
+                 f"reads every expert")
     if not kernels:
         say(f"{head}; kernels per decode step and device time not measured "
             f"(the profiler saw no device activity)")
-        return
+        return out
+    out.update(launches_per_step=n_kernels, busy_ms=busy_ms,
+               idle_share=1 - busy_ms / step_ms)
     say(f"{head}; one decode step launches {n_kernels:.0f} kernels, device "
         f"busy {busy_ms:.2f} ms of it (idle share "
         f"{1 - busy_ms / step_ms:.3f}); most device time: "
         + ", ".join(f"{e.key[:48]} {e.self_device_time_total / steps / 1e3:.3f}"
                     f" ms" for e in top))
+    return out
 
 
 def phase_model_full(torch, ops):
@@ -1558,8 +1903,6 @@ def phase_model_full(torch, ops):
     RAG pipeline served with it; returns flash_attention's launches in the
     serve run."""
     from repro_torch import configs
-    from repro_torch.core import embedder, reranker
-    from repro_torch.launch import serve
     from repro_torch.models import api, transformer
 
     cfg = configs.get_config("llama3_8b")
@@ -1583,7 +1926,22 @@ def phase_model_full(torch, ops):
     time_model(torch, model)
     del model, logits
     torch.cuda.empty_cache()
+    return serve_counted(torch, ops, SRC / "repro_torch" / "specs" /
+                         "model_llama3_8b.json", cfg)
 
+
+def serve_counted(torch, ops, spec, cfg, n_requests=None):
+    """``repro_torch.launch.serve`` of a model spec, ``n_requests``
+    (MODEL_REQUESTS) requests lock-step: every query answered with 16
+    tokens, the DB's
+    kernels launched, and ``flash_attention`` once per layer of every
+    prefill, embedder and cross-encoder batch. Returns flash_attention's
+    launches."""
+    from repro_torch.core import embedder, reranker
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    n_requests = n_requests or MODEL_REQUESTS
     # every consumer's batch launches flash_attention once per layer
     batches = {"prefill": 0, "embed": 0, "cross": 0}
     wrapped = [(transformer.Transformer, "prefill", "prefill"),
@@ -1599,20 +1957,20 @@ def phase_model_full(torch, ops):
 
     for (owner, attr, key), fn in zip(wrapped, saved):
         setattr(owner, attr, counting(fn, key))
-    spec = SRC / "repro_torch" / "specs" / "model_llama3_8b.json"
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     try:
         doc = serve.main(["--config", str(spec), "--mode", "sync", "--docs",
-                          "256", "--requests", "48", "--device", DEVICE])
+                          "256", "--requests", str(n_requests),
+                          "--device", DEVICE])
     finally:
         for (owner, attr, _), fn in zip(wrapped, saved):
             setattr(owner, attr, fn)
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
-    # one launch per layer: 32 in the generator, 4 in each encoder
+    # one launch per layer: n_layers in the generator, 4 in each encoder
     want = (cfg.n_layers * batches["prefill"]
             + ENCODER_LAYERS * (batches["embed"] + batches["cross"]))
     gen = doc["gen"]
@@ -1620,13 +1978,13 @@ def phase_model_full(torch, ops):
     if (launches["flash_attention"] != want or not gen
             or gen["n_requests"] != n_queries or n_queries == 0
             or gen["tokens_out"] != 16 * n_queries
-            or sum(doc["ops"].values()) != 48
+            or sum(doc["ops"].values()) != n_requests
             or min(launches["ivf_topk"], launches["topk_search"]) == 0):
-        raise AssertionError(f"serve model_llama3_8b: launches {launches} "
+        raise AssertionError(f"serve {spec.stem}: launches {launches} "
                              f"(flash want {want} from {batches}), ops "
                              f"{doc['ops']}, gen {gen}")
     tok_s = gen["tokens_out"] / doc["stage_breakdown"]["generation"]
-    say(f"serve model_llama3_8b: {sum(doc['ops'].values())} requests "
+    say(f"serve {spec.stem}: {sum(doc['ops'].values())} requests "
         f"({doc['ops']}) in {wall:.1f} s, every query answered with 16 "
         f"tokens; batches {batches}; launches {launches}; TTFT p50 "
         f"{1e3 * gen['ttft_p50_s']:.2f} ms, TPOT p50 "
@@ -1657,12 +2015,17 @@ ELASTIC_MEM_SLACK_GIB = 2.0          # a second KV cache is ~0.52 GiB
 
 def fused_scenario(name):
     """The registered scenario at ``golden_variant`` scale, on the fused
-    DB (its other pipeline overrides, such as replicas, kept)."""
+    DB, or for ``shard_scale`` its sharded DB with every shard on the fused
+    rung (its other pipeline overrides, such as replicas, kept)."""
     from repro_torch.scenarios import golden_variant
 
     spec = golden_variant(name)
     pipe = json.loads(json.dumps(spec.pipeline))
-    pipe.setdefault("vectordb", {})["component"] = SCENARIO_DB
+    vdb = pipe.setdefault("vectordb", {})
+    if vdb.get("component") == "torch_sharded":   # every shard fused
+        vdb.setdefault("options", {})["use_kernel"] = "fused"
+    else:
+        vdb["component"] = SCENARIO_DB
     return spec.replace(pipeline=pipe)
 
 
@@ -1719,16 +2082,14 @@ def same_outputs(what, want_rows, want_answers, rows, answers):
     return differ
 
 
-def sim_parity(torch, ops, device, ref_device="cpu"):
-    """Every scenario but shard_scale simulated on ``device`` and on
+def sim_parity(torch, ops, device, names, ref_device="cpu"):
+    """The scenarios ``names`` simulated on ``device`` and on
     ``ref_device``: the timing fields and event streams equal, requests
     equal by the near-tie rule, quality within its tolerance."""
-    from repro_torch.scenarios import ScenarioRunner, scenario_names
+    from repro_torch.scenarios import ScenarioRunner
 
     out = {}
-    for name in scenario_names():
-        if name == "shard_scale":    # the sharded DB is not ported
-            continue
+    for name in names:
         spec = fused_scenario(name)
         runs = {}
         for dev in (device, ref_device):
@@ -1776,7 +2137,7 @@ def sim_parity(torch, ops, device, ref_device="cpu"):
     return out
 
 
-def live_scenarios(torch, ops, device):
+def live_scenarios(torch, ops, device, names=LIVE_SCENARIOS):
     """``ScenarioRunner.serve()`` of the live scenarios on the fused DB:
     every request answered, except the injected kills' in
     replica_failure; the kernels launched."""
@@ -1787,7 +2148,7 @@ def live_scenarios(torch, ops, device):
     from repro_torch.workload.generator import WorkloadGenerator
 
     harness = scenario_runner.ServingHarness
-    for name in LIVE_SCENARIOS:
+    for name in names:
         spec = fused_scenario(name)
         n_stream = len(list(WorkloadGenerator(
             spec.workload_config(), SyntheticCorpus(CorpusConfig(
@@ -1831,10 +2192,12 @@ def live_scenarios(torch, ops, device):
             f"{launches}")
 
 
-def model_under_load(torch, ops, device, spec_path, n_requests, trace_path):
+def model_under_load(torch, ops, device, spec_path, n_requests, trace_path,
+                     shares=(0.5, 0.9)):
     """The model spec served closed-loop at concurrency 8 (its rate R),
-    open-loop Poisson at 0.5 R and 0.9 R, and elastic at 0.9 R with up to
-    2 replicas and a trace; returns each run's document."""
+    open-loop Poisson at each share of R, and, with a ``trace_path``,
+    elastic at 0.9 R with up to 2 replicas and that trace; returns each
+    run's document."""
     import gc
 
     from repro_torch.launch import serve
@@ -1890,14 +2253,18 @@ def model_under_load(torch, ops, device, spec_path, n_requests, trace_path):
                if eng else ""))
         if name == "closed":
             rate = s["achieved_qps"]
-            for share in (0.5, 0.9):
+            for share in shares:
                 runs.append((f"open {share} R",
                              ["--mode", "open", "--arrival", "poisson",
                               "--target-qps", f"{share * rate:.4f}"]))
-            runs.append(("elastic 0.9 R",
-                         ["--mode", "open", "--elastic", "--max-replicas",
-                          "2", "--target-qps", f"{0.9 * rate:.4f}",
-                          "--trace-out", str(trace_path)]))
+            if trace_path is not None:
+                runs.append(("elastic 0.9 R",
+                             ["--mode", "open", "--elastic",
+                              "--max-replicas", "2", "--target-qps",
+                              f"{0.9 * rate:.4f}", "--trace-out",
+                              str(trace_path)]))
+    if trace_path is None:
+        return docs
     peak = docs["elastic 0.9 R"]["peak_gib"]
     if peak > docs["closed"]["peak_gib"] + ELASTIC_MEM_SLACK_GIB:
         raise AssertionError(f"elastic peak {peak:.2f} GiB exceeds the "
@@ -1964,10 +2331,13 @@ def stage_pipeline(torch, ops, device, spec_path):
 
 
 def phase_serving(torch, ops):
-    """The serving layer on the card (see the module docstring, phase 9)."""
+    """The serving layer on the card (see the module docstring, phase 10)."""
     specs = SRC / "repro_torch" / "specs"
+    from repro_torch.scenarios import scenario_names
+
     t0 = time.perf_counter()
-    sim_parity(torch, ops, DEVICE)
+    sim_parity(torch, ops, DEVICE, [n for n in scenario_names()
+                                    if n != "shard_scale"])
     say(f"serving: sims {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     live_scenarios(torch, ops, DEVICE)
@@ -2208,6 +2578,9 @@ def phase_limits(torch, ops, ref, compare_topk, records) -> None:
 ENGINE_PROMPTS = 24
 # (slots, chunk_tokens, prefill_chunks_per_step, admission)
 ENGINE_SETTINGS = ((8, 128, 4, "fcfs"), (3, 32, 1, "sjf"))
+# requests of each engine serve run (fewer than the lock-step runs' 48,
+# for the whole run's time)
+ENGINE_LOAD_REQUESTS = 32
 
 
 def rag_requests(n):
@@ -2231,16 +2604,37 @@ def phase_engine(torch, ops):
     ``ModelLLM`` and through ``GenEngine`` in ENGINE_SETTINGS: the same
     greedy tokens outside near ties; then ``model_llama3_8b_engine.json``
     served closed, open and elastic (``model_under_load``)."""
-    import numpy as np
-
     from repro_torch import configs
-    from repro_torch.core.generator import ModelLLM, build_prompt
-    from repro_torch.kernels.parity import compare_tokens
-    from repro_torch.serving.genengine import EngineLLM, engine_from_model_llm
+    from repro_torch.core.generator import ModelLLM
 
     cfg = configs.get_config("llama3_8b")
     llm = ModelLLM(cfg, max_prompt=512, max_new=16, batch_size=8, seed=0,
                    device=DEVICE)
+    engine_matches_lockstep(torch, llm, ENGINE_SETTINGS)
+    del llm
+    torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    return model_under_load(
+        torch, ops, DEVICE,
+        SRC / "repro_torch" / "specs" / "model_llama3_8b_engine.json",
+        ENGINE_LOAD_REQUESTS, ROOT / "build" / "engine_trace.json")
+
+
+def engine_matches_lockstep(torch, llm, settings, require=True):
+    """ENGINE_PROMPTS RAG prompts through the lock-step ``llm`` (batch 8,
+    padded to 512) and through a ``GenEngine`` on its weights in each of
+    ``settings``: greedy tokens equal outside near ties of the lock-step
+    logits (at the tolerance of the model's dtype). With ``require``
+    false the rows that differ are counted and printed, not held: an MoE
+    that drops tokens routes other groups in the two (a padded 512-token
+    row against a chunk), so its outputs differ by design."""
+    import numpy as np
+
+    from repro_torch.core.generator import build_prompt
+    from repro_torch.kernels.parity import compare_tokens
+    from repro_torch.serving.genengine import EngineLLM, engine_from_model_llm
+
+    name = llm.cfg.name
     questions, contexts = rag_requests(ENGINE_PROMPTS)
     prompts = llm.tok.encode_batch([build_prompt(q, c) for q, c in
                                     zip(questions, contexts)], 512)
@@ -2251,11 +2645,11 @@ def phase_engine(torch, ops):
                      for a in llm.generate(questions, contexts)])
     torch.cuda.synchronize()
     lock_s = time.perf_counter() - t0
-    say(f"engine: {ENGINE_PROMPTS} prompts of {int(lengths.min())} to "
-        f"{int(lengths.max())} tokens, lock-step (batch 8, padded to 512) "
+    say(f"engine {name}: {ENGINE_PROMPTS} prompts of {int(lengths.min())} "
+        f"to {int(lengths.max())} tokens, lock-step (batch 8, padded to 512) "
         f"{lock_s:.2f} s")
     gaps = None
-    for slots, chunk, budget, admission in ENGINE_SETTINGS:
+    for slots, chunk, budget, admission in settings:
         eng = engine_from_model_llm(llm, slots=slots, chunk_tokens=chunk,
                                     prefill_chunks_per_step=budget,
                                     admission=admission)
@@ -2268,17 +2662,23 @@ def phase_engine(torch, ops):
             raise AssertionError(f"engine tokens {got.shape} vs {want.shape}")
         if gaps is None and (got != want).any():
             gaps = greedy_gaps(torch, llm.model, prompts, lengths, want)
+        tol = LOGIT_TOL[llm.cfg.dtype]
         res = compare_tokens(want, got, gaps if gaps is not None
-                             else np.zeros(want.shape), LOGIT_TOL["bfloat16"])
-        if res["violations"]:
+                             else np.zeros(want.shape), tol)
+        if res["violations"] and require:
             raise AssertionError(f"engine {slots, chunk, budget, admission}: "
                                  f"{res}")
         c = eng.counters.summary()
-        say(f"engine (slots {slots}, chunk {chunk}, budget {budget}, "
-            f"{admission}): {ENGINE_PROMPTS} prompts in {wall:.2f} s; greedy "
-            f"tokens equal to lock-step but {res['mismatch_rows']} rows, each "
-            f"explained as a near tie (reference top-2 gap <= "
-            f"{LOGIT_TOL['bfloat16']} at its first difference); "
+        held = (f"greedy tokens equal to lock-step but {res['mismatch_rows']}"
+                f" rows, each explained as a near tie (reference top-2 gap "
+                f"<= {tol} at its first difference)" if require else
+                f"greedy tokens differ from lock-step in "
+                f"{res['mismatch_rows']} rows, {res['violations']} of them "
+                f"not at a near tie (top-2 gap <= {tol}): not held")
+        say(f"engine {name} ({llm.cfg.dtype}, capacity factor "
+            f"{llm.cfg.moe.capacity_factor if llm.cfg.moe else '-'}; slots "
+            f"{slots}, chunk {chunk}, budget {budget}, {admission}): "
+            f"{ENGINE_PROMPTS} prompts in {wall:.2f} s; {held}; "
             f"{int(c['steps'])} steps, {int(c['prefill_chunks'])} prefill "
             f"chunks, {int(c['decode_steps'])} decode steps, mean active "
             f"slots {c['mean_active_slots']:.3f}; {eng.stats.n_requests} "
@@ -2286,13 +2686,104 @@ def phase_engine(torch, ops):
         if eng.stats.n_requests != ENGINE_PROMPTS:
             raise AssertionError(f"engine recorded {eng.stats.n_requests}")
         del eng
-    del llm
+
+
+# the moe phase: Qwen3-30B-A3B at full width behind the 4-shard DB
+QWEN3_MOE = "qwen3_moe_30b_a3b"
+# the reference's analytic counts for it (repro.configs' config through
+# repro.models.api: parameters, active parameters, bytes with the routers
+# in fp32)
+QWEN3_MOE_PARAMS = 30_532_110_336
+QWEN3_MOE_ACTIVE = 3_353_020_416
+QWEN3_MOE_BYTES = 61_089_386_496
+MOE_ENGINE_SETTINGS = ((8, 128, 4, "fcfs"),)
+MOE_CHECK_LAYERS = 4       # the fp32 engine check's depth (12.5 GB)
+# requests of each serve run of the moe spec (a decode step takes 75-160
+# ms; fewer than the Llama runs' 48 for the whole run's time)
+MOE_REQUESTS = 24
+
+
+def phase_moe(torch, ops):
+    """Qwen3-30B-A3B (random bf16 weights from seed 0) at full width on
+    the card: its counts against the reference's, ``time_model``, the
+    engine beside lock-step (counted), the engine against lock-step at
+    full width without drops in fp32 at 4 layers (held), then
+    ``model_qwen3_moe_30b_a3b.json`` served lock-step (flash_attention in
+    every prefill layer) and closed and open (0.5 R) under load. Returns
+    flash_attention's launches in the lock-step serve run."""
+    import dataclasses
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.core.generator import ModelLLM
+    from repro_torch.models import api, transformer
+
+    gc.collect()
     torch.cuda.empty_cache()
-    (ROOT / "build").mkdir(exist_ok=True)
-    return model_under_load(
-        torch, ops, DEVICE,
-        SRC / "repro_torch" / "specs" / "model_llama3_8b_engine.json",
-        MODEL_REQUESTS, ROOT / "build" / "engine_trace.json")
+    cfg = configs.get_config(QWEN3_MOE)
+    counts = dict(params=cfg.param_count(), active=cfg.active_param_count())
+    flops = {kind: api.model_flops(cfg, 8, 512, kind)
+             for kind in ("train", "prefill", "decode")}
+    want_flops = {"train": 6.0 * QWEN3_MOE_ACTIVE * 8 * 512,
+                  "prefill": 2.0 * QWEN3_MOE_ACTIVE * 8 * 512,
+                  "decode": 2.0 * QWEN3_MOE_ACTIVE * 8}
+    if (counts != dict(params=QWEN3_MOE_PARAMS, active=QWEN3_MOE_ACTIVE)
+            or flops != want_flops):
+        raise AssertionError(f"{QWEN3_MOE}: {counts}, {flops}")
+    say(f"{QWEN3_MOE}: memory allocated before the model "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = transformer.init(cfg, seed=0, device=DEVICE)
+    torch.cuda.synchronize()
+    n_params, n_bytes = api.count_params(model), api.param_bytes(model)
+    if (n_params, n_bytes) != (QWEN3_MOE_PARAMS, QWEN3_MOE_BYTES):
+        raise AssertionError(f"{QWEN3_MOE}: {n_params} parameters, "
+                             f"{n_bytes} bytes")
+    tokens = torch.randint(4, cfg.vocab_size, (2, 64), device=DEVICE)
+    with torch.inference_mode():
+        logits, _ = model.prefill(tokens, model.init_cache(2, 64))
+    if logits.shape != (2, cfg.vocab_size) or not bool(
+            logits.float().isfinite().all()):
+        raise AssertionError(f"{QWEN3_MOE} prefill logits are not finite")
+    say(f"{QWEN3_MOE}: {n_params} parameters ({QWEN3_MOE_ACTIVE} active; "
+        f"{n_bytes / 1e9:.2f} GB, the routers in fp32) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s, equal to the reference's counts "
+        f"and model FLOPs; prefill logits finite; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del logits
+    time_model(torch, model)
+    # the served model (capacity factor 1.25): its prefill routes each
+    # padded 512-token row as a group, the engine each 128-token chunk, so
+    # they drop other tokens: counted, not held
+    llm = ModelLLM(cfg, max_prompt=512, max_new=16, batch_size=8,
+                   device=DEVICE, model=model)
+    engine_matches_lockstep(torch, llm, MOE_ENGINE_SETTINGS, require=False)
+    say(f"{QWEN3_MOE}: max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del llm, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    # held: full width at MOE_CHECK_LAYERS layers in fp32 with a capacity
+    # no group can fill (num_experts / top_k: every token keeps its k
+    # experts), where the engine and lock-step compute one function
+    m = cfg.moe
+    check_cfg = cfg.replace(
+        n_layers=MOE_CHECK_LAYERS, dtype="float32", moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.top_k))
+    llm = ModelLLM(check_cfg, max_prompt=512, max_new=16, batch_size=8,
+                   seed=0, device=DEVICE)
+    engine_matches_lockstep(torch, llm, MOE_ENGINE_SETTINGS)
+    del llm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    spec = SRC / "repro_torch" / "specs" / "model_qwen3_moe_30b_a3b.json"
+    launches = serve_counted(torch, ops, spec, cfg, MOE_REQUESTS)
+    model_under_load(torch, ops, DEVICE, spec, MOE_REQUESTS, None,
+                     shares=(0.5,))
+    return launches
 
 
 def main() -> int:
@@ -2344,8 +2835,13 @@ def main() -> int:
     timings["quantized kernels"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    db_launches = phase_dbs(torch, ops, ref, compare_topk)
+    db_launches, unsharded = phase_dbs(torch, ops, ref, compare_topk)
     timings["dbs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded_launches = phase_sharded(torch, ops, ref, compare_topk,
+                                     unsharded)
+    timings["sharded"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_serve(torch, ops)
     timings["serve"] = time.perf_counter() - t0
@@ -2371,6 +2867,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_engine(torch, ops)
     timings["engine"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe_flash_launches = phase_moe(torch, ops)
+    timings["moe"] = time.perf_counter() - t0
     # ivf_topk by kernel, once every timing is taken (the profiler's
     # tracing stays on the host's launch path after it ends)
     torch.cuda.empty_cache()
@@ -2386,8 +2885,16 @@ def main() -> int:
 
     kernels = []
     for name, rec in records.items():
-        rec["launches"] = (flash_launches if name == "flash_attention"
-                           else db_launches[name])
+        # each path's launches, its counts set to 0 just before it
+        if name == "flash_attention":
+            rec["launches_by_path"] = {"model_llama3_8b": flash_launches,
+                                       "model_qwen3_moe_30b_a3b":
+                                           moe_flash_launches}
+        else:
+            rec["launches_by_path"] = {
+                "dbs": db_launches[name],
+                "sharded": sharded_launches.get(name, 0)}
+        rec["launches"] = sum(rec["launches_by_path"].values())
         kernels.append(rec)
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -2,9 +2,10 @@
 
 ``get_config(name)`` returns the exact published config; ``get_smoke(name)``
 returns the reduced same-family variant used by CPU smoke tests. The port
-holds the ``dense`` configs (llama3, phi4, nemotron, mistral) as data; the
-other ids stay listed, and asking for one raises ``NotImplementedError``
-naming the ROADMAP.md item that ports its family.
+holds the ``dense`` configs (llama3, phi4, nemotron, mistral) and the
+``moe`` ones (qwen3-moe, granite-moe) as data; the other ids stay listed,
+and asking for one raises ``NotImplementedError`` naming the ROADMAP.md
+item that ports its family.
 """
 from __future__ import annotations
 

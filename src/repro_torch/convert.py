@@ -11,8 +11,12 @@ the same state, the reference's state goes across as numpy arrays:
   masks, payloads, centroids, buckets and quantized state (sq8 codes and
   scale, PQ codes and codebook) into a ``TorchVectorDB``, which then builds
   its own packed mirror (fp32 rows, or PQ codes);
+* ``sharded_db_state`` / ``sharded_db_from_jax`` — a ``repro``
+  ``ShardedVectorDB``'s shards (each as ``db_state``), epoch and counters
+  into the port's ``ShardedVectorDB``;
 * ``transformer_from_jax`` — a ``repro.models.transformer`` parameter tree
-  (stacked ``[L, ...]`` leaves) into the port's per-layer ``Transformer``;
+  (stacked ``[L, ...]`` leaves, dense or MoE) into the port's per-layer
+  ``Transformer`` (``model_config``: the config);
   ``model_llm_from_jax``, ``engine_from_jax`` (the token-level engine's
   weights and settings), ``transformer_embedder_from_jax`` (with its
   ``proj``) and ``cross_reranker_from_jax`` (with its ``head``) carry the
@@ -35,9 +39,10 @@ from repro_torch.core.generator import ModelLLM
 from repro_torch.core.interfaces import Chunk
 from repro_torch.core.reranker import CrossEncoderReranker
 from repro_torch.core.vectordb import DBConfig, TorchVectorDB
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.transformer import Transformer
 from repro_torch.serving.genengine import GenEngine, _EngineCore
+from repro_torch.sharded.vectordb import ShardedDBConfig, ShardedVectorDB
 
 
 def embedder_from_jax(jax_embedder) -> HashEmbedder:
@@ -91,6 +96,41 @@ def db_from_jax(jax_db, use_kernel=None, device=None) -> TorchVectorDB:
     return db
 
 
+def model_config(jax_cfg) -> ModelConfig:
+    """The port's ``ModelConfig`` equal to a ``repro`` one (its ``moe``
+    block as the port's ``MoEConfig``)."""
+    fields = dataclasses.asdict(jax_cfg)
+    if fields["moe"] is not None:
+        fields["moe"] = MoEConfig(**fields["moe"])
+    return ModelConfig(**fields)
+
+
+def sharded_db_state(jax_sharded_db) -> Dict[str, object]:
+    """A ``repro`` ``ShardedVectorDB``'s state: every shard's ``db_state``
+    (payloads keep their global chunk ids), the wrapper's epoch and
+    counters (the argument of ``ShardedVectorDB.load_state``)."""
+    with jax_sharded_db._mu:
+        return {"shards": [db_state(sh) for sh in jax_sharded_db.shards],
+                "epoch": int(jax_sharded_db._epoch),
+                "counters": dict(jax_sharded_db.counters)}
+
+
+def sharded_db_from_jax(jax_sharded_db, use_kernel=None,
+                        device=None) -> ShardedVectorDB:
+    """A ``ShardedVectorDB`` with the reference's config and state (each
+    shard a ``TorchVectorDB`` holding its twin's state, which then builds
+    its own packed mirror). ``use_kernel`` replaces the reference's ladder
+    rung when given."""
+    jcfg = jax_sharded_db.cfg
+    cfg = ShardedDBConfig(**{f.name: getattr(jcfg, f.name)
+                             for f in dataclasses.fields(ShardedDBConfig)})
+    if use_kernel is not None:
+        cfg.use_kernel = use_kernel
+    db = ShardedVectorDB(cfg, device=device)
+    db.load_state(sharded_db_state(jax_sharded_db))
+    return db
+
+
 def _copy(dst: torch.Tensor, src) -> None:
     a = np.array(src, dtype=np.float32)
     if a.shape != tuple(dst.shape):
@@ -103,11 +143,15 @@ def transformer_from_jax(params, cfg: ModelConfig, device=None) -> Transformer:
     """The port's ``Transformer`` for ``cfg`` holding the reference's
     parameters (a ``repro.models.transformer.init`` tree) on ``device``
     (``None`` is the card): layer ``i`` takes slice ``i`` of every stacked
-    leaf. Values go through fp32, so bf16 weights arrive bit for bit."""
+    leaf (``attn``, and ``mlp`` or an MoE's ``moe``: ``router``,
+    ``w_gate``, ``w_up``, ``w_down``). Values go through fp32, so bf16
+    weights arrive bit for bit."""
     model = Transformer(cfg, device=device)
     layers = params["layers"]
     for i, blk in enumerate(model.layers):
-        for group in ("attn", "mlp"):
+        for group in ("attn", "mlp", "moe"):
+            if group not in layers:
+                continue
             for name, p in getattr(blk, group).items():
                 _copy(p, np.asarray(layers[group][name], np.float32)[i])
         _copy(blk.attn_norm, np.asarray(layers["attn_norm"], np.float32)[i])
@@ -123,7 +167,7 @@ def model_llm_from_jax(jax_llm, device=None) -> ModelLLM:
     """A port ``ModelLLM`` with the reference's config, sizes and weights,
     on ``device`` (``None`` is the card)."""
     device = resolve_device(device)
-    cfg = ModelConfig(**dataclasses.asdict(jax_llm.cfg))
+    cfg = model_config(jax_llm.cfg)
     return ModelLLM(cfg, max_prompt=jax_llm.max_prompt,
                     max_new=jax_llm.max_new, batch_size=jax_llm.batch_size,
                     device=device,
@@ -136,7 +180,7 @@ def engine_from_jax(jax_engine, device=None) -> GenEngine:
     prompt length, the ``max_new`` ceiling and its current value), on
     ``device`` (``None`` is the card); its slot pool starts empty."""
     device = resolve_device(device)
-    cfg = ModelConfig(**dataclasses.asdict(jax_engine.cfg))
+    cfg = model_config(jax_engine.cfg)
     model = transformer_from_jax(jax_engine.core.params, cfg, device)
     eng = GenEngine(core=_EngineCore(cfg, model=model),
                     slots=jax_engine.slots,
@@ -153,7 +197,7 @@ def transformer_embedder_from_jax(jax_emb, device=None) -> TransformerEmbedder:
     """A port ``TransformerEmbedder`` with the reference's encoder and
     projection, on ``device`` (``None`` is the card)."""
     device = resolve_device(device)
-    cfg = ModelConfig(**dataclasses.asdict(jax_emb.cfg))
+    cfg = model_config(jax_emb.cfg)
     emb = TransformerEmbedder(
         dim=jax_emb.dim, d_model=cfg.d_model, n_layers=cfg.n_layers,
         max_len=jax_emb.max_len, batch_size=jax_emb.batch_size,
@@ -166,7 +210,7 @@ def cross_reranker_from_jax(jax_rr, device=None) -> CrossEncoderReranker:
     """A port ``CrossEncoderReranker`` with the reference's encoder and
     scoring head, on ``device`` (``None`` is the card)."""
     device = resolve_device(device)
-    cfg = ModelConfig(**dataclasses.asdict(jax_rr.cfg))
+    cfg = model_config(jax_rr.cfg)
     return CrossEncoderReranker(
         d_model=cfg.d_model, n_layers=cfg.n_layers, max_len=jax_rr.max_len,
         batch_size=jax_rr.batch_size, device=device,

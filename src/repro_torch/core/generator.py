@@ -119,7 +119,9 @@ def _sync(device: torch.device) -> None:
 
 
 class ModelLLM(BaseLLM):
-    """Batched prefill + KV-cache greedy decode over a dense architecture.
+    """Batched prefill + KV-cache greedy decode over a dense or MoE
+    architecture (per-row decode positions, as the reference's
+    ``PER_ROW_POS_FAMILIES``).
 
     ``model`` replaces the seeded draw (``repro_torch.convert`` passes the
     reference's weights this way); it must lie on ``device``. ``stats``

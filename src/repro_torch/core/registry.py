@@ -55,6 +55,7 @@ def _ensure_registered() -> None:
     decorators have run (lazy to avoid import cycles)."""
     from repro_torch.core import chunking, embedder, generator, reranker, vectordb  # noqa: F401
     from repro_torch.serving import genengine  # noqa: F401  (llm: model_engine)
+    from repro_torch.sharded import vectordb as sharded_vectordb  # noqa: F401
 
 
 def available(kind: Optional[str] = None) -> List[str]:

@@ -136,7 +136,7 @@ def main(argv=None):
     ap.add_argument("--config", default="", help="PipelineSpec JSON")
     ap.add_argument("--arch", default="",
                     help="serve a ModelLLM of this architecture in the llm "
-                         "slot (dense family)")
+                         "slot (dense or moe family)")
     ap.add_argument("--smoke", action="store_true",
                     help="with --arch: the reduced smoke config")
     ap.add_argument("--max-new", type=int, default=8,
@@ -256,11 +256,15 @@ def main(argv=None):
             # lock-step / staged paths: batch-level stage spans; the elastic
             # executor records richer per-item spans itself (never both)
             attach_pipeline(tracer, pipe)
+        if hasattr(pipe.db, "tracer"):   # sharded DB: fan-out/merge spans
+            pipe.db.tracer = tracer
         eng = getattr(pipe.llm, "engine", None)
         if eng is not None:   # token-level instants (clones inherit it)
             eng.tracer = tracer
     monitor = ResourceMonitor(MonitorConfig(out_path=args.monitor_out)).start()
     monitor.add_gauge("db_live", lambda: pipe.db.stats()["live"])
+    if hasattr(pipe.db, "gauges"):   # sharded backend: per-shard balance
+        monitor.add_gauges(pipe.db.gauges())
 
     corpus = SyntheticCorpus(CorpusConfig(n_docs=args.docs))
     t0 = time.perf_counter()

@@ -2,8 +2,9 @@
 and the counts the reference's ``repro.models.api`` gives (parameters,
 bytes, model FLOPs).
 
-Only the ``dense`` family is ported (``repro_torch.models.transformer``:
-``Transformer``, ``init``). Asking for another family raises
+The ``dense`` and ``moe`` families are ported, both by
+``repro_torch.models.transformer`` (``Transformer``, ``init``; MoE blocks
+through ``repro_torch.models.moe``). Asking for another family raises
 ``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
@@ -13,12 +14,11 @@ from torch import nn
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig
 
-FAMILY_MODULES = {"dense": transformer}
+FAMILY_MODULES = {"dense": transformer, "moe": transformer}
 
 # families of the reference's zoo that the port does not run yet -> the
 # item of ROADMAP.md queue 1 that ports them
 NOT_PORTED = {
-    "moe": "queue 1 item 7, the rest (moe: models/moe.py)",
     "vlm": "queue 1 item 7, the rest (vlm: M-RoPE)",
     "audio": "queue 1 item 9 (whisper)",
     "ssm": "queue 1 item 9 (xlstm)",

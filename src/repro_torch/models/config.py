@@ -1,9 +1,10 @@
 """Model configuration dataclasses: the port's copy of
 ``repro.models.config`` (``MoEConfig``, ``ModelConfig``).
 
-Configs are plain frozen dataclasses, so they hash and compare. Only the
-``dense`` family has a model in the port yet (``repro_torch.models.api``);
-the other families' fields are kept so that every config of the zoo loads.
+Configs are plain frozen dataclasses, so they hash and compare. The
+``dense`` and ``moe`` families have a model in the port
+(``repro_torch.models.api``); the other families' fields are kept so that
+every config of the zoo loads.
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Decoder-only GQA transformer, dense family: the port of
+"""Decoder-only GQA transformer, dense and MoE families: the port of
 ``repro.models.transformer``.
 
 ``Transformer`` is an ``nn.Module`` with one ``Block`` per layer in a
@@ -7,6 +7,12 @@ them. Weights keep the reference's layout (``x @ W`` with ``W [in, out]``;
 the embedding ``[vocab, d]``, its transpose the LM head when tied), so a
 JAX parameter tree goes across as copies (``repro_torch.convert``).
 Inference only: no parameter takes a gradient.
+
+An MoE config (``cfg.moe``) puts ``repro_torch.models.moe``'s sort
+dispatch in every block's MLP slot (``Block.moe``: the router in fp32, the
+experts in the model's dtype). Its routing groups are the reference's: a
+batch row in ``prefill`` and ``prefill_chunk``, the whole batch in
+``decode_step``.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -28,14 +35,22 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _params(shapes: Dict[str, tuple], device, dtype) -> nn.ParameterDict:
-    return nn.ParameterDict({
-        name: nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
-                           requires_grad=False)
-        for name, shape in shapes.items()})
+    """One uninitialised parameter per ``name -> shape``, or per ``name ->
+    (shape, dtype name)`` where a leaf keeps its own dtype (the MoE
+    router's fp32 inside a bf16 model)."""
+    out = {}
+    for name, shape in shapes.items():
+        dt = dtype
+        if isinstance(shape[-1], str):
+            shape, dt = shape[0], _DTYPES[shape[1]]
+        out[name] = nn.Parameter(torch.empty(shape, device=device, dtype=dt),
+                                 requires_grad=False)
+    return nn.ParameterDict(out)
 
 
 class Block(nn.Module):
-    """norm -> attention -> residual -> norm -> MLP -> residual."""
+    """norm -> attention -> residual -> norm -> MLP (dense, or MoE when
+    ``cfg.moe``) -> residual."""
 
     def __init__(self, cfg: ModelConfig, device, dtype):
         super().__init__()
@@ -45,10 +60,25 @@ class Block(nn.Module):
         self.attn_norm = nn.Parameter(torch.empty(d, device=device,
                                                   dtype=dtype),
                                       requires_grad=False)
-        self.mlp = _params(L.mlp_shapes(cfg), device, dtype)
+        if cfg.moe is None:
+            self.mlp = _params(L.mlp_shapes(cfg), device, dtype)
+        else:
+            self.moe = _params(moe_lib.moe_params_shape(cfg), device, dtype)
         self.mlp_norm = nn.Parameter(torch.empty(d, device=device,
                                                  dtype=dtype),
                                      requires_grad=False)
+
+    def ffn(self, h: torch.Tensor, one_group: bool = False) -> torch.Tensor:
+        """The MLP slot on ``h [B,S,D]``. An MoE routes each batch row as a
+        group, or with ``one_group`` (decode, ``S == 1``) the whole batch
+        as one group (``[B,1,D] -> [1,B,D]``)."""
+        cfg = self.cfg
+        if cfg.moe is None:
+            return L.mlp_apply(self.mlp, h, cfg.activation)
+        if one_group:
+            return moe_lib.moe_apply(self.moe, h.transpose(0, 1), cfg,
+                                     with_aux=False)[0].transpose(0, 1)
+        return moe_lib.moe_apply(self.moe, h, cfg, with_aux=False)[0]
 
     def forward(self, x, positions, causal: bool):
         """Returns the block's output and its rotated ``k`` and ``v``
@@ -58,14 +88,14 @@ class Block(nn.Module):
         q, k, v = L.attention_qkv(self.attn, h, positions, cfg)
         x = x + L.attention_out(self.attn, q, k, v, cfg, causal)
         h = L.rmsnorm(x, self.mlp_norm, cfg.norm_eps)
-        return x + L.mlp_apply(self.mlp, h, cfg.activation), k, v
+        return x + self.ffn(h), k, v
 
 
 class Transformer(nn.Module):
-    """The dense model; its tensors are uninitialised until ``init`` fills
-    them (on ``meta`` they are shapes only). ``device=None`` is the card.
-    Its methods take token ids and lengths on the model's device and never
-    move them: a tensor on another device raises."""
+    """The dense or MoE model; its tensors are uninitialised until
+    ``init`` fills them (on ``meta`` they are shapes only). ``device=None``
+    is the card. Its methods take token ids and lengths on the model's
+    device and never move them: a tensor on another device raises."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -175,7 +205,7 @@ class Transformer(nn.Module):
             x = x + L.cached_attention_chunk(blk.attn, h, cache["k"][i],
                                              cache["v"][i], offset, cfg)
             h = L.rmsnorm(x, blk.mlp_norm, cfg.norm_eps)
-            x = x + L.mlp_apply(blk.mlp, h, cfg.activation)
+            x = x + blk.ffn(h)
         x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
         return x @ self.head(), cache
 
@@ -191,7 +221,7 @@ class Transformer(nn.Module):
             x = x + L.cached_attention_step(blk.attn, h, cache["k"][i],
                                             cache["v"][i], index, cfg)
             h = L.rmsnorm(x, blk.mlp_norm, cfg.norm_eps)
-            x = x + L.mlp_apply(blk.mlp, h, cfg.activation)
+            x = x + blk.ffn(h, one_group=True)
         cache["pos"] = index + 1
         x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
         return (x @ self.head())[:, 0], cache
@@ -216,8 +246,10 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
     """A model with random weights from ``seed``, drawn by a
     ``torch.Generator`` on ``device`` itself (``None`` is the card; nothing
     is staged on the host): norms zero, the embedding N(0, 0.02), every
-    matrix truncated normal with fan-in scale, as the reference's ``init``.
-    The numbers differ from the reference's ``jax.random`` draw."""
+    matrix truncated normal with fan-in scale (the MoE's router and expert
+    stacks too, one fp32 draw of a leaf at a time), as the reference's
+    ``init``. The numbers differ from the reference's ``jax.random``
+    draw."""
     model = Transformer(cfg, device=device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     for name, p in model.named_parameters():

@@ -5,9 +5,9 @@ Every registered scenario is a fully-declarative ``ScenarioSpec``:
 reproducible from its seed, runnable live (``ScenarioRunner.serve``) or as a
 wall-clock-free deterministic replay (``ScenarioRunner.simulate``).  The
 catalog is the reference's (``repro.scenarios.registry``), so
-``--scenario list`` reads the same in both packages; ``shard_scale`` needs
-the sharded DB, which the port does not have yet (ROADMAP.md queue 1 item
-6), and its runner raises.  ``get_scenario`` returns an isolated copy —
+``--scenario list`` reads the same in both packages; ``shard_scale`` runs
+the port's sharded DB, ``torch_sharded`` (the reference's ``sharded``).
+``get_scenario`` returns an isolated copy —
 callers may mutate their spec freely without corrupting the catalog.
 """
 from __future__ import annotations
@@ -157,7 +157,7 @@ register_scenario(ScenarioSpec(
     mix=MixSpec(query_frac=0.8, update_frac=0.2, distribution="zipfian"),
     n_docs=64, n_requests=320, slo_ms=150.0, seed=0,
     autoscale=_AUTOSCALE,
-    pipeline={"vectordb": {"component": "sharded",
+    pipeline={"vectordb": {"component": "torch_sharded",
                            "options": {"n_shards": 4}}}))
 
 register_scenario(ScenarioSpec(

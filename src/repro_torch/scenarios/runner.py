@@ -24,6 +24,7 @@ reads or writes them.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -46,10 +47,6 @@ from repro_torch.workload.runner import gold_chunks_for
 from repro_torch.obs import decomposition_summary
 from repro_torch.scenarios.sim import CostModel, ScenarioSim
 from repro_torch.scenarios.spec import ScenarioSpec
-
-# vector-DB components of the reference's scenarios the port lacks -> the
-# ROADMAP.md item that ports them
-NOT_PORTED_DBS = {"sharded": "queue 1 item 6 (the sharded DB)"}
 
 
 @dataclass
@@ -101,12 +98,6 @@ def apply_knob_step(pipe, step) -> None:
 
 class ScenarioRunner:
     def __init__(self, spec: ScenarioSpec, device=None):
-        component = spec.pipeline_spec().vectordb.component
-        if component in NOT_PORTED_DBS:
-            raise NotImplementedError(
-                f"scenario {spec.name!r} runs the {component!r} vector DB, "
-                f"which is not ported yet: ROADMAP.md "
-                f"{NOT_PORTED_DBS[component]}")
         self.spec = spec
         self.device = device
         self.pipeline = None     # the last run's pipeline (its traces, DB)
@@ -155,6 +146,10 @@ class ScenarioRunner:
         requests = requests[:n]
         acfg = self._autoscale_config()
         pspec = spec.pipeline_spec()
+        n_shards = (int(pspec.vectordb.options.get("n_shards", 1) or 1)
+                    if pspec.vectordb.component == "torch_sharded" else 1)
+        if n_shards > 1:
+            cost = dataclasses.replace(cost or CostModel(), shards=n_shards)
         sim = ScenarioSim(requests, times[:n], acfg,
                           replicas=pspec.stage_replicas(),
                           batch_sizes=pspec.stage_batch_sizes(),

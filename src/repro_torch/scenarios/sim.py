@@ -38,6 +38,7 @@ it is heap events, so recovery timelines are bit-deterministic.
 from __future__ import annotations
 
 import heapq
+import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -66,8 +67,14 @@ class CostModel:
     mutation_base_s: float = 0.001
     mutation_s: float = 0.02        # per op inside a coalesced write batch
     mutation_batch: int = 8
-    # (the reference's shard and corpus-scale cost terms come with the
-    # sharded DB, ROADMAP.md queue 1 item 6)
+    # sharded retrieval (repro_torch.sharded): per-item scan work divides
+    # across shards (parallel row partitions) while an O(shards·k)
+    # merge/gather term rides on top; mutations split across shards behind
+    # the writer. All three only alter service times when ``shards > 1``:
+    # the single-shard formulas are untouched.
+    shards: int = 1
+    shard_merge_s: float = 0.0002   # per extra shard per retrieval batch
+    corpus_scale: float = 1.0       # corpus size vs the calibrated baseline
 
 
 @dataclass
@@ -233,6 +240,16 @@ class ScenarioSim:
                     it.level = lvl
             svc = (cost.base_s[stage]
                    + cost.per_item_s[stage] * n * self._knob_factor(stage))
+            if stage == "retrieval" and cost.shards > 1:
+                # shard-parallel scan + cross-shard top-k merge reduction
+                svc = (cost.base_s[stage]
+                       + cost.per_item_s[stage] * cost.corpus_scale * n
+                       * self._knob_factor(stage) / cost.shards
+                       + cost.shard_merge_s * (cost.shards - 1))
+            elif stage == "retrieval" and cost.corpus_scale != 1.0:
+                svc = (cost.base_s[stage]
+                       + cost.per_item_s[stage] * cost.corpus_scale * n
+                       * self._knob_factor(stage))
             svc *= self._slow.get((stage, rid), 1.0)   # straggler drag
             self._busy[stage] += svc
             self._n_batches[stage] += 1
@@ -339,6 +356,11 @@ class ScenarioSim:
         self._writer_busy = True
         self.write_batches.append(n)
         svc = self.cost.mutation_base_s + self.cost.mutation_s * n
+        if self.cost.shards > 1:
+            # the serialized writer fans a coalesced batch out shard-parallel;
+            # the slowest shard (≈ ceil-even split of ops) bounds the batch
+            per_shard = int(math.ceil(n / self.cost.shards))
+            svc = self.cost.mutation_base_s + self.cost.mutation_s * per_shard
         if self.tracer is not None:
             self.tracer.add_span("writer.apply", self._now, self._now + svc,
                                  cat="writer", tid="writer", n=n)

@@ -382,6 +382,10 @@ class ElasticExecutor:
             out[f"elastic_{stage.name}_replicas"] = \
                 (lambda si=si: float(self._target[si]))  # noqa: lock-discipline -- monitor-only sample; int read is GIL-atomic and a stale width is fine for a gauge
         out["elastic_write_queue_depth"] = lambda: float(self._wq.qsize())
+        for stage in self.stages:
+            db = getattr(stage, "db", None)
+            if db is not None and hasattr(db, "gauges"):
+                out.update(db.gauges())   # sharded backend: balance/shards
         # monitor-only samples: single dict reads are GIL-atomic and a
         # one-interval-stale knob value cannot mislead the timeline
         out["elastic_nprobe"] = lambda: float(self.knobs["nprobe"])  # noqa: lock-discipline
@@ -395,10 +399,14 @@ class ElasticExecutor:
         rows = []
         with self._lock:
             for si, stage in enumerate(self.stages):
-                rows.append({
-                    **self.stats[si].row(),
-                    "queue_depth": float(self.queues[si].qsize()),
-                    "batch_size": float(self.batch_sizes[stage.name])})
+                row = {**self.stats[si].row(),
+                       "queue_depth": float(self.queues[si].qsize()),
+                       "batch_size": float(self.batch_sizes[stage.name])}
+                db = getattr(stage, "db", None)
+                n_shards = getattr(getattr(db, "cfg", None), "n_shards", 0)
+                if n_shards:   # sharded retrieval rides the stage row
+                    row["shards"] = float(n_shards)
+                rows.append(row)
         return rows
 
     def recent_p95_ms(self) -> float:

@@ -59,7 +59,8 @@ from repro_torch.models.config import ModelConfig
 
 ADMISSION_POLICIES = ("fcfs", "sjf")
 # families whose decode takes per-row positions (the reference's
-# core.generator.PER_ROW_POS_FAMILIES); the port models ``dense`` only
+# core.generator.PER_ROW_POS_FAMILIES); the port models ``dense`` and
+# ``moe`` (vlm raises in the model API)
 PER_ROW_POS_FAMILIES = ("dense", "moe", "vlm")
 
 

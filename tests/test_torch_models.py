@@ -43,6 +43,7 @@ from repro_torch.kernels.parity import compare_tokens, compare_topk  # noqa: E40
 from repro_torch.models import api, layers, transformer  # noqa: E402
 
 DENSE = ["llama3_8b", "phi4_mini_3_8b", "nemotron_4_15b", "mistral_large_123b"]
+MOE = ["qwen3_moe_30b_a3b", "granite_moe_1b_a400m"]
 # llama3 (GQA rep 2), phi4 (tied embeddings, rep 3), nemotron (sq_relu)
 SMOKE_ARCHS = ["llama3_8b", "phi4_mini_3_8b", "nemotron_4_15b"]
 TOL = {"float32": 1e-4, "bfloat16": 0.125}
@@ -255,22 +256,28 @@ def test_bi_reranker_matches_jax():
                                rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_param_count_matches_jax_on_meta(arch):
-    """Every dense FULL config: the port's count, from shapes on ``meta``
-    (nothing allocated), equals the reference's."""
-    cfg = tconfigs.get_config(arch)
+    """Every dense and MoE FULL config: the port's count, from shapes on
+    ``meta`` (nothing allocated), equals the reference's, and so do the
+    active count, the bytes (bf16; an MoE's router in fp32) and the model
+    FLOPs."""
+    cfg, jcfg = tconfigs.get_config(arch), jconfigs.get_config(arch)
     model = api.get_model(cfg).Transformer(cfg, device="meta")
     assert all(p.is_meta for p in model.parameters())
-    assert cfg.param_count() == jconfigs.get_config(arch).param_count()
-    assert api.param_bytes(model) == 2 * cfg.param_count()    # bf16
+    assert cfg.param_count() == jcfg.param_count()
+    assert cfg.active_param_count() == jcfg.active_param_count()
+    assert api.param_bytes(model) == japi.param_bytes(
+        japi.get_model(jcfg).init_shape(jcfg))
+    if cfg.moe is None:
+        assert api.param_bytes(model) == 2 * cfg.param_count()    # bf16
     for kind in ("train", "prefill", "decode"):
         assert api.model_flops(cfg, 8, 512, kind) == japi.model_flops(
-            jconfigs.get_config(arch), 8, 512, kind)
+            jcfg, 8, 512, kind)
 
 
 @pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS
-                                  if a not in DENSE])
+                                  if a not in DENSE + MOE])
 def test_unported_families_raise_naming_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
         tconfigs.get_smoke(arch)

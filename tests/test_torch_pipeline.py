@@ -38,6 +38,7 @@ from repro_torch.core.registry import build  # noqa: E402
 from repro_torch.core.spec import PipelineSpec  # noqa: E402
 from repro_torch.core.vectordb import DBConfig, TorchVectorDB  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.sharded import ShardedVectorDB  # noqa: E402
 from repro_torch.workload.corpus import CorpusConfig, SyntheticCorpus  # noqa: E402
 from repro_torch.workload.generator import WorkloadConfig  # noqa: E402
 from repro_torch.workload.runner import run_workload  # noqa: E402
@@ -54,8 +55,9 @@ QUANT_SPECS = ["fused_flat_sq8", "op_flat_sq8", "fused_ivf_pq"]
 
 def _jax_twin(spec_dict):
     d = json.loads(json.dumps(spec_dict))
-    d["vectordb"]["component"] = {"torch_fused": "fused",
-                                  "torch": "jax"}[d["vectordb"]["component"]]
+    d["vectordb"]["component"] = {
+        "torch_fused": "fused", "torch": "jax",
+        "torch_sharded": "sharded"}[d["vectordb"]["component"]]
     return JaxSpec.from_dict(d)
 
 
@@ -113,13 +115,30 @@ def test_model_slice_matches_jax_request_by_request(monkeypatch):
     tokens can split them; bf16 is held to its tolerance at the module level
     (tests/test_torch_models.py). Per request the retrieved and reranked ids
     and the generated tokens must be equal."""
+    _assert_model_slice_matches_jax(
+        PipelineSpec.from_file(os.path.join(SPECS, "model_smoke.json")),
+        monkeypatch)
+
+
+def test_moe_sharded_slice_matches_jax_request_by_request(monkeypatch):
+    """``model_qwen3_moe_30b_a3b.json`` at the smoke config of its
+    generator: the transformer embedder, the 4-shard fused IVF DB (every
+    shard's state carried across), the cross-encoder and ``ModelLLM`` on
+    Qwen3-MoE, as ``test_model_slice_matches_jax_request_by_request``
+    holds the dense slice."""
+    spec = PipelineSpec.from_file(
+        os.path.join(SPECS, "model_qwen3_moe_30b_a3b.json"))
+    spec.llm.options["smoke"] = True
+    _assert_model_slice_matches_jax(spec, monkeypatch)
+
+
+def _assert_model_slice_matches_jax(spec, monkeypatch):
     monkeypatch.setenv("REPRO_KERNEL_MODE", "xla")
     for mod in (jemb_mod, jrr_mod):
         orig = mod.encoder_config
         monkeypatch.setattr(
             mod, "encoder_config",
             lambda _orig=orig, **kw: _orig(**kw).replace(dtype="float32"))
-    spec = PipelineSpec.from_file(os.path.join(SPECS, "model_smoke.json"))
     opts = spec.llm.options
     jllm = JModelLLM(
         jconfigs.get_smoke(opts["arch"]).replace(dtype="float32"),
@@ -136,10 +155,15 @@ def test_model_slice_matches_jax_request_by_request(monkeypatch):
                         SyntheticCorpus(CorpusConfig(n_docs=n_docs)))
     assert jpipe.index_documents(jcorpus.all_documents()) == \
         tpipe.index_documents(tcorpus.all_documents())
-    n = jpipe.db.n_slots
-    np.testing.assert_allclose(tpipe.db.vectors[:n].numpy(),
-                               jpipe.db.vectors[:n], rtol=1e-5, atol=1e-5)
-    tpipe.db.load_state(convert.db_state(jpipe.db))
+    for jdb, tdb in zip(getattr(jpipe.db, "shards", [jpipe.db]),
+                        getattr(tpipe.db, "shards", [tpipe.db])):
+        n = jdb.n_slots
+        np.testing.assert_allclose(tdb.vectors[:n].numpy(), jdb.vectors[:n],
+                                   rtol=1e-5, atol=1e-5)
+    if isinstance(tpipe.db, ShardedVectorDB):
+        tpipe.db.load_state(convert.sharded_db_state(jpipe.db))
+    else:
+        tpipe.db.load_state(convert.db_state(jpipe.db))
     kw = dict(query_frac=0.9, update_frac=0.1, n_requests=24, seed=seed)
     jax_run(jpipe, jcorpus, JWConfig(**kw), query_batch=4)
     run_workload(tpipe, tcorpus, WorkloadConfig(**kw), query_batch=4)

@@ -7,7 +7,8 @@ table and, after indexing, the DB state go across with
 ``repro_torch.convert``; the mutation-heavy scenarios rebuild the IVF index
 mid-run, so every rebuild of the port also starts its k-means from the
 reference's initial draw (``jax.random.choice``, which torch cannot
-reproduce). Then per scenario:
+reproduce); ``shard_scale``'s sharded DB goes across shard by shard, and
+each shard's rebuilds take the injected draw too. Then per scenario:
 
 * ``simulate()``: the timing fields, events and timelines equal, quality
   within 1e-9, and the Chrome trace recorded under a ``VirtualClock``
@@ -40,9 +41,10 @@ from repro_torch.scenarios import (ScenarioRunner, golden_variant,  # noqa: E402
                                    scenario_names)
 from repro_torch.scenarios import runner as trunner  # noqa: E402
 from repro_torch.serving.elastic import ReplicaKilled  # noqa: E402
+from repro_torch.sharded import ShardedVectorDB  # noqa: E402
 from repro_torch.workload.corpus import CorpusConfig, SyntheticCorpus  # noqa: E402
 
-SCENARIOS = [n for n in scenario_names() if n != "shard_scale"]
+SCENARIOS = scenario_names()
 QUALITY_TOL = 1e-9
 # report blocks that must be equal, not merely close
 EXACT = ("n_requests", "scaling_events", "knob_timeline", "fault_events",
@@ -68,14 +70,18 @@ def reference_state(monkeypatch):
         return kmeans(x, k, iters, seed, init=init)
 
     def build_from_reference(self):
-        jpipe, _ = JRunner(JScenarioSpec.from_dict(
-            self.spec.to_dict()))._build()
+        jspec = json.loads(json.dumps(self.spec.to_dict()).replace(
+            '"torch_sharded"', '"sharded"'))   # the reference's sharded DB
+        jpipe, _ = JRunner(JScenarioSpec.from_dict(jspec))._build()
         corpus = SyntheticCorpus(CorpusConfig(n_docs=self.spec.n_docs,
                                               seed=self.spec.seed))
         pipe = build(self.spec.pipeline_spec(), device=self.device,
                      embedder=convert.embedder_from_jax(jpipe.embedder))
         pipe.index_documents(corpus.all_documents(), build=False)
-        pipe.db.load_state(convert.db_state(jpipe.db))
+        if isinstance(pipe.db, ShardedVectorDB):
+            pipe.db.load_state(convert.sharded_db_state(jpipe.db))
+        else:
+            pipe.db.load_state(convert.db_state(jpipe.db))
         builds.clear()
         return pipe, corpus
 
@@ -104,8 +110,9 @@ def test_simulate_matches_reference(name, reference_state):
     doc = chrome_trace_doc(ttracer)
     assert json.dumps(doc) == json.dumps(jchrome_trace_doc(jtracer))
     assert validate_chrome_trace(doc) == [] and len(ttracer) > 100
-    if name in ("update_storm", "mixed_interference"):
-        # the IVF index was rebuilt mid-run from the injected draw
+    if name in ("update_storm", "mixed_interference", "shard_scale"):
+        # the IVF index (shard_scale: a shard's) was rebuilt mid-run from
+        # the injected draw
         assert reference_state
 
 

@@ -56,6 +56,8 @@ from repro_torch.workload.generator import (WorkloadConfig,  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SPEC = os.path.join(ROOT, "src", "repro_torch", "specs", "fused_ivf.json")
+SHARDED_SPEC = os.path.join(ROOT, "src", "repro_torch", "specs",
+                            "sharded_ivf.json")
 PROCESSES = ("poisson", "bursty", "uniform", "diurnal")
 STAGES = ["query_embed", "retrieval", "rerank", "generation"]
 
@@ -342,11 +344,15 @@ def test_fault_spec_json_roundtrips_and_matches_reference():
 
 def test_scenario_catalog_matches_reference():
     """Same names and, scenario by scenario, the same declarative spec
-    (shard_scale included: ``--scenario list`` reads the same)."""
+    (shard_scale included, on the port's sharded DB: ``--scenario list``
+    reads the same)."""
     assert scenario_names() == jscenario_names()
     for name in scenario_names():
-        assert get_scenario(name).to_dict() == \
-            jget_scenario(name).to_dict(), name
+        got = json.loads(json.dumps(get_scenario(name).to_dict()).replace(
+            '"torch_sharded"', '"sharded"'))   # the port's sharded DB
+        assert got == jget_scenario(name).to_dict(), name
+    assert get_scenario("shard_scale").pipeline["vectordb"][
+        "component"] == "torch_sharded"
 
 
 def test_pipeline_spec_merged_deep_merges_options():
@@ -491,12 +497,46 @@ def test_serve_scenario_list_and_sim(capsys):
     assert doc["quality"]["context_recall"] > 0.5
 
 
-@pytest.mark.parametrize("what", ["shard_scale"])
-def test_unported_features_raise_naming_their_item(what):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        ScenarioRunner(golden_variant(what), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        serve.main(["--scenario", what, "--scenario-sim", "--device", "cpu"])
+@pytest.mark.parametrize("flags", [
+    ["--mode", "sync", "--stage-pipeline"],
+    ["--mode", "open", "--target-qps", "400"],
+    ["--mode", "closed", "--concurrency", "3"],
+], ids=["sync", "open-elastic", "closed-elastic"])
+def test_serve_sharded_spec_runs_every_mode(flags, tmp_path):
+    """``specs/sharded_ivf.json`` (4 shards; its autoscale block makes the
+    open and closed runs elastic): every request answered, the shard
+    count on the retrieval stage's row, the DB's spans in the trace."""
+    trace = tmp_path / "trace.json"
+    doc = serve.main(["--config", SHARDED_SPEC, "--device", "cpu", "--docs",
+                      "24", "--requests", "30", "--trace-out", str(trace),
+                      *flags])
+    assert doc["db"]["n_shards"] == 4 and doc["db"]["live"] > 0
+    names = {e.get("name") for e in json.loads(trace.read_text())[
+        "traceEvents"]}
+    assert {"db.search", "db.shard_scan", "db.merge"} <= names
+    if doc["mode"] == "sync":
+        assert doc["stage_pipeline"]["quality"]["context_recall"] > 0.5
+        return
+    assert doc["elastic"]
+    assert doc["summary"]["n_failed"] == 0 and sum(doc["ops"].values()) == 30
+    assert doc["quality"]["context_recall"] > 0.5
+
+
+def test_elastic_rows_and_gauges_carry_the_shards():
+    """The elastic executor's snapshot rows give the retrieval stage the
+    DB's shard count, and its gauges take the sharded DB's."""
+    from repro_torch.core.registry import build
+
+    pipe = build(PipelineSpec.from_file(SHARDED_SPEC), device="cpu")
+    ex = ElasticExecutor(pipe)
+    rows = {r["stage"]: r for r in ex.snapshot()}
+    assert rows["retrieval"]["shards"] == 4.0
+    assert all("shards" not in r for st, r in rows.items()
+               if st != "retrieval")
+    gauges = ex.gauges()
+    assert gauges["db_shards"]() == 4.0
+    assert gauges["db_shard_imbalance"]() == 1.0   # empty: balanced
+    assert gauges["db_mesh_searches"]() == 0.0
 
 
 # -- on the card ---------------------------------------------------------------

@@ -397,3 +397,60 @@ def test_quant_stats_match_jax(index_type, quant, monkeypatch):
         assert js[key] == ts[key], key
     assert ts["index_bytes"] > (0 if index_type == "flat" else
                                 tdb.centroids.nbytes + tdb.buckets.nbytes)
+
+
+def _clustered(n, d, n_queries, seed=0):
+    """``n`` unit rows around 256 centres (noise 0.6) and queries near
+    random rows (noise 0.1), as the chip run's DB phases draw them."""
+    rng = np.random.default_rng(seed)
+
+    def unit(a):
+        return (a / np.linalg.norm(a, axis=1, keepdims=True)).astype(
+            np.float32)
+
+    centres = unit(rng.standard_normal((256, d)))
+    rows = unit(centres[rng.integers(0, 256, n)]
+                + 0.6 * unit(rng.standard_normal((n, d))))
+    q = unit(rows[rng.integers(0, n, n_queries)]
+             + 0.1 * rng.standard_normal((n_queries, d)))
+    return rows, q
+
+
+# (config, rows, width, the largest shortfall of the port's recall@16 below
+# the reference's). Each package trains its own index from its own draws:
+# the port's k-means initial rows come from torch.Generator, the
+# reference's from jax.random, so IVF lists and PQ codebooks differ. Across
+# five k-means seeds at 65,536 x 384 the reference read 0.977-0.996 and the
+# port 0.969-0.988 on IVF64; these rows read 0.9766 (reference) and 0.9531
+# (port). SQ8 trains without a draw: equal (0.9756). PQ (8-wide subspaces,
+# as PQ48 at width 384) runs at a quarter of the rows with 16 subspaces of
+# width 128, for the test's time: 0.4937 and 0.5029.
+OWN_BUILD = {
+    "ivf": (dict(index_type="ivf", nlist=64, nprobe=4), 65536, 384, 0.03),
+    "flat-sq8": (dict(index_type="flat", quant="sq8"), 65536, 384, 0.0),
+    "ivf-pq": (dict(index_type="ivf", quant="pq", nlist=32, nprobe=4,
+                    pq_m=16), 16384, 128, 0.03),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OWN_BUILD))
+def test_own_index_build_recall_near_jax(case):
+    """Each package builds its own index on one row set: the port's
+    recall@16 against exact search is at most the stated margin below the
+    reference's (and at most 0.03 above it)."""
+    kw, n, d, margin = OWN_BUILD[case]
+    rows, q = _clustered(n, d, 128)
+    exact = np.argsort(-(q @ rows.T), axis=1, kind="stable")[:, :16]
+    cfg = dict(dim=d, capacity=n, use_hybrid=False, **kw)
+    recall = {}
+    for name, db in (("jax", JaxVectorDB(JDBConfig(**cfg))),
+                     ("port", TorchVectorDB(DBConfig(**cfg), device="cpu"))):
+        cls = JChunk if name == "jax" else Chunk
+        db.insert(rows, [cls(-1, i // 4, "") for i in range(n)])
+        db.build_index()
+        ids = np.concatenate([np.stack([r.chunk_ids for r in db.search(
+            q[lo:lo + 16], 16)]) for lo in range(0, len(q), 16)])
+        recall[name] = np.mean([len(set(a) & set(e)) / 16
+                                for a, e in zip(ids, exact)])
+    assert recall["jax"] - margin <= recall["port"] <= recall["jax"] + 0.03, \
+        recall
