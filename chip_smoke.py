@@ -112,7 +112,27 @@ Phases, each of which raises on failure and prints its wall seconds:
    differ counted: the two route other groups, so they drop other tokens)
    and held to it at full width without drops (fp32, 4 layers), then
    ``model_qwen3_moe_30b_a3b.json`` served lock-step (flash_attention in
-   every prefill layer), closed at concurrency 8 and open at 0.5 R.
+   every prefill layer), closed at concurrency 8 and open at 0.5 R;
+14. zoo: flash_attention with a sliding window against its plain version
+   (every combination of window 1, 17, 64 and 4,096, S 63, 65 and 1,000,
+   GQA groups 1, 4 and 8, causal or not, and the wgmma kernel at dh 64,
+   128 and 80 padded, mma.sync at dh 32 and the fp32 kernel, held
+   elementwise and by the worst row), then Zamba2's shared block (B 1, H 32, S 6,144, dh 80,
+   window 4,096) and Whisper's encoder (B 8, H 20, S 1,500, dh 64, not
+   causal) held to the worst-row limit with a planted fault beside it and
+   timed against their bounds and ``scaled_dot_product_attention`` (the
+   window as its mask), and the Llama prefill at window 0 beside phase 7;
+   Qwen2-VL, Whisper, xLSTM and Zamba2 at SMOKE, one set of seeded weights
+   on the card and on the CPU in fp32 and bf16 (prefill logits within
+   LOGIT_TOL, flash_attention once a layer, 8 greedy tokens by the
+   near-tie rule); then each at full width from seed 0, one at a time
+   (Qwen2-VL-72B at 32 of its 80 layers, Whisper-large-v3, xLSTM,
+   Zamba2-2.7B): its parameter count against the reference's, ``time_model``
+   and peak memory, and the RAG pipeline served closed-loop at concurrency
+   8 (``model_<arch>.json``; Qwen2-VL through the ``model`` factory's
+   ``cfg=``) with every request answered and flash_attention launched once
+   per attention layer of every prefill (32, 64, 9 and 0 a batch) and of
+   every embedder and cross-encoder batch.
 
 The last lines are one JSON object on the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a card, or run
@@ -120,6 +140,7 @@ outside a checkout, it exits non-zero before printing a result.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import re
 import subprocess
@@ -186,12 +207,12 @@ def kernel_name(mangled: str) -> str:
     return mangled
 
 
-def median_ms(fn, torch) -> float:
-    """Median over RUNS of one call of ``fn`` timed with CUDA events."""
+def median_ms(fn, torch, runs=RUNS) -> float:
+    """Median over ``runs`` of one call of ``fn`` timed with CUDA events."""
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(RUNS):
+    for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1622,10 +1643,12 @@ def row_rel_err(got, want) -> float:
     return float((d / want.float().norm(dim=-1).clamp_min(1e-30)).max())
 
 
-def dropped_tile_attention(torch, q, k, v, causal):
+def dropped_tile_attention(torch, q, k, v, causal, window=0):
     """A planted fault for the row check: fp32 attention in which the K/V
     tile of keys [64, 128) is skipped by every query row whose q tile reads
-    all of it (every row when not causal, rows from 128 on when causal)."""
+    all of it (every row when not causal, rows from 128 on when causal);
+    with a window, keys j <= i - window are masked as the kernel masks
+    them."""
     rep = q.shape[1] // k.shape[1]
     k, v = (x.repeat_interleave(rep, 1).float() for x in (k, v))
     S = q.shape[2]
@@ -1634,6 +1657,8 @@ def dropped_tile_attention(torch, q, k, v, causal):
     mask = rows & (i[None, :] >= 64) & (i[None, :] < 128)
     if causal:
         mask |= i[None, :] > i[:, None]
+    if window > 0:
+        mask |= i[None, :] <= i[:, None] - window
     s = (q.float() @ k.transpose(-1, -2)) / (q.shape[-1] ** 0.5)
     return torch.softmax(s.masked_fill(mask, float("-inf")), -1) @ v
 
@@ -1808,14 +1833,42 @@ def model_smoke(torch, ops, dtype):
         f"{float(gaps.min()):.3g}")
 
 
-def time_model(torch, model) -> dict:
+def model_inputs(torch, model, B, S, gen):
+    """A generate batch of ``model``'s family as ``ModelLLM`` builds it:
+    (the prefill's input, its keyword arguments, a decode step's input
+    given the greedy ids). Token rows have real lengths 250-350 padded
+    with 0 to S; the per-row families take the lengths, the lock-step ones
+    (audio, ssm, hybrid) the padded batch; the vlm backbone seeded random
+    embeddings in place of ids, Whisper seeded random frames."""
+    cfg = model.cfg
+    dtype = next(model.parameters()).dtype
+    lengths = torch.randint(250, 351, (B,), generator=gen, device=DEVICE)
+    tokens = torch.randint(4, cfg.vocab_size, (B, S), generator=gen,
+                           device=DEVICE)
+    tokens[torch.arange(S, device=DEVICE)[None, :] >= lengths[:, None]] = 0
+    kw = {}
+    if cfg.family in ("dense", "moe", "vlm"):
+        kw["lengths"] = lengths
+    if cfg.family == "audio":
+        kw["frames"] = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                                   generator=gen, device=DEVICE).to(dtype)
+    if cfg.uses_tokens:
+        return tokens, kw, lambda cur: cur
+    step = torch.randn((B, 1, cfg.d_model), generator=gen,
+                       device=DEVICE).to(dtype)
+    return (torch.randn((B, S, cfg.d_model), generator=gen,
+                        device=DEVICE).to(dtype), kw, lambda cur: step)
+
+
+def time_model(torch, model, runs=RUNS) -> dict:
     """Where a generate batch's time goes, at the serving spec's shape
-    (8 rows padded to 512 tokens, real lengths 250-350): the prefill and
-    one decode step (CUDA events, median of RUNS), and the kernels one
-    decode step launches with their device time (torch.profiler). The
-    step's bound is every weight read once; an MoE's also beside the
-    bound of reading only the experts its step routes a token to (counted
-    in one step, per layer). Returns the numbers it prints."""
+    (8 rows padded to 512 tokens, real lengths 250-350; ``model_inputs``):
+    the prefill and one decode step (CUDA events, median of ``runs``), and
+    the kernels one decode step launches with their device time
+    (torch.profiler). The step's bound is every weight read once; an MoE's
+    also beside the bound of reading only the experts its step routes a
+    token to (counted in one step, per layer), and one prefill's launches
+    and device time. Returns the numbers it prints."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import api
@@ -1823,18 +1876,16 @@ def time_model(torch, model) -> dict:
 
     cfg = model.cfg
     B, S, new = 8, 512, 16
-    V = model.cfg.vocab_size
     gen = torch.Generator(device=DEVICE).manual_seed(7)
-    lengths = torch.randint(250, 351, (B,), generator=gen, device=DEVICE)
-    tokens = torch.randint(4, V, (B, S), generator=gen, device=DEVICE)
-    tokens[torch.arange(S, device=DEVICE)[None, :] >= lengths[:, None]] = 0
+    first, kw, step_input = model_inputs(torch, model, B, S, gen)
     with torch.inference_mode():
-        cache = model.init_cache(B, S + new + 2 * RUNS + 8)
-        prefill_ms = median_ms(lambda: model.prefill(tokens, cache,
-                                                     lengths=lengths), torch)
-        logits, cache = model.prefill(tokens, cache, lengths=lengths)
-        cur = logits.argmax(-1)[:, None]
-        step_ms = median_ms(lambda: model.decode_step(cur, cache), torch)
+        cache = model.init_cache(B, S + new + 2 * runs + 8)
+        prefill_ms = median_ms(lambda: model.prefill(first, cache, **kw),
+                               torch, runs)
+        logits, cache = model.prefill(first, cache, **kw)
+        cur = step_input(logits.argmax(-1)[:, None])
+        step_ms = median_ms(lambda: model.decode_step(cur, cache), torch,
+                            runs)
         used = []
         if cfg.moe is not None:       # experts routed to, layer by layer
             router = moe_lib._router
@@ -1855,6 +1906,12 @@ def time_model(torch, model) -> dict:
             for _ in range(steps):
                 logits, cache = model.decode_step(cur, cache)
             torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as pprof:
+            model.prefill(first, cache, **kw)
+            torch.cuda.synchronize()
+        pre = [e for e in pprof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     n_kernels = sum(e.count for e in kernels) / steps
@@ -1890,6 +1947,14 @@ def time_model(torch, model) -> dict:
         return out
     out.update(launches_per_step=n_kernels, busy_ms=busy_ms,
                idle_share=1 - busy_ms / step_ms)
+    if pre:
+        busy = sum(e.self_device_time_total for e in pre) / 1e3
+        out.update(prefill_launches=sum(e.count for e in pre),
+                   prefill_busy_ms=busy, prefill_idle_share=1 - busy /
+                   prefill_ms)
+        head += (f"; one prefill launches {out['prefill_launches']} kernels, "
+                 f"device busy {busy:.2f} ms of it (idle share "
+                 f"{out['prefill_idle_share']:.3f})")
     say(f"{head}; one decode step launches {n_kernels:.0f} kernels, device "
         f"busy {busy_ms:.2f} ms of it (idle share "
         f"{1 - busy_ms / step_ms:.3f}); most device time: "
@@ -1930,64 +1995,99 @@ def phase_model_full(torch, ops):
                          "model_llama3_8b.json", cfg)
 
 
-def serve_counted(torch, ops, spec, cfg, n_requests=None):
-    """``repro_torch.launch.serve`` of a model spec, ``n_requests``
-    (MODEL_REQUESTS) requests lock-step: every query answered with 16
-    tokens, the DB's
-    kernels launched, and ``flash_attention`` once per layer of every
-    prefill, embedder and cross-encoder batch. Returns flash_attention's
+def serve_counted(torch, ops, spec, cfg, n_requests=None, concurrency=0,
+                  per_prefill=None, inject_cfg=False):
+    """``repro_torch.launch.serve`` of a model spec over ``n_requests``
+    (MODEL_REQUESTS) requests lock-step: sync, or closed loop at
+    ``concurrency`` with batches of 8. No request fails, every query is
+    answered with 16 tokens, the DB's kernels launch, and flash_attention
+    launches ``per_prefill`` (default ``cfg.n_layers``) times in every
+    prefill batch and once per layer of every embedder and cross-encoder
+    batch. With ``inject_cfg`` the spec's llm is built from ``cfg``
+    through the factory's ``cfg=`` argument. Returns flash_attention's
     launches."""
+    import dataclasses
+    import gc
+    import threading
+
     from repro_torch.core import embedder, reranker
     from repro_torch.launch import serve
-    from repro_torch.models import transformer
+    from repro_torch.models import api
 
     n_requests = n_requests or MODEL_REQUESTS
+    per_prefill = cfg.n_layers if per_prefill is None else per_prefill
     # every consumer's batch launches flash_attention once per layer
     batches = {"prefill": 0, "embed": 0, "cross": 0}
-    wrapped = [(transformer.Transformer, "prefill", "prefill"),
+    lock = threading.Lock()
+    wrapped = [(api.get_model(cfg).Model, "prefill", "prefill"),
                (embedder, "_encode_fn", "embed"),
                (reranker, "_cross_score", "cross")]
+    if inject_cfg:
+        wrapped.append((serve, "build", None))
     saved = [getattr(owner, attr) for owner, attr, _ in wrapped]
 
     def counting(fn, key):
         def call(*args, **kw):
-            batches[key] += 1
+            with lock:
+                batches[key] += 1
             return fn(*args, **kw)
         return call
 
+    def build(spec, **kw):   # the spec's llm built from cfg
+        llm = dataclasses.replace(spec.llm,
+                                  options={**spec.llm.options, "cfg": cfg})
+        return saved[-1](dataclasses.replace(spec, llm=llm), **kw)
+
+    argv = ["--config", str(spec), "--docs", "256", "--requests",
+            str(n_requests), "--device", DEVICE]
+    if concurrency:
+        argv += ["--mode", "closed", "--concurrency", str(concurrency),
+                 "--batch", "8", "--slo-ms", str(MODEL_SLO_MS)]
+    else:
+        argv += ["--mode", "sync"]
     for (owner, attr, key), fn in zip(wrapped, saved):
-        setattr(owner, attr, counting(fn, key))
+        setattr(owner, attr, counting(fn, key) if key else build)
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        doc = serve.main(["--config", str(spec), "--mode", "sync", "--docs",
-                          "256", "--requests", str(n_requests),
-                          "--device", DEVICE])
+        doc = serve.main(argv)
     finally:
         for (owner, attr, _), fn in zip(wrapped, saved):
             setattr(owner, attr, fn)
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
-    # one launch per layer: n_layers in the generator, 4 in each encoder
-    want = (cfg.n_layers * batches["prefill"]
+    # one launch per attention layer: per_prefill in the generator, 4 in
+    # each encoder
+    want = (per_prefill * batches["prefill"]
             + ENCODER_LAYERS * (batches["embed"] + batches["cross"]))
-    gen = doc["gen"]
+    gen, s = doc["gen"], doc.get("summary", {})
     n_queries = doc["ops"].get("query", 0)
     if (launches["flash_attention"] != want or not gen
-            or gen["n_requests"] != n_queries or n_queries == 0
-            or gen["tokens_out"] != 16 * n_queries
+            or s.get("n_failed", 0) or gen["n_requests"] != n_queries
+            or n_queries == 0 or gen["tokens_out"] != 16 * n_queries
             or sum(doc["ops"].values()) != n_requests
             or min(launches["ivf_topk"], launches["topk_search"]) == 0):
         raise AssertionError(f"serve {spec.stem}: launches {launches} "
                              f"(flash want {want} from {batches}), ops "
-                             f"{doc['ops']}, gen {gen}")
+                             f"{doc['ops']}, gen {gen}, summary {s}")
+    mode = f"closed at concurrency {concurrency}" if concurrency else "sync"
+    load = (f"{s['achieved_qps']:.3f} QPS, latency p50/p95/p99 "
+            f"{s['p50_latency_ms']:.1f} / {s['p95_latency_ms']:.1f} / "
+            f"{s['p99_latency_ms']:.1f} ms, mean batch "
+            f"{s.get('mean_batch_size', 0.0):.2f}; " if s else "")
     tok_s = gen["tokens_out"] / doc["stage_breakdown"]["generation"]
-    say(f"serve {spec.stem}: {sum(doc['ops'].values())} requests "
-        f"({doc['ops']}) in {wall:.1f} s, every query answered with 16 "
-        f"tokens; batches {batches}; launches {launches}; TTFT p50 "
-        f"{1e3 * gen['ttft_p50_s']:.2f} ms, TPOT p50 "
+    llm = f", the llm {cfg.name}" if inject_cfg else ""
+    say(f"serve {spec.stem} ({mode}{llm}): {sum(doc['ops'].values())} "
+        f"requests ({doc['ops']}) in {wall:.1f} s, every query answered "
+        f"with 16 tokens; {load}batches {batches}: flash_attention "
+        f"{launches['flash_attention']} = {per_prefill} x "
+        f"{batches['prefill']} prefills + {ENCODER_LAYERS} x "
+        f"{batches['embed'] + batches['cross']} encoder batches; launches "
+        f"{launches}; TTFT p50 {1e3 * gen['ttft_p50_s']:.2f} ms, TPOT p50 "
         f"{1e3 * gen['tpot_p50_s']:.2f} ms, {tok_s:.1f} generated tokens/s "
         f"over the generation stage; stage breakdown (s) "
         f"{ {k: round(v, 3) for k, v in doc['stage_breakdown'].items()} }; "
@@ -2786,6 +2886,287 @@ def phase_moe(torch, ops):
     return launches
 
 
+# the zoo phase: the families ported last, at SMOKE (card against CPU) and
+# at full width (served through the RAG pipeline)
+ZOO = ("qwen2_vl_72b", "whisper_large_v3", "xlstm_1_3b", "zamba2_2_7b")
+ZOO_PARAMS = {"whisper_large_v3": 1_601_198_080,
+              "xlstm_1_3b": 3_603_581_264,
+              "zamba2_2_7b": 2_396_455_840,
+              "qwen2_vl_72b": 29_331_300_352}   # 32 of its 80 layers
+QWEN2_VL_LAYERS = 32       # of 80: 58.7 GB of bf16 weights on one card
+# flash_attention launches of one prefill batch at full width: one a layer
+# (Whisper: 32 encoder + 32 decoder; Zamba2: its shared block once a group
+# of 6 of its 54 Mamba2 layers; xLSTM has no attention)
+ZOO_FLASH = {"qwen2_vl_72b": 32, "whisper_large_v3": 64, "xlstm_1_3b": 0,
+             "zamba2_2_7b": 9}
+# ... and at SMOKE
+ZOO_SMOKE_FLASH = {"qwen2_vl_72b": 2, "whisper_large_v3": 4,
+                   "xlstm_1_3b": 0, "zamba2_2_7b": 2}
+ZOO_REQUESTS = 24          # closed loop at concurrency 8, each family
+ZOO_RUNS = 5               # time_model's runs (an xLSTM prefill ~1 s)
+# (B, H, Hkv, S, dh, causal, window) of the new attention callers
+ZOO_FLASH_SHAPES = {
+    "zamba2 shared block": (1, 32, 32, 6144, 80, True, 4096),
+    "whisper encoder": (8, 20, 20, 1500, 64, False, 0),
+}
+
+
+def visible_pairs(S, causal, window) -> int:
+    """The (query, key) pairs a row-by-row attention must score: S^2, or
+    S(S+1)/2 causal, each row's keys cut to ``window`` under one."""
+    total = 0
+    for i in range(S):
+        lo = max(0, i - window + 1) if window > 0 else 0
+        total += (i + 1 if causal else S) - lo
+    return total
+
+
+def zoo_flash(torch, ops, ref, record):
+    """flash_attention with a sliding window against its plain version:
+    edge shapes in all three kernels (bf16 wgmma at dh 64/128 and 80
+    padded, bf16 mma.sync at dh 32, fp32), each causal and not at every
+    window, length and GQA group, elementwise and by the worst row, then the new deployment shapes
+    (Zamba2's windowed shared block, Whisper's encoder) held to the
+    worst-row limit with a planted fault beside it, timed against their
+    bounds and SDPA, and the Llama prefill at window 0 beside phase 7's
+    time. Adds the shapes to ``record``."""
+    import torch.nn.functional as F
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+    def qkv(B, H, Hkv, S, dh, dtype):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((B, H, S, dh), (B, Hkv, S, dh),
+                              (B, Hkv, S, dh))]
+
+    kinds = ((128, "bfloat16"), (64, "bfloat16"), (80, "bfloat16"),
+             (32, "bfloat16"), (64, "float32"), (16, "float32"))
+    worst = rel_worst = 0.0
+    n = 0
+    for window, S, group, (dh, dt), causal in itertools.product(
+            (1, 17, 64, 4096), (63, 65, 1000), (1, 4, 8), kinds,
+            (True, False)):
+        q, k, v = qkv(2, 8, 8 // group, S, dh, dtypes[dt])
+        ops.reset_launch_counts()
+        got = ops.flash_attention(q, k, v, causal=causal,
+                                  window=window).float()
+        if ops.launch_counts()["flash_attention"] != 1:
+            raise AssertionError("flash_attention with a window did not "
+                                 "launch its kernel")
+        want = ref.flash_attention(q, k, v, causal=causal,
+                                   window=window).float()
+        tol = ATTN_TOL[dt]
+        err = float((got - want).abs().max())
+        rel = row_rel_err(got, want)
+        if not (bool(((got - want).abs() <= tol + tol * want.abs()).all())
+                and rel <= ATTN_ROW_REL_LIMIT):
+            raise AssertionError(f"flash_attention window={window} S={S} "
+                                 f"group={group} dh={dh} {dt} causal="
+                                 f"{causal} disagrees with plain: max|d| "
+                                 f"{err}, worst row ||d||/||want|| {rel}")
+        worst, rel_worst, n = max(worst, err), max(rel_worst, rel), n + 1
+    say(f"zoo flash_attention: {n} windowed shapes (window 1, 17, 64, "
+        f"4,096 x S 63, 65, 1,000 x GQA groups 1, 4, 8 x causal or not x "
+        f"bf16 wgmma at dh 128, 64 and 80 padded, bf16 mma.sync at dh 32, "
+        f"fp32 at dh 64 and 16) equal the plain version within {ATTN_TOL} "
+        f"(max|d| {worst:.3g}) and worst row ||d||/||want|| {rel_worst:.3g} "
+        f"(limit {ATTN_ROW_REL_LIMIT})")
+
+    for name, (B, H, hkv, S, dh, causal, window) in ZOO_FLASH_SHAPES.items():
+        q, k, v = qkv(B, H, hkv, S, dh, torch.bfloat16)
+        got = ops.flash_attention(q, k, v, causal=causal,
+                                  window=window).float()
+        want = ref.flash_attention(q, k, v, causal=causal,
+                                   window=window).float()
+        tol = ATTN_TOL["bfloat16"]
+        if not bool(((got - want).abs() <= tol + tol * want.abs()).all()):
+            raise AssertionError(f"flash_attention {name} disagrees with "
+                                 f"plain")
+        worst = max(worst, float((got - want).abs().max()))
+        rel = row_rel_err(got, want)
+        fault = row_rel_err(dropped_tile_attention(torch, q, k, v, causal,
+                                                   window), want)
+        if not rel <= ATTN_ROW_REL_LIMIT < fault:
+            raise AssertionError(f"flash_attention {name}: worst row error "
+                                 f"{rel} against limit "
+                                 f"{ATTN_ROW_REL_LIMIT}, fault {fault}")
+        del got, want
+        kr, vr = (x.repeat_interleave(H // hkv, 1) for x in (k, v))
+        mask = ref.attention_mask(S, causal, window, dev)
+        t = timings(torch,
+                    lambda: ops.flash_attention(q, k, v, causal=causal,
+                                                window=window),
+                    lambda: ref.flash_attention(q, k, v, causal=causal,
+                                                window=window),
+                    lambda: F.scaled_dot_product_attention(
+                        q, kr, vr, attn_mask=mask))
+        # bytes: q, k, v read once and o written once (bf16, the true dh);
+        # FLOP: the two products over the pairs each row sees
+        pairs = visible_pairs(S, causal, window)
+        n_bytes = 2 * (2 * B * H * S * dh + 2 * B * hkv * S * dh)
+        n_flop = 4.0 * B * H * pairs * dh
+        bms, by = bound(n_bytes, n_flop, BF16_FLOP_PER_S)
+        say(f"flash_attention {name} B={B} H={H} Hkv={hkv} S={S} dh={dh} "
+            f"causal={causal} window={window} bf16: worst row "
+            f"||d||/||want|| {rel:.4g} (limit {ATTN_ROW_REL_LIMIT}; with one "
+            f"K/V tile dropped {fault:.4g}); kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention (K/V "
+            f"repeated, the mask as attn_mask) {t['library_ms']:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}; {n_bytes / 1e6:.1f} MB, "
+            f"{n_flop / 1e9:.2f} GFLOP over {pairs} visible pairs a head); "
+            f"{speed(t, bms)}")
+        record["other_shapes"][name] = dict(bound_ms=bms, bound_by=by,
+                                            window=window, **t)
+        del q, k, v, kr, vr, mask
+    record["max_abs_err"] = max(record["max_abs_err"], worst)
+    B, H, hkv, S, dh, causal = FLASH_SHAPES["llm prefill"]
+    q, k, v = qkv(B, H, hkv, S, dh, torch.bfloat16)
+    ms0 = kernel_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                window=0), torch)
+    ms = kernel_ms(lambda: ops.flash_attention(q, k, v, causal=True), torch)
+    say(f"flash_attention llm prefill at window=0: {ms0:.4f} ms, without the "
+        f"argument {ms:.4f} ms (phase 7 of this run: {record['ms']:.4f} ms)")
+    record["llm_prefill_window0_ms"] = ms0
+
+
+def zoo_smoke(torch, ops, arch, dtype):
+    """One seeded SMOKE model of ``arch`` on the CPU (plain attention) and
+    on the card (the kernel where the family has attention): prefill
+    logits of six RAG prompts within LOGIT_TOL, flash_attention launched
+    once a layer, then 8 greedy tokens equal by the near-tie rule (the vlm
+    fed seeded embeddings, its frontend being a stub)."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.core.generator import build_prompt
+    from repro_torch.core.interfaces import Chunk
+    from repro_torch.core.tokenizer import HashTokenizer
+    from repro_torch.kernels.parity import compare_tokens
+    from repro_torch.models import api
+
+    cfg = configs.get_smoke(arch).replace(dtype=dtype)
+    tol = LOGIT_TOL[dtype]
+    cpu = api.get_model(cfg).init(cfg, 0, "cpu")
+    card = copy.deepcopy(cpu).to(DEVICE)
+    questions = [f"what is the color of item-{i}" for i in range(6)]
+    ctxs = [[Chunk(i, i, f"the color of item-{i} is shade-{i % 5} " *
+                   (1 + 3 * i))] for i in range(6)]
+    tokens = torch.from_numpy(HashTokenizer(cfg.vocab_size).encode_batch(
+        [build_prompt(q, c) for q, c in zip(questions, ctxs)], 64))
+    gen = torch.Generator().manual_seed(3)
+    first, kw = tokens, {}
+    if cfg.family == "vlm":
+        first = torch.randn((6, 64, cfg.d_model), generator=gen)
+        kw["lengths"] = torch.maximum((tokens != 0).sum(1),
+                                      torch.ones((), dtype=torch.long))
+    if cfg.family == "audio":
+        kw["frames"] = torch.randn((6, cfg.encoder_seq, cfg.d_model),
+                                   generator=gen)
+    dt = next(cpu.parameters()).dtype
+    if first.is_floating_point():
+        first = first.to(dt)
+    kw = {k: v.to(dt) if v.is_floating_point() else v for k, v in kw.items()}
+    with torch.inference_mode():
+        want, wc = cpu.prefill(first, cpu.init_cache(6, 80), **kw)
+        ops.reset_launch_counts()
+        got, gc = card.prefill(first.to(DEVICE), card.init_cache(6, 80),
+                               **{k: v.to(DEVICE) for k, v in kw.items()})
+        launches = ops.launch_counts()["flash_attention"]
+        diff = float((got.cpu().float() - want.float()).abs().max())
+        if not diff <= tol or launches != ZOO_SMOKE_FLASH[arch]:
+            raise AssertionError(f"{arch} smoke {dtype} prefill: card vs CPU "
+                                 f"max|d| {diff}, {launches} flash launches")
+        ref_ids, ids, gaps = [], [], []
+        for _ in range(8):
+            top = want.float().topk(2).values
+            gaps.append((top[:, 0] - top[:, 1]).numpy())
+            ref_ids.append(want.argmax(-1))
+            ids.append(got.argmax(-1).cpu())
+            if cfg.uses_tokens:
+                wi, gi = ref_ids[-1][:, None], ids[-1][:, None]
+            else:
+                wi = gi = torch.randn((6, 1, cfg.d_model),
+                                      generator=gen).to(dt)
+            want, wc = cpu.decode_step(wi, wc)
+            got, gc = card.decode_step(gi.to(DEVICE), gc)
+    res = compare_tokens(torch.stack(ref_ids, 1), torch.stack(ids, 1),
+                         np.stack(gaps, 1), tol)
+    if res["violations"]:
+        raise AssertionError(f"{arch} smoke {dtype} tokens: card "
+                             f"{torch.stack(ids, 1).tolist()} vs CPU "
+                             f"{torch.stack(ref_ids, 1).tolist()} ({res})")
+    say(f"zoo smoke {arch} ({dtype}, 6 prompts of 64): prefill logits card "
+        f"vs CPU max|d| {diff:.3g} (tolerance {tol}), {launches} flash "
+        f"launches; 8 greedy tokens, {res['mismatch_rows']} rows differ, "
+        f"smallest CPU top-2 gap {float(np.min(gaps)):.3g}")
+
+
+def zoo_config(arch):
+    """The full-width config the zoo phase runs: the published one, and
+    Qwen2-VL-72B at QWEN2_VL_LAYERS of its 80 layers (every width kept)."""
+    from repro_torch import configs
+
+    cfg = configs.get_config(arch)
+    if arch == "qwen2_vl_72b":
+        cfg = cfg.replace(n_layers=QWEN2_VL_LAYERS)
+    return cfg
+
+
+def phase_zoo(torch, ops, ref, record):
+    """The families ported last (Qwen2-VL, Whisper, xLSTM, Zamba2): the
+    windowed kernel (``zoo_flash``), each SMOKE model card against CPU in
+    fp32 and bf16 (``zoo_smoke``), then each at full width from seed 0 on
+    the card, one at a time: its parameter count against the reference's,
+    ``time_model`` and its peak memory, and ``serve_counted`` closed
+    loop at concurrency 8 over ZOO_REQUESTS requests of the family's spec
+    (Qwen2-VL: the Llama spec with the llm built from ``cfg``). Returns each
+    family's flash_attention launches in its serve run."""
+    import gc
+
+    from repro_torch.models import api
+
+    zoo_flash(torch, ops, ref, record)
+    for arch in ZOO:
+        for dtype in LOGIT_TOL:
+            zoo_smoke(torch, ops, arch, dtype)
+    launches = {}
+    for arch in ZOO:
+        cfg = zoo_config(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = api.get_model(cfg).init(cfg, seed=0, device=DEVICE)
+        torch.cuda.synchronize()
+        n_params, n_bytes = api.count_params(model), api.param_bytes(model)
+        if n_params != ZOO_PARAMS[arch] or cfg.param_count() != n_params:
+            raise AssertionError(f"{arch}: {n_params} parameters")
+        say(f"zoo {arch}: {n_params} parameters ({n_bytes / 1e9:.2f} GB; "
+            f"{cfg.n_layers} layers) drawn on the card in "
+            f"{time.perf_counter() - t0:.1f} s, the reference's count")
+        t = time_model(torch, model, ZOO_RUNS)
+        if not all(v == v and v > 0 for v in (t["prefill_ms"],
+                                               t["step_ms"])):
+            raise AssertionError(f"{arch}: times {t}")
+        say(f"zoo {arch}: max_memory_allocated over the build and "
+            f"time_model {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        spec = SRC / "repro_torch" / "specs" / (
+            "model_llama3_8b.json" if arch == "qwen2_vl_72b"
+            else f"model_{arch}.json")
+        launches[f"model_{arch}"] = serve_counted(
+            torch, ops, spec, cfg, ZOO_REQUESTS, concurrency=8,
+            per_prefill=ZOO_FLASH[arch], inject_cfg=arch == "qwen2_vl_72b")
+    return launches
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py runs from the root of a checkout "
@@ -2870,6 +3251,10 @@ def main() -> int:
     t0 = time.perf_counter()
     moe_flash_launches = phase_moe(torch, ops)
     timings["moe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zoo_flash_launches = phase_zoo(torch, ops, ref,
+                                   records["flash_attention"])
+    timings["zoo"] = time.perf_counter() - t0
     # ivf_topk by kernel, once every timing is taken (the profiler's
     # tracing stays on the host's launch path after it ends)
     torch.cuda.empty_cache()
@@ -2889,7 +3274,8 @@ def main() -> int:
         if name == "flash_attention":
             rec["launches_by_path"] = {"model_llama3_8b": flash_launches,
                                        "model_qwen3_moe_30b_a3b":
-                                           moe_flash_launches}
+                                           moe_flash_launches,
+                                       **zoo_flash_launches}
         else:
             rec["launches_by_path"] = {
                 "dbs": db_launches[name],

@@ -15,8 +15,12 @@ the same state, the reference's state goes across as numpy arrays:
   ``ShardedVectorDB``'s shards (each as ``db_state``), epoch and counters
   into the port's ``ShardedVectorDB``;
 * ``transformer_from_jax`` — a ``repro.models.transformer`` parameter tree
-  (stacked ``[L, ...]`` leaves, dense or MoE) into the port's per-layer
-  ``Transformer`` (``model_config``: the config);
+  (stacked ``[L, ...]`` leaves, dense, MoE or the vlm backbone, which has
+  no embedding table) into the port's per-layer ``Transformer``
+  (``model_config``: the config); ``whisper_from_jax``, ``xlstm_from_jax``
+  and ``zamba2_from_jax`` the other families' trees (stacked ``[L, ...]``,
+  ``[G, M, ...]`` or ``[G, E, ...]`` leaves) into their per-layer models,
+  and ``model_from_jax`` any family's;
   ``model_llm_from_jax``, ``engine_from_jax`` (the token-level engine's
   weights and settings), ``transformer_embedder_from_jax`` (with its
   ``proj``) and ``cross_reranker_from_jax`` (with its ``head``) carry the
@@ -41,6 +45,9 @@ from repro_torch.core.reranker import CrossEncoderReranker
 from repro_torch.core.vectordb import DBConfig, TorchVectorDB
 from repro_torch.models.config import ModelConfig, MoEConfig
 from repro_torch.models.transformer import Transformer
+from repro_torch.models.whisper import Whisper
+from repro_torch.models.xlstm import XLSTM
+from repro_torch.models.zamba2 import Zamba2
 from repro_torch.serving.genengine import GenEngine, _EngineCore
 from repro_torch.sharded.vectordb import ShardedDBConfig, ShardedVectorDB
 
@@ -139,6 +146,18 @@ def _copy(dst: torch.Tensor, src) -> None:
         dst.copy_(torch.from_numpy(a))
 
 
+def _copy_layer(dst, tree, index) -> None:
+    """Every parameter of the module ``dst`` from the leaf of the
+    reference's ``tree`` at the same path (``attn.wq`` is
+    ``tree["attn"]["wq"]``), sliced at ``index`` of its stacked leading
+    dims."""
+    for name, p in dst.named_parameters():
+        leaf = tree
+        for key in name.split("."):
+            leaf = leaf[key]
+        _copy(p, np.asarray(leaf, np.float32)[index])
+
+
 def transformer_from_jax(params, cfg: ModelConfig, device=None) -> Transformer:
     """The port's ``Transformer`` for ``cfg`` holding the reference's
     parameters (a ``repro.models.transformer.init`` tree) on ``device``
@@ -147,31 +166,81 @@ def transformer_from_jax(params, cfg: ModelConfig, device=None) -> Transformer:
     ``w_gate``, ``w_up``, ``w_down``). Values go through fp32, so bf16
     weights arrive bit for bit."""
     model = Transformer(cfg, device=device)
-    layers = params["layers"]
     for i, blk in enumerate(model.layers):
-        for group in ("attn", "mlp", "moe"):
-            if group not in layers:
-                continue
-            for name, p in getattr(blk, group).items():
-                _copy(p, np.asarray(layers[group][name], np.float32)[i])
-        _copy(blk.attn_norm, np.asarray(layers["attn_norm"], np.float32)[i])
-        _copy(blk.mlp_norm, np.asarray(layers["mlp_norm"], np.float32)[i])
+        _copy_layer(blk, params["layers"], i)
     _copy(model.final_norm, params["final_norm"])
-    _copy(model.embed, params["embed"])
+    if model.embed is not None:
+        _copy(model.embed, params["embed"])
     if model.lm_head is not None:
         _copy(model.lm_head, params["lm_head"])
     return model
 
 
+def whisper_from_jax(params, cfg: ModelConfig, device=None) -> Whisper:
+    """The port's ``Whisper`` holding a ``repro.models.whisper.init``
+    tree: encoder and decoder layer ``i`` take slice ``i`` of the stacked
+    leaves."""
+    model = Whisper(cfg, device=device)
+    for key, layers in (("encoder", model.encoder),
+                        ("decoder", model.decoder)):
+        for i, lp in enumerate(layers):
+            _copy_layer(lp, params[key], i)
+    for name in ("enc_final_norm", "dec_final_norm"):
+        _copy_layer(getattr(model, name), params[name], ())
+    _copy(model.embed, params["embed"])
+    _copy(model.lm_head, params["lm_head"])
+    return model
+
+
+def xlstm_from_jax(params, cfg: ModelConfig, device=None) -> XLSTM:
+    """The port's ``XLSTM`` holding a ``repro.models.xlstm.init`` tree:
+    mLSTM block ``g * M + j`` takes slice ``[g, j]`` of the ``[G, M, ...]``
+    leaves, sLSTM block ``g`` slice ``g`` of the ``[G, ...]`` ones."""
+    model = XLSTM(cfg, device=device)
+    n_per = len(model.mlstm) // len(model.slstm)
+    for i, lp in enumerate(model.mlstm):
+        _copy_layer(lp, params["mlstm"], divmod(i, n_per))
+    for g, lp in enumerate(model.slstm):
+        _copy_layer(lp, params["slstm"], g)
+    for name in ("embed", "final_norm", "lm_head"):
+        _copy(getattr(model, name), params[name])
+    return model
+
+
+def zamba2_from_jax(params, cfg: ModelConfig, device=None) -> Zamba2:
+    """The port's ``Zamba2`` holding a ``repro.models.zamba2.init`` tree:
+    Mamba2 layer ``g * E + e`` takes slice ``[g, e]`` of the ``[G, E, ...]``
+    leaves; the shared block its one set."""
+    model = Zamba2(cfg, device=device)
+    every = cfg.shared_attn_every
+    for i, lp in enumerate(model.mamba):
+        _copy_layer(lp, params["mamba"], divmod(i, every))
+    _copy_layer(model.shared, params["shared"], ())
+    for name in ("embed", "final_norm", "lm_head"):
+        _copy(getattr(model, name), params[name])
+    return model
+
+
+_FROM_JAX = {"dense": transformer_from_jax, "moe": transformer_from_jax,
+             "vlm": transformer_from_jax, "audio": whisper_from_jax,
+             "ssm": xlstm_from_jax, "hybrid": zamba2_from_jax}
+
+
+def model_from_jax(params, cfg: ModelConfig, device=None):
+    """The port's model of ``cfg``'s family holding the reference's
+    parameters, on ``device`` (``None`` is the card)."""
+    return _FROM_JAX[cfg.family](params, cfg, device)
+
+
 def model_llm_from_jax(jax_llm, device=None) -> ModelLLM:
     """A port ``ModelLLM`` with the reference's config, sizes and weights,
-    on ``device`` (``None`` is the card)."""
+    on ``device`` (``None`` is the card); any family of the zoo."""
     device = resolve_device(device)
     cfg = model_config(jax_llm.cfg)
     return ModelLLM(cfg, max_prompt=jax_llm.max_prompt,
                     max_new=jax_llm.max_new, batch_size=jax_llm.batch_size,
                     device=device,
-                    model=transformer_from_jax(jax_llm.params, cfg, device))
+                    model=model_from_jax(jax_llm.params, cfg, device))
 
 
 def engine_from_jax(jax_engine, device=None) -> GenEngine:

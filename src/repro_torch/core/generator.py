@@ -3,9 +3,12 @@
 ``ModelLLM`` is the lock-step baseline: batched prefill fills the KV cache,
 then a greedy decode loop emits tokens. TTFT / TPOT are recorded **per
 request**; the rows that pad a batch to ``batch_size`` are never counted.
-The decode runs with *per-row* positions, so a row's output depends only
-on its own unpadded prompt. Weights are random (drawn
-from a seed on the device), so the output is for performance, not quality.
+On the transformer families (``PER_ROW_POS_FAMILIES``) the decode runs with
+*per-row* positions, so a row's output depends only on its own unpadded
+prompt; the others (audio, ssm, hybrid) prefill the padded batch and decode
+at one shared position, as the reference does. Any architecture of the zoo
+plugs in through its ``ModelConfig``. Weights are random (drawn from a seed
+on the device), so the output is for performance, not quality.
 
 ``ExtractiveLLM`` is the deterministic quality oracle: it answers from the
 retrieved context with template matching.
@@ -30,6 +33,10 @@ from repro_torch.models.config import ModelConfig
 
 PROMPT_TEMPLATE = ("answer the question using the context\n"
                    "context: {context}\nquestion: {question}\nanswer:")
+
+# families whose serving path runs through repro_torch.models.transformer
+# and takes per-row decode positions (a tensor ``cache["pos"]``)
+PER_ROW_POS_FAMILIES = ("dense", "moe", "vlm")
 
 def build_prompt(question: str, contexts: Sequence[Chunk]) -> str:
     ctx = " ".join(c.text for c in contexts)
@@ -119,9 +126,8 @@ def _sync(device: torch.device) -> None:
 
 
 class ModelLLM(BaseLLM):
-    """Batched prefill + KV-cache greedy decode over a dense or MoE
-    architecture (per-row decode positions, as the reference's
-    ``PER_ROW_POS_FAMILIES``).
+    """Batched prefill + KV-cache greedy decode over any architecture of
+    the zoo (per-row decode positions on ``PER_ROW_POS_FAMILIES``).
 
     ``model`` replaces the seeded draw (``repro_torch.convert`` passes the
     reference's weights this way); it must lie on ``device``. ``stats``
@@ -142,6 +148,7 @@ class ModelLLM(BaseLLM):
         self.batch_size = batch_size
         self.tok = HashTokenizer(cfg.vocab_size)
         self.stats = stats if stats is not None else GenStats()
+        self._per_row_pos = cfg.family in PER_ROW_POS_FAMILIES
 
     def clone(self) -> "ModelLLM":
         """A replica view for pool workers: shares the model (the same
@@ -170,6 +177,16 @@ class ModelLLM(BaseLLM):
             out.extend(self._generate_batch(tokens, n_real=len(texts)))
         return out
 
+    def _inputs(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The model's input for ids ``[B, S]``: the ids, or for the vlm
+        backbone zero patch embeddings ``[B, S, d_model]`` (its frontend is
+        a stub, as in the reference)."""
+        if self.cfg.uses_tokens:
+            return tokens
+        return torch.zeros((*tokens.shape, self.cfg.d_model),
+                           dtype=self.model.final_norm.dtype,
+                           device=self.device)
+
     @torch.inference_mode()
     def _generate_batch(self, tokens: np.ndarray, n_real: int) -> List[str]:
         """Generate for one padded batch; only the first ``n_real`` rows are
@@ -177,22 +194,29 @@ class ModelLLM(BaseLLM):
         B = tokens.shape[0]
         max_new = self.max_new
         dev = self.device
+        cfg = self.cfg
         cache = self.model.init_cache(B, self.max_prompt + max_new)
         t0 = time.perf_counter()
         tok = torch.from_numpy(tokens).to(dev)
-        # per-row true prompt lengths (pad_id == 0 never appears in real
-        # content), so right-padded rows generate exactly as they would
-        # unpadded; an all-pad row still reads one position
-        lengths = np.maximum((tokens != 0).sum(axis=1), 1)
-        logits, cache = self.model.prefill(
-            tok, cache, lengths=torch.from_numpy(lengths).to(dev))
+        kw = {}
+        if self._per_row_pos:
+            # per-row true prompt lengths (pad_id == 0 never appears in real
+            # content), so right-padded rows generate exactly as they would
+            # unpadded; an all-pad row still reads one position
+            lengths = np.maximum((tokens != 0).sum(axis=1), 1)
+            kw["lengths"] = torch.from_numpy(lengths).to(dev)
+        if cfg.family == "audio":   # the stub frontend: zero frames
+            kw["frames"] = torch.zeros((B, cfg.encoder_seq, cfg.d_model),
+                                       dtype=self.model.lm_head.dtype,
+                                       device=dev)
+        logits, cache = self.model.prefill(self._inputs(tok), cache, **kw)
         cur = logits.argmax(dim=-1)[:, None]     # greedy: first max on ties
         _sync(dev)
         ttft = time.perf_counter() - t0
         toks = [cur]
         t1 = time.perf_counter()
         for _ in range(max_new - 1):
-            logits, cache = self.model.decode_step(cur, cache)
+            logits, cache = self.model.decode_step(self._inputs(cur), cache)
             cur = logits.argmax(dim=-1)[:, None]
             toks.append(cur)
         ids = torch.cat(toks, dim=1)[:n_real].cpu().numpy()   # [n_real, max_new]

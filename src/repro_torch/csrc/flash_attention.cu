@@ -1,8 +1,12 @@
 // Attention with an online softmax, causal or not, with grouped-query heads:
 // o = softmax(q k^T / sqrt(dh)) v for q:[B,H,S,dh], k/v:[B,Hkv,S,dh]
-// (query head h reads KV head h / (H / Hkv)), output in q's dtype. The
-// prefill of every layer of the generator (causal) and the forward of the
-// embedder and the cross-encoder (not causal).
+// (query head h reads KV head h / (H / Hkv)), output in q's dtype, and with
+// a runtime sliding window (window > 0; 0 is none) the keys j <= i - window
+// of query i masked on top of causality, as the reference model's
+// attention_scores_mask. The prefill of every layer of the generator
+// (causal; Zamba2's shared block with its 4,096-key window), Whisper's
+// encoder (not causal) and decoder, and the forward of the embedder and
+// the cross-encoder (not causal).
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention_pallas with
 // _flash_kernel, the TPU kernel whose grid walks (batch*head, q block) and
@@ -16,7 +20,9 @@
 // 17 GFLOP (4*B*H*S^2*dh, halved by causality), 17 us at the 989 TFLOP/s
 // bf16 tensor peak: so bytes, as long as the products run at the tensor
 // cores' rate, which on Hopper only wgmma reaches. In fp32 scalar FMAs the
-// same work would take 0.26 ms.
+// same work would take 0.26 ms. A window bounds the work by the keys each
+// row sees: at most 4*B*H*S*min(S, window)*dh FLOP (exactly 4*B*H*dh times
+// the visible (i, j) pairs), while the bytes stay those of q, k, v and o.
 //
 // Which design runs where (picked by dtype and dh alone):
 //  * bf16, dh 64 or 128 (every deployment shape): the Hopper kernel below
@@ -62,6 +68,14 @@
 //    as zeros
 //    (TMA) and are not stored; the running max starts finite, so a fully
 //    masked tile adds nothing and no NaN appears; causal row 0 is v[0].
+//  * Window (all three kernels): the key-tile loop starts at the tile that
+//    holds q_first - window + 1, q_first the block's (or wgmma tile's)
+//    first row, so tiles wholly before every row's window are never
+//    loaded; a tile that reaches below some row's window is masked with
+//    the same -inf rule as the causal diagonal. Every row sees at least
+//    its own key (window >= 1), so no row is left empty. At window 0 the
+//    loop bounds and the tile schedule are those without a window, and
+//    the window's masking pass is skipped.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -161,7 +175,7 @@ template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-                  int rep, int S, float scale_log2) {
+                  int rep, int S, int window, float scale_log2) {
   constexpr int LD = DH + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);   // [BQ][LD]
@@ -179,11 +193,13 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vg = v + kvh * head;
   const int n_all = (S + BK - 1) / BK;
   const int n_kt = CAUSAL ? min(n_all, (q0 + BQ - 1) / BK + 1) : n_all;
+  // the first key tile any row of the block sees through its window
+  const int j0 = window > 0 ? max(0, q0 - window + 1) / BK : 0;
 
   load_tile<DH>(qs, qg, q0, S, tid);
-  load_tile<DH>(ks, kg, 0, S, tid);
+  load_tile<DH>(ks, kg, j0 * BK, S, tid);
   cp_async_commit();
-  load_tile<DH>(vs, vg, 0, S, tid);
+  load_tile<DH>(vs, vg, j0 * BK, S, tid);
   cp_async_commit();
 
   uint32_t qf[DH / 16][4];
@@ -195,10 +211,10 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float m_r[2] = {M_INIT, M_INIT}, l_r[2] = {0.f, 0.f};
   const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
 
-  for (int j = 0; j < n_kt; ++j) {
+  for (int j = j0; j < n_kt; ++j) {
     cp_async_wait_1();   // K_j (and Q) landed; V_j may be in flight
     __syncthreads();
-    if (j == 0) {
+    if (j == j0) {
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk)
         ldsm_x4(qf[kk], qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8)
@@ -225,7 +241,8 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // online softmax in base 2 over this thread's rows g and g + 8
     const int kv0 = j * BK;
-    const bool masked = kv0 + BK > S || (CAUSAL && kv0 + BK - 1 > q0);
+    const bool masked = kv0 + BK > S || (CAUSAL && kv0 + BK - 1 > q0) ||
+                        (window > 0 && kv0 <= q0 + BQ - 1 - window);
     float alpha[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -236,7 +253,9 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 2 * i; e < 2 * i + 2; ++e) {
           float x = s[n][e] * scale_log2;
           const int col = kv0 + n * 8 + 2 * t + (e & 1);
-          if (masked && (col >= S || (CAUSAL && col > row[i]))) x = -INFINITY;
+          if (masked && (col >= S || (CAUSAL && col > row[i]) ||
+                         (window > 0 && col <= row[i] - window)))
+            x = -INFINITY;
           s[n][e] = x;
           mx = fmaxf(mx, x);
         }
@@ -303,7 +322,7 @@ template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, int H,
-                 int rep, int S, float scale) {
+                 int rep, int S, int window, float scale) {
   constexpr int LD = DH + 1, LP = BK + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);   // [BQ][LD], scaled
@@ -320,6 +339,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vg = v + kvh * head;
   const int n_all = (S + BK - 1) / BK;
   const int n_kt = CAUSAL ? min(n_all, (q0 + BQ - 1) / BK + 1) : n_all;
+  const int j0 = window > 0 ? max(0, q0 - window + 1) / BK : 0;
   const int qrow = q0 + r;
 
   for (int c = tid; c < BQ * DH; c += THREADS) {
@@ -332,7 +352,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
   float m = M_INIT, l = 0.f;
 
-  for (int j = 0; j < n_kt; ++j) {
+  for (int j = j0; j < n_kt; ++j) {
     const int kv0 = j * BK;
     __syncthreads();   // every thread is done with the previous tile
     for (int c = tid; c < BK * DH; c += THREADS) {
@@ -352,12 +372,15 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) s[i] += qd * ks[(2 * i + half) * LD + d];
     }
-    const bool masked = kv0 + BK > S || (CAUSAL && kv0 + BK - 1 > q0);
+    const bool masked = kv0 + BK > S || (CAUSAL && kv0 + BK - 1 > q0) ||
+                        (window > 0 && kv0 <= q0 + BQ - 1 - window);
     float mx = M_INIT;
 #pragma unroll
     for (int i = 0; i < BK / 2; ++i) {
       const int col = kv0 + 2 * i + half;
-      if (masked && (col >= S || (CAUSAL && col > qrow))) s[i] = -INFINITY;
+      if (masked && (col >= S || (CAUSAL && col > qrow) ||
+                     (window > 0 && col <= qrow - window)))
+        s[i] = -INFINITY;
       mx = fmaxf(mx, s[i]);
     }
     const float m_new = fmaxf(m, fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1)));
@@ -420,18 +443,20 @@ struct Layout {
 };
 
 // The tile schedule shared by the producer and the consumers: tile t is
-// (q tile, b*h) with the q tiles that read the most K/V tiles first.
+// (q tile, b*h) with the q tiles that read the most K/V tiles first; it
+// reads key tiles j0 .. n_kt - 1 (j0 > 0 only under a window).
 struct Tile {
-  int qt, b, h, n_kt;
+  int qt, b, h, j0, n_kt;
 };
 
 __device__ __forceinline__ Tile tile_at(int t, int BH, int H, int n_qt,
-                                        int n_all, bool causal) {
+                                        int n_all, bool causal, int window) {
   Tile r;
   r.qt = n_qt - 1 - t / BH;
   const int bh = t % BH;
   r.b = bh / H;
   r.h = bh % H;
+  r.j0 = window > 0 ? max(0, r.qt * BQ - window + 1) / BK : 0;
   r.n_kt = causal ? min(n_all, (r.qt * BQ + BQ - 1) / BK + 1) : n_all;
   return r;
 }
@@ -452,7 +477,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
                    bf16* __restrict__ o, long long o_sb, long long o_sh,
-                   long long o_ss, int H, int rep, int S, int BH,
+                   long long o_ss, int H, int rep, int S, int BH, int window,
                    float scale_log2) {
   using L = Layout<DH>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -495,7 +520,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       int stage = 0;
       uint32_t phase = 0, iter = 0;
       for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++iter) {
-        const Tile tl = tile_at(t, BH, H, n_qt, n_all, CAUSAL);
+        const Tile tl = tile_at(t, BH, H, n_qt, n_all, CAUSAL, window);
         const int kvh = tl.h / rep;
         // Q buffer iter % 2, free once tile iter - 2 has used it
         const int qb = iter & 1;
@@ -505,7 +530,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         for (int c = 0; c < L::CH; ++c)
           sm90::tma_load_4d(smem + qb * L::Q_BYTES + c * L::Q_CHUNK, &q_map,
                             &q_full[qb], c * 64, tl.qt * BQ, tl.h, tl.b);
-        for (int j = 0; j < tl.n_kt; ++j) {
+        for (int j = tl.j0; j < tl.n_kt; ++j) {
           unsigned char* ks = smem + L::K_OFF + stage * L::KV_BYTES;
           unsigned char* vs = smem + L::V_OFF + stage * L::KV_BYTES;
           sm90::mbar_wait(&empty_k[stage], phase ^ 1);
@@ -548,7 +573,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   if (cw == 1) sm90::bar_arrive(TURN, 2 * 128);
 
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++iter) {
-    const Tile tl = tile_at(t, BH, H, n_qt, n_all, CAUSAL);
+    const Tile tl = tile_at(t, BH, H, n_qt, n_all, CAUSAL, window);
     const int row0 = tl.qt * BQ + cw * 64;   // this warpgroup's first row
     const int row[2] = {row0 + warp * 16 + g, row0 + warp * 16 + g + 8};
     const int qb = iter & 1;   // this tile's Q buffer; its rows of chunk 0:
@@ -570,7 +595,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     uint32_t pv_phase = 0;
 
     sm90::mbar_wait(&q_full[qb], (iter >> 1) & 1);
-    for (int j = 0; j < tl.n_kt; ++j) {
+    for (int j = tl.j0; j < tl.n_kt; ++j) {
       const unsigned char* ks = smem + L::K_OFF + stage * L::KV_BYTES;
       sm90::mbar_wait(&full_k[stage], phase);
       sm90::bar_sync(TURN + cw, 2 * 128);   // this consumer's turn
@@ -584,7 +609,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
             sm90::desc_sw128(ks + c * L::KV_CHUNK + off), kk > 0);
       }
       sm90::wgmma_commit();
-      if (j > 0) {   // O += P_{j-1} V_{j-1}, beside S_j on the tensor cores
+      if (j > tl.j0) {   // O += P_{j-1} V_{j-1}, beside S_j on the tensor cores
         const unsigned char* vs = smem + L::V_OFF + pv_stage * L::KV_BYTES;
         sm90::mbar_wait(&full_v[pv_stage], pv_phase);
         fence_pv(oacc, pf);
@@ -604,7 +629,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       fence_pv(oacc, pf);
       sm90::mbar_arrive(&empty_k[stage]);   // K_j is free for K_{j+STAGES}
       if (j == tl.n_kt - 1) sm90::mbar_arrive(&q_empty[qb]);   // Q is done
-      if (j > 0) sm90::mbar_arrive(&empty_v[pv_stage]);   // and V_{j-1}
+      if (j > tl.j0) sm90::mbar_arrive(&empty_v[pv_stage]);   // and V_{j-1}
 
       // online softmax in base 2 over rows g and g + 8 of each warp: the
       // running max m_r is kept on the raw logits, p = 2^(s*c - m*c) with
@@ -622,6 +647,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             if (n * 8 + (e & 1) >= lim[e >> 1]) s[4 * n + e] = -INFINITY;
+      }
+      // under a window, keys below lo[i] = row i - window + 1 too (a
+      // separate pass, skipped by tiles that lie wholly inside every row's
+      // window)
+      if (window > 0 && kv0 <= row0 + 63 - window) {
+        int lo[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) lo[i] = row[i] - window + 1 - kv0 - 2 * t4;
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (n * 8 + (e & 1) < lo[e >> 1]) s[4 * n + e] = -INFINITY;
       }
       float alpha[2];
 #pragma unroll
@@ -791,7 +829,8 @@ bool encode_heads(CUtensorMap* map, const void* base, int dh, int S,
 template <int DH, bool CAUSAL>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          const long long* st, int B, int H, int Hkv, int S,
-                         int scale_dh, int n_sm, cudaStream_t stream) {
+                         int scale_dh, int window, int n_sm,
+                         cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   if (!encode_heads(&qm, q, DH, S, H, B, st[0], st[1], st[2], wg::BQ) ||
       !encode_heads(&km, k, DH, S, Hkv, B, st[3], st[4], st[5], wg::BK) ||
@@ -807,13 +846,13 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const double scale = 1.0 / sqrt(static_cast<double>(scale_dh));
   kern<<<grid, wg::THREADS, smem, stream>>>(
       qm, km, vm, static_cast<bf16*>(o), st[9], st[10], st[11], H, H / Hkv, S,
-      B * H, static_cast<float>(scale * 1.4426950408889634));
+      B * H, window, static_cast<float>(scale * 1.4426950408889634));
   return cudaGetLastError();
 }
 
 template <typename T, int DH, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int rep, int S, int scale_dh,
+                   int B, int H, int rep, int S, int scale_dh, int window,
                    cudaStream_t stream) {
   const double scale = 1.0 / sqrt(static_cast<double>(scale_dh));
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
@@ -827,7 +866,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     kern<<<grid, THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(o), H, rep, S,
-        static_cast<float>(scale * 1.4426950408889634));
+        window, static_cast<float>(scale * 1.4426950408889634));
   } else {
     const size_t smem =
         sizeof(float) * ((BQ + BK) * (DH + 1) + BK * DH + BQ * (BK + 1));
@@ -839,26 +878,30 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     kern<<<grid, THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), H, rep, S,
-        static_cast<float>(scale));
+        window, static_cast<float>(scale));
   }
   return cudaGetLastError();
 }
 
 template <typename T, bool CAUSAL>
 cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int rep, int S, int dh, int sd,
+                        int B, int H, int rep, int S, int dh, int sd, int w,
                         cudaStream_t st) {
   switch (dh) {
-    case 16: return launch<T, 16, CAUSAL>(q, k, v, o, B, H, rep, S, sd, st);
-    case 32: return launch<T, 32, CAUSAL>(q, k, v, o, B, H, rep, S, sd, st);
-    case 256: return launch<T, 256, CAUSAL>(q, k, v, o, B, H, rep, S, sd, st);
+    case 16:
+      return launch<T, 16, CAUSAL>(q, k, v, o, B, H, rep, S, sd, w, st);
+    case 32:
+      return launch<T, 32, CAUSAL>(q, k, v, o, B, H, rep, S, sd, w, st);
+    case 256:
+      return launch<T, 256, CAUSAL>(q, k, v, o, B, H, rep, S, sd, w, st);
     default: break;
   }
   if constexpr (sizeof(T) == 4) {   // bf16 at 64 and 128 runs on wgmma
     switch (dh) {
-      case 64: return launch<T, 64, CAUSAL>(q, k, v, o, B, H, rep, S, sd, st);
+      case 64:
+        return launch<T, 64, CAUSAL>(q, k, v, o, B, H, rep, S, sd, w, st);
       case 128:
-        return launch<T, 128, CAUSAL>(q, k, v, o, B, H, rep, S, sd, st);
+        return launch<T, 128, CAUSAL>(q, k, v, o, B, H, rep, S, sd, w, st);
       default: break;
     }
   }
@@ -867,9 +910,10 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o,
 
 template <typename T>
 int run(const void* q, const void* k, const void* v, void* o, int B, int H,
-        int Hkv, int S, int dh, int causal, int scale_dh, void* stream) {
+        int Hkv, int S, int dh, int causal, int scale_dh, int window,
+        void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || S < 1 || H % Hkv || scale_dh < 1 ||
-      scale_dh > dh ||
+      scale_dh > dh || window < 0 ||
       static_cast<long long>(B) * H > 0x7fffffffLL ||
       (S + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -877,9 +921,9 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int H,
   const int rep = H / Hkv;
   return static_cast<int>(
       causal ? dispatch_dh<T, true>(q, k, v, o, B, H, rep, S, dh, scale_dh,
-                                    st)
+                                    window, st)
              : dispatch_dh<T, false>(q, k, v, o, B, H, rep, S, dh, scale_dh,
-                                     st));
+                                     window, st));
 }
 
 // The SM count of the current device if it is an sm_90 card (the library
@@ -906,15 +950,15 @@ int sm90_count() {
 template <bool CAUSAL>
 cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
                            void* o, const long long* st, int B, int H,
-                           int Hkv, int S, int dh, int scale_dh, int n_sm,
-                           cudaStream_t stream) {
+                           int Hkv, int S, int dh, int scale_dh, int window,
+                           int n_sm, cudaStream_t stream) {
   switch (dh) {
     case 64:
       return launch_wgmma<64, CAUSAL>(q, k, v, o, st, B, H, Hkv, S, scale_dh,
-                                      n_sm, stream);
+                                      window, n_sm, stream);
     case 128:
       return launch_wgmma<128, CAUSAL>(q, k, v, o, st, B, H, Hkv, S, scale_dh,
-                                       n_sm, stream);
+                                       window, n_sm, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -936,40 +980,42 @@ extern "C" const char* flash_attention_error_string(int err) {
 // q/o:[B,H,S,dh], k/v:[B,Hkv,S,dh], contiguous, 16-byte aligned; H % Hkv
 // == 0; bf16 at dh in {16, 32, 256}, fp32 at dh in {16, 32, 64, 128, 256};
 // the softmax scale is 1/sqrt(scale_dh), 1 <= scale_dh <= dh (the head dim
-// before the wrapper's zero padding). Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// before the wrapper's zero padding); window >= 0 (0: none). Launches on
+// `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int B, int H,
                                     int Hkv, int S, int dh, int causal,
-                                    int scale_dh, void* stream) {
-  return run<bf16>(q, k, v, o, B, H, Hkv, S, dh, causal, scale_dh, stream);
+                                    int scale_dh, int window, void* stream) {
+  return run<bf16>(q, k, v, o, B, H, Hkv, S, dh, causal, scale_dh, window,
+                   stream);
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, int B, int H,
                                    int Hkv, int S, int dh, int causal,
-                                   int scale_dh, void* stream) {
-  return run<float>(q, k, v, o, B, H, Hkv, S, dh, causal, scale_dh, stream);
+                                   int scale_dh, int window, void* stream) {
+  return run<float>(q, k, v, o, B, H, Hkv, S, dh, causal, scale_dh, window,
+                    stream);
 }
 
 // The Hopper path, bf16 at dh in {64, 128}, on an sm_90 card only. One
-// array of 27 int64 carries the call, so the host spends little on it:
+// array of 28 int64 carries the call, so the host spends little on it:
 // a[0..4) the q, k, v, o pointers (q/o:[B,H,S,dh], k/v:[B,Hkv,S,dh]);
 // a[4..10) B, H, Hkv, S, dh, causal; a[10..26) the element strides
 // (b, h, s, d) of q, k, v and o: unit stride in dh, 16-byte multiples
 // elsewhere, every base 16-byte aligned, H % Hkv == 0; a[26] the head dim
-// whose 1/sqrt scales the logits (1 <= a[26] <= dh), or
-// cudaErrorInvalidValue. Launches a persistent grid of at most one block
-// per SM. Returns cudaGetLastError() (0 on success).
+// whose 1/sqrt scales the logits (1 <= a[26] <= dh); a[27] the window
+// (>= 0, 0: none); or cudaErrorInvalidValue. Launches a persistent grid
+// of at most one block per SM. Returns cudaGetLastError() (0 on success).
 extern "C" int flash_attention_wgmma(const long long* a, void* stream) {
   const void* base[4] = {reinterpret_cast<const void*>(a[0]),
                          reinterpret_cast<const void*>(a[1]),
                          reinterpret_cast<const void*>(a[2]),
                          reinterpret_cast<const void*>(a[3])};
   const long long B = a[4], H = a[5], Hkv = a[6], S = a[7], dh = a[8];
-  const long long causal = a[9], scale_dh = a[26];
+  const long long causal = a[9], scale_dh = a[26], window = a[27];
   if (B < 1 || H < 1 || Hkv < 1 || S < 1 || H % Hkv || S > 0x7fffffffLL ||
-      scale_dh < 1 || scale_dh > dh ||
+      scale_dh < 1 || scale_dh > dh || window < 0 || window > 0x7fffffffLL ||
       B * H * ((S + wg::BQ - 1) / wg::BQ) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   // the maps take (b, h, s), a size-1 dim's stride (never read) set to 8
@@ -995,10 +1041,10 @@ extern "C" int flash_attention_wgmma(const long long* a, void* stream) {
   return static_cast<int>(
       causal ? dispatch_wgmma<true>(base[0], base[1], base[2],
                                     const_cast<void*>(base[3]), st, b, h, hkv,
-                                    s, d, static_cast<int>(scale_dh), n_sm,
-                                    sm)
+                                    s, d, static_cast<int>(scale_dh),
+                                    static_cast<int>(window), n_sm, sm)
              : dispatch_wgmma<false>(base[0], base[1], base[2],
                                      const_cast<void*>(base[3]), st, b, h,
                                      hkv, s, d, static_cast<int>(scale_dh),
-                                     n_sm, sm));
+                                     static_cast<int>(window), n_sm, sm));
 }

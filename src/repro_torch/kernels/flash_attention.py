@@ -4,7 +4,9 @@
 Replaces ``repro.kernels.flash_attention.flash_attention_pallas``. One launch
 computes ``softmax(q kᵀ / sqrt(dh)) v`` for every (batch, head), causal or
 not, with grouped-query heads read by index (query head ``h`` reads KV head
-``h // (H // Hkv)``). bf16 at dh 64 and 128 runs the Hopper kernel (TMA,
+``h // (H // Hkv)``), and with a sliding ``window > 0`` the keys
+``j <= i - window`` of query ``i`` masked (tiles wholly outside every
+row's window are not read). bf16 at dh 64 and 128 runs the Hopper kernel (TMA,
 wgmma, sm_90 cards only), which reads strided q/k/v views as they are and
 writes its output in q's memory layout; bf16 at dh 16, 32 and 256 runs
 mma.sync and fp32 runs fp32 FMAs, both on contiguous copies. Any other
@@ -45,19 +47,22 @@ def padded_head_dim(dh: int) -> int:
     return next(w for w in HEAD_DIMS if w >= dh)
 
 
-_CALL = struct.Struct("27q")   # the C entry point's argument array
+_CALL = struct.Struct("28q")   # the C entry point's argument array
 
 
-def wgmma_call(q, k, v, o, causal: bool, scale_dh: int) -> bytes:
+def wgmma_call(q, k, v, o, causal: bool, scale_dh: int,
+               window: int = 0) -> bytes:
     """The packed arguments of ``flash_attention_wgmma``: the four
     pointers, B, H, Hkv, S, dh, causal, then the element strides of q, k,
     v and o, four each (the C entry point checks them: unit stride in the
     last dim, 16-byte multiples elsewhere, 16-byte aligned bases), then
-    the head dim of the softmax scale ``1/sqrt(scale_dh)``."""
+    the head dim of the softmax scale ``1/sqrt(scale_dh)`` and the
+    window (0: none)."""
     B, H, S, dh = q.shape
     return _CALL.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                       B, H, k.shape[1], S, dh, int(causal), *q.stride(),
-                      *k.stride(), *v.stride(), *o.stride(), scale_dh)
+                      *k.stride(), *v.stride(), *o.stride(), scale_dh,
+                      window)
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,7 +72,8 @@ def _card(index: int):
     return (p.major, p.minor), p.name
 
 
-def _flash_wgmma(q, k, v, causal: bool, scale_dh: int) -> torch.Tensor:
+def _flash_wgmma(q, k, v, causal: bool, scale_dh: int,
+                 window: int) -> torch.Tensor:
     dev = q.device
     if not q.is_cuda:
         raise ValueError(f"q must be on a CUDA device, got {dev}")
@@ -84,7 +90,7 @@ def _flash_wgmma(q, k, v, causal: bool, scale_dh: int) -> torch.Tensor:
     lib, fn = _build.entry("flash_attention", 1, 0, "wgmma")
     # the current stream's raw handle (no Stream object: a few microseconds
     # a call, which the encoders' small grids would pay)
-    err = fn(wgmma_call(q, k, v, out, causal, scale_dh),
+    err = fn(wgmma_call(q, k, v, out, causal, scale_dh, window),
              torch._C._cuda_getCurrentRawStream(dev.index))
     if err == INVALID_VALUE:
         raise ValueError(
@@ -97,9 +103,11 @@ def _flash_wgmma(q, k, v, causal: bool, scale_dh: int) -> torch.Tensor:
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool) -> torch.Tensor:
+                         causal: bool, window: int = 0) -> torch.Tensor:
     """q:[B,H,S,dh], k/v:[B,Hkv,S,dh], one dtype (bf16 or fp32) on one CUDA
-    device; H % Hkv == 0, 1 <= dh <= 256. bf16 at dh 64/128 takes views
+    device; H % Hkv == 0, 1 <= dh <= 256; ``window > 0`` masks the keys
+    ``j <= i - window`` (0 or less: no window, as the reference reads
+    it). bf16 at dh 64/128 takes views
     with unit stride in dh and other strides in 16-byte multiples (the
     output keeps q's layout); the other paths copy to contiguous. A dh
     outside ``HEAD_DIMS`` runs at ``padded_head_dim(dh)`` on zero-padded
@@ -107,13 +115,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     returns a view of the true columns. Returns ``[B,H,S,dh]`` in q's
     dtype."""
     _check_shapes(q, k, v)
+    window = max(int(window), 0)
     dh = q.shape[3]
     width = padded_head_dim(dh)
     if width != dh:
         pad = (0, width - dh)
         q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
     if q.dtype == torch.bfloat16 and width in WGMMA_HEAD_DIMS:
-        out = _flash_wgmma(q, k, v, causal, dh)
+        out = _flash_wgmma(q, k, v, causal, dh, window)
     else:
         dev = q.device
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -121,10 +130,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _build.require(k, "k", (q.dtype,), 4, dev)
         _build.require(v, "v", (q.dtype,), 4, dev)
         B, H, S = q.shape[:3]
-        lib, fn = _build.entry("flash_attention", 4, 7, _ENTRY[q.dtype])
+        lib, fn = _build.entry("flash_attention", 4, 8, _ENTRY[q.dtype])
         out = torch.empty_like(q)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                 H, k.shape[1], S, width, int(causal), dh,
+                 H, k.shape[1], S, width, int(causal), dh, window,
                  torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, "flash_attention", err)
     from repro_torch.kernels.ops import count_launch  # ops imports this module

@@ -77,12 +77,13 @@ def pq_topk(q, codebook, cent, packed_codes, packed_slot, packed_ok,
                        packed_ok, nprobe, k)
 
 
-def flash_attention(q, k, v, *, causal: bool):
-    """Grouped-query attention, q:[B,H,S,dh], k/v:[B,Hkv,S,dh]; see
+def flash_attention(q, k, v, *, causal: bool, window: int = 0):
+    """Grouped-query attention, q:[B,H,S,dh], k/v:[B,Hkv,S,dh], keys
+    ``j <= i - window`` masked when ``window > 0``; see
     ``ref.flash_attention`` for the contract."""
     if _on_cuda(q, k, v):
-        return _fa.flash_attention_cuda(q, k, v, causal)
-    return ref.flash_attention(q, k, v, causal=causal)
+        return _fa.flash_attention_cuda(q, k, v, causal, window)
+    return ref.flash_attention(q, k, v, causal=causal, window=window)
 
 
 KERNELS = ("topk_search", "quant_score", "ivf_topk", "sq8_topk", "pq_topk",

@@ -179,13 +179,31 @@ def pq_topk(q, codebook, cent, packed_codes, packed_slot, packed_ok,
                             torch.stack(ci, 1).reshape(nq, nprobe * kt), k)
 
 
-def flash_attention(q, k, v, *, causal: bool = True):
+def attention_mask(S: int, causal: bool, window: int, device):
+    """``[S, S]`` bool, True where query ``i`` sees key ``j``: ``j <= i``
+    when causal, and ``j > i - window`` when ``window > 0`` (the
+    reference's ``attention_scores_mask``); None where every key is
+    visible."""
+    if not causal and window <= 0:
+        return None
+    i = torch.arange(S, device=device)
+    ok = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        ok &= i[None, :] <= i[:, None]
+    if window > 0:
+        ok &= i[None, :] > i[:, None] - window
+    return ok
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     """Attention with grouped-query heads, step by step as the reference
     ``repro.kernels.ref.flash_attention``: q:[B,H,S,dh], k/v:[B,Hkv,S,dh]
     (query head ``h`` reads KV head ``h // (H // Hkv)``) -> [B,H,S,dh].
 
     The logits are taken in the input dtype, cast to fp32 and scaled by
-    ``1/sqrt(dh)``; causal masks the keys above the diagonal with -inf; the
+    ``1/sqrt(dh)``; causal masks the keys above the diagonal with -inf, and
+    a ``window > 0`` the keys ``j <= i - window`` (the reference model's
+    sliding window, ``repro.models.layers.attention_scores_mask``); the
     softmax is fp32 and its probabilities go back to ``q.dtype`` before the
     product with ``v``."""
     S, dh = q.shape[2], q.shape[3]
@@ -194,8 +212,8 @@ def flash_attention(q, k, v, *, causal: bool = True):
     v = v.repeat_interleave(rep, dim=1)
     logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * (
         1.0 / math.sqrt(dh))
-    if causal:
-        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    mask = attention_mask(S, causal, window, q.device)
+    if mask is not None:
         logits = logits.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)

@@ -136,7 +136,7 @@ def main(argv=None):
     ap.add_argument("--config", default="", help="PipelineSpec JSON")
     ap.add_argument("--arch", default="",
                     help="serve a ModelLLM of this architecture in the llm "
-                         "slot (dense or moe family)")
+                         "slot (any id of repro_torch.configs)")
     ap.add_argument("--smoke", action="store_true",
                     help="with --arch: the reduced smoke config")
     ap.add_argument("--max-new", type=int, default=8,

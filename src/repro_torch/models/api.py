@@ -2,43 +2,42 @@
 and the counts the reference's ``repro.models.api`` gives (parameters,
 bytes, model FLOPs).
 
-The ``dense`` and ``moe`` families are ported, both by
-``repro_torch.models.transformer`` (``Transformer``, ``init``; MoE blocks
-through ``repro_torch.models.moe``). Asking for another family raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+Every family of the reference's zoo is ported: ``dense``, ``moe`` and
+``vlm`` by ``repro_torch.models.transformer`` (MoE blocks through
+``models.moe``, M-RoPE and the embeddings input for the vlm backbone),
+``audio`` by ``models.whisper``, ``ssm`` by ``models.xlstm`` and
+``hybrid`` by ``models.zamba2`` (with ``models.mamba2``). Each module has
+``Model`` (an ``nn.Module`` whose tensors ``init`` fills; on ``meta`` its
+shapes alone) and ``init(cfg, seed, device)``.
 """
 from __future__ import annotations
 
 from torch import nn
 
-from repro_torch.models import transformer
+from repro_torch.models import transformer, whisper, xlstm, zamba2
 from repro_torch.models.config import ModelConfig
 
-FAMILY_MODULES = {"dense": transformer, "moe": transformer}
-
-# families of the reference's zoo that the port does not run yet -> the
-# item of ROADMAP.md queue 1 that ports them
-NOT_PORTED = {
-    "vlm": "queue 1 item 7, the rest (vlm: M-RoPE)",
-    "audio": "queue 1 item 9 (whisper)",
-    "ssm": "queue 1 item 9 (xlstm)",
-    "hybrid": "queue 1 item 9 (zamba2, mamba2)",
+FAMILY_MODULES = {
+    "dense": transformer,
+    "moe": transformer,
+    "vlm": transformer,
+    "audio": whisper,
+    "ssm": xlstm,
+    "hybrid": zamba2,
 }
 
 
-def require_family(family: str) -> None:
-    """Raise unless the port has a model for ``family``."""
-    if family in FAMILY_MODULES:
-        return
-    if family in NOT_PORTED:
-        raise NotImplementedError(f"model family {family!r} is not ported "
-                                  f"yet: ROADMAP.md {NOT_PORTED[family]}")
-    raise ValueError(f"unknown model family {family!r}")
-
-
 def get_model(cfg: ModelConfig):
-    require_family(cfg.family)
-    return FAMILY_MODULES[cfg.family]
+    try:
+        return FAMILY_MODULES[cfg.family]
+    except KeyError:
+        raise ValueError(f"unknown model family {cfg.family!r}") from None
+
+
+def build(cfg: ModelConfig, device=None) -> nn.Module:
+    """The family's model for ``cfg`` with uninitialised tensors on
+    ``device`` (``None`` is the card; ``meta`` allocates nothing)."""
+    return get_model(cfg).Model(cfg, device=device)
 
 
 def count_params(model: nn.Module) -> int:

@@ -1,10 +1,9 @@
 """Model configuration dataclasses: the port's copy of
 ``repro.models.config`` (``MoEConfig``, ``ModelConfig``).
 
-Configs are plain frozen dataclasses, so they hash and compare. The
-``dense`` and ``moe`` families have a model in the port
-(``repro_torch.models.api``); the other families' fields are kept so that
-every config of the zoo loads.
+Configs are plain frozen dataclasses, so they hash and compare. Every
+family of the reference's zoo has a model in the port
+(``repro_torch.models.api``), and every field the families read is kept.
 """
 from __future__ import annotations
 
@@ -91,8 +90,7 @@ class ModelConfig:
         ``meta`` device (nothing is allocated)."""
         from repro_torch.models import api  # local import to avoid cycle
 
-        return api.count_params(
-            api.get_model(self).Transformer(self, device="meta"))
+        return api.count_params(api.build(self, device="meta"))
 
     def active_param_count(self) -> int:
         """Params touched per token (MoE counts only routed experts)."""

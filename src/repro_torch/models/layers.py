@@ -1,24 +1,27 @@
-"""Layers of the dense transformer: the port of ``repro.models.layers``
-(norm, RoPE, MLP variants, grouped-query attention, full-sequence, one
-cached decode step and one chunk of a chunked prefill).
+"""Shared layers of the model zoo: the port of ``repro.models.layers``
+(RMS and layer norms, RoPE and M-RoPE, sinusoidal positions, MLP variants,
+grouped-query attention: full-sequence self and cross attention, one cached
+decode step, one chunk of a chunked prefill, one cached cross-attention
+step).
 
 Tensors keep the reference's layouts: activations ``[B, S, D]``, heads
 ``[B, S, H, hd]``, weights ``[in, out]`` applied as ``x @ W``, KV caches
-``[B, max_len, Hkv, hd]``. Full-sequence attention goes through
+``[B, max_len, Hkv, hd]``. Full-sequence self-attention, causal or not and
+with or without a sliding window, goes through
 ``repro_torch.kernels.ops.flash_attention`` (the hand-written kernel on the
-card, its plain version on the CPU); the decode step and the prefill chunk
-against the cache are plain torch, as the reference computes them outside
-any Pallas kernel (a chunk's queries and the cache's keys differ in length,
-which the kernel's contract does not take). The reference's ``constrain``
-(a sharding hint, a no-op on one device) is dropped; M-RoPE, sinusoidal
-positions and cross attention wait for the items that need them (ROADMAP.md
-queue 1 items 7 and 9).
+card, its plain version on the CPU); cross attention, the decode step and
+the prefill chunk against the cache are plain torch einsums, as the
+reference computes them outside any Pallas kernel (their queries and keys
+differ in length, which the kernel's contract does not take). The
+reference's ``constrain`` (a sharding hint, a no-op on one device) is
+dropped.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -36,6 +39,18 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5):
     var = x.square().mean(dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + weight.float())).to(dtype)
+
+
+def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5):
+    """Layer norm in fp32 (population variance), cast back to
+    ``x.dtype``."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -56,6 +71,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
+                sections: Sequence[int]):
+    """Multimodal RoPE (Qwen2-VL): x [B, S, H, D], positions_3d [3, B, S]
+    (temporal, height, width). ``sections`` splits the half-dim into (t, h,
+    w) frequency bands; band ``i`` rotates by stream ``i``'s angle, picked
+    by a one-hot over the three streams as the reference does (a product by
+    1 and two by 0: exact). For pure text the three streams are equal and
+    this is ``apply_rope``."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"half the head dim {half}")
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions_3d[..., None].float() * freqs        # [3, B, S, half]
+    idx = torch.cat([torch.full((n,), i, dtype=torch.long, device=x.device)
+                     for i, n in enumerate(sections)])
+    onehot = F.one_hot(idx, 3).float().T                 # [3, half]
+    ang = (ang * onehot[:, None, None, :]).sum(0)        # [B, S, half]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, dim: int, device=None) -> torch.Tensor:
+    """``[seq_len, dim]`` fp32: sin in the even columns, cos in the odd,
+    computed in float64 as the reference's numpy table."""
+    pos = np.arange(seq_len)[:, None]
+    div = np.exp(np.arange(0, dim, 2) * (-math.log(10000.0) / dim))
+    pe = np.zeros((seq_len, dim), dtype=np.float32)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div)
+    return torch.from_numpy(pe).to(device)
 
 
 def activation_fn(name: str):
@@ -92,57 +142,99 @@ def attn_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
 
 
 def require_full_attention(cfg: ModelConfig) -> None:
-    """Raise for the attention variants the port has no kernel path for."""
-    if cfg.attn_window > 0 or cfg.attn_logit_softcap > 0:
+    """Raise for soft-capped attention, which the kernel does not compute
+    (no config of the zoo sets it; ROADMAP.md queue 3 item 2)."""
+    if cfg.attn_logit_softcap > 0:
         raise NotImplementedError(
-            f"{cfg.name}: sliding-window or soft-capped attention is not "
-            f"ported yet: ROADMAP.md queue 1 item 9 (zamba2's attention)")
+            f"{cfg.name}: soft-capped attention logits are not ported: "
+            f"ROADMAP.md queue 3 item 2")
 
 
 def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int):
     return x.reshape(*x.shape[:-1], n_heads, head_dim)
 
 
+def rotate(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+           cfg: ModelConfig, positions_3d: Optional[torch.Tensor] = None):
+    """q and k rotated by the config's positions: M-RoPE where the config
+    has it and ``positions_3d`` is given, else RoPE for ``rope`` and
+    ``mrope`` configs (equal streams), else unchanged (``sinusoidal`` and
+    ``none``: the positions are added to the input, or absent)."""
+    if cfg.rope_type == "mrope" and positions_3d is not None:
+        return (apply_mrope(q, positions_3d, cfg.rope_theta,
+                            cfg.mrope_sections),
+                apply_mrope(k, positions_3d, cfg.rope_theta,
+                            cfg.mrope_sections))
+    if cfg.rope_type in ("rope", "mrope"):
+        return (apply_rope(q, positions, cfg.rope_theta),
+                apply_rope(k, positions, cfg.rope_theta))
+    return q, k
+
+
 def attention_qkv(params: Params, x: torch.Tensor, positions: torch.Tensor,
-                  cfg: ModelConfig):
-    """Projected, rotated heads ``q [B,S,H,hd]``, ``k, v [B,S,Hkv,hd]``."""
+                  cfg: ModelConfig, *, use_rope: bool = True,
+                  positions_3d: Optional[torch.Tensor] = None):
+    """Projected heads ``q [B,S,H,hd]``, ``k, v [B,S,Hkv,hd]``, q and k
+    rotated (``rotate``) unless ``use_rope`` is false."""
     hd = cfg.resolved_head_dim
     q = _split_heads(x @ params["wq"], cfg.n_heads, hd)
     k = _split_heads(x @ params["wk"], cfg.n_kv_heads, hd)
     v = _split_heads(x @ params["wv"], cfg.n_kv_heads, hd)
-    if cfg.rope_type == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.rope_type != "none":
-        raise NotImplementedError(
-            f"rope_type {cfg.rope_type!r} is not ported yet: ROADMAP.md "
-            f"queue 1 item 7 (vlm, M-RoPE)")
+    if use_rope:
+        q, k = rotate(q, k, positions, cfg, positions_3d)
     return q, k, v
 
 
-def attention_out(params: Params, q, k, v, cfg: ModelConfig, causal: bool):
+def attention_out(params: Params, q, k, v, cfg: ModelConfig, causal: bool,
+                  window: int = 0):
     """The attention core through the kernel (query head ``h`` reads KV head
-    ``h // (H // Hkv)``, the reference's ``(n_kv, rep)`` grouping), then the
-    output projection. q:[B,S,H,hd], k/v:[B,S,Hkv,hd] -> [B,S,D]."""
+    ``h // (H // Hkv)``, the reference's ``(n_kv, rep)`` grouping; keys
+    ``j <= i - window`` masked when ``window > 0``), then the output
+    projection. q:[B,S,H,hd], k/v:[B,S,Hkv,hd] -> [B,S,D]."""
     require_full_attention(cfg)
     B, S = q.shape[:2]
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal)
+                              v.transpose(1, 2), causal=causal,
+                              window=window)
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
     return out @ params["wo"]
 
 
 def multihead_attention(params: Params, x: torch.Tensor,
                         positions: torch.Tensor, cfg: ModelConfig, *,
-                        causal: bool = True):
-    """Full-sequence self-attention, x:[B,S,D] -> [B,S,D]."""
-    q, k, v = attention_qkv(params, x, positions, cfg)
-    return attention_out(params, q, k, v, cfg, causal)
+                        causal: bool = True,
+                        kv_x: Optional[torch.Tensor] = None,
+                        use_rope: bool = True,
+                        positions_3d: Optional[torch.Tensor] = None,
+                        window: int = 0):
+    """Full-sequence attention, x:[B,S,D] -> [B,S,D]: self-attention
+    through the kernel; with ``kv_x [B,T,D]`` cross attention over it,
+    unrotated and unmasked, as the reference's einsums compute it (the
+    logits in the input dtype, scaled in fp32, an fp32 softmax cast back
+    before the product with v)."""
+    if kv_x is None:
+        q, k, v = attention_qkv(params, x, positions, cfg,
+                                use_rope=use_rope, positions_3d=positions_3d)
+        return attention_out(params, q, k, v, cfg, causal, window)
+    require_full_attention(cfg)
+    hd = cfg.resolved_head_dim
+    B, S = x.shape[:2]
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    q = _split_heads(x @ params["wq"], cfg.n_heads, hd)
+    k = _split_heads(kv_x @ params["wk"], cfg.n_kv_heads, hd)
+    v = _split_heads(kv_x @ params["wv"], cfg.n_kv_heads, hd)
+    q = q.reshape(B, S, cfg.n_kv_heads, n_rep, hd)
+    scores = torch.einsum("bqkrd,bmkd->bkrqm", q, k).float() / math.sqrt(hd)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bkrqm,bmkd->bqkrd", probs, v)
+    return out.reshape(B, S, cfg.n_heads * hd) @ params["wo"]
 
 
 def cached_attention_step(params: Params, x: torch.Tensor,
                           cache_k: torch.Tensor, cache_v: torch.Tensor,
-                          index: Union[int, torch.Tensor], cfg: ModelConfig):
+                          index: Union[int, torch.Tensor], cfg: ModelConfig,
+                          *, window: int = 0,
+                          positions_3d: Optional[torch.Tensor] = None):
     """One decode step with a KV cache: x:[B,1,D], cache_k/v:[B,max_len,
     Hkv,hd]; returns the attention output [B,1,D].
 
@@ -150,7 +242,9 @@ def cached_attention_step(params: Params, x: torch.Tensor,
     or a ``[B]`` integer tensor (every row at its own position). The new K/V
     are written into the caches in place, at each row's position; the
     scores run against the whole cache with the keys past the position
-    masked, as the reference computes them."""
+    (and, with ``window > 0``, those at or below ``pos - window``) masked,
+    as the reference computes them. ``positions_3d [3, B, 1]`` rotates an
+    M-RoPE config's q and k."""
     require_full_attention(cfg)
     hd = cfg.resolved_head_dim
     B = x.shape[0]
@@ -162,9 +256,7 @@ def cached_attention_step(params: Params, x: torch.Tensor,
         pos = index.to(device=x.device, dtype=torch.long).reshape(B, 1)
     else:
         pos = torch.full((B, 1), int(index), dtype=torch.long, device=x.device)
-    if cfg.rope_type == "rope":
-        q = apply_rope(q, pos, cfg.rope_theta)
-        k = apply_rope(k, pos, cfg.rope_theta)
+    q, k = rotate(q, k, pos, cfg, positions_3d)
     if per_row:
         rows = torch.arange(B, device=x.device)
         cache_k[rows, pos[:, 0]] = k[:, 0].to(cache_k.dtype)
@@ -178,6 +270,8 @@ def cached_attention_step(params: Params, x: torch.Tensor,
     scores = scores / math.sqrt(hd)
     kpos = torch.arange(cache_k.shape[1], device=x.device)
     ok = kpos[None, :] <= pos                                    # [B, M]
+    if window > 0:
+        ok &= kpos[None, :] > pos - window
     scores = scores.masked_fill(~ok[:, None, None, None, :], float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bkrqm,bmkd->bqkrd", probs, cache_v)
@@ -186,14 +280,16 @@ def cached_attention_step(params: Params, x: torch.Tensor,
 
 def cached_attention_chunk(params: Params, x: torch.Tensor,
                            cache_k: torch.Tensor, cache_v: torch.Tensor,
-                           offset: int, cfg: ModelConfig):
+                           offset: int, cfg: ModelConfig, *,
+                           window: int = 0):
     """Chunked-prefill attention: the ``C`` prompt tokens ``x [B,C,D]`` at
     positions ``[offset, offset + C)`` attend causally to the earlier
     chunks already in ``cache_k/v [B,max_len,Hkv,hd]`` and to themselves.
     Their K/V are written into the caches in place at those positions;
     keys past each query's position are masked, so stale K/V of a slot's
-    previous occupant is never attended. Returns the attention output
-    ``[B,C,D]``, as the reference computes it."""
+    previous occupant is never attended; with ``window > 0`` so are keys
+    at or below ``pos - window``. Returns the attention output ``[B,C,D]``,
+    as the reference computes it."""
     require_full_attention(cfg)
     hd = cfg.resolved_head_dim
     B, C = x.shape[:2]
@@ -201,14 +297,7 @@ def cached_attention_chunk(params: Params, x: torch.Tensor,
     k = _split_heads(x @ params["wk"], cfg.n_kv_heads, hd)
     v = _split_heads(x @ params["wv"], cfg.n_kv_heads, hd)
     pos = offset + torch.arange(C, device=x.device)              # [C]
-    if cfg.rope_type == "rope":
-        posb = pos[None, :].expand(B, C)
-        q = apply_rope(q, posb, cfg.rope_theta)
-        k = apply_rope(k, posb, cfg.rope_theta)
-    elif cfg.rope_type != "none":
-        raise NotImplementedError(
-            f"rope_type {cfg.rope_type!r} is not ported yet: ROADMAP.md "
-            f"queue 1 item 7 (vlm, M-RoPE)")
+    q, k = rotate(q, k, pos[None, :].expand(B, C), cfg)
     cache_k[:, offset:offset + C] = k.to(cache_k.dtype)
     cache_v[:, offset:offset + C] = v.to(cache_v.dtype)
     n_rep = cfg.n_heads // cfg.n_kv_heads
@@ -217,7 +306,30 @@ def cached_attention_chunk(params: Params, x: torch.Tensor,
     scores = scores / math.sqrt(hd)
     kpos = torch.arange(cache_k.shape[1], device=x.device)
     ok = kpos[None, :] <= pos[:, None]                           # [C, M]
+    if window > 0:
+        ok &= kpos[None, :] > pos[:, None] - window
     scores = scores.masked_fill(~ok[None, None, None], float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bkrqm,bmkd->bqkrd", probs, cache_v)
     return out.reshape(B, C, cfg.n_heads * hd) @ params["wo"]
+
+
+def cached_cross_attention_step(params: Params, x: torch.Tensor,
+                                cross_k: torch.Tensor, cross_v: torch.Tensor,
+                                cfg: ModelConfig):
+    """Decode-time cross attention of ``x [B,1,D]`` against the encoder's
+    precomputed ``cross_k/v [B,T,Hkv,hd]`` (K/V repeated over the query
+    groups where there are several, as the reference's ``_repeat_kv``).
+    Returns ``[B,1,D]``."""
+    hd = cfg.resolved_head_dim
+    B = x.shape[0]
+    q = _split_heads(x @ params["wq"], cfg.n_heads, hd)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    kk, vv = cross_k, cross_v
+    if n_rep > 1:
+        kk = kk.repeat_interleave(n_rep, dim=2)
+        vv = vv.repeat_interleave(n_rep, dim=2)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() / math.sqrt(hd)
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vv)
+    return out.reshape(B, 1, cfg.n_heads * hd) @ params["wo"]

@@ -1,5 +1,5 @@
-"""Decoder-only GQA transformer, dense and MoE families: the port of
-``repro.models.transformer``.
+"""Decoder-only GQA transformer, dense, MoE and VLM-backbone families: the
+port of ``repro.models.transformer``.
 
 ``Transformer`` is an ``nn.Module`` with one ``Block`` per layer in a
 ``ModuleList`` where the reference stacks ``[L, ...]`` leaves and scans
@@ -13,6 +13,12 @@ dispatch in every block's MLP slot (``Block.moe``: the router in fp32, the
 experts in the model's dtype). Its routing groups are the reference's: a
 batch row in ``prefill`` and ``prefill_chunk``, the whole batch in
 ``decode_step``.
+
+A ``vlm`` config (Qwen2-VL) takes precomputed embeddings ``[B, S, D]`` in
+place of token ids (its patch frontend is a stub, as in the reference; the
+model has no embedding table) and rotates q and k by M-RoPE over
+``positions_3d [3, B, S]`` (temporal, height, width), which default to the
+token positions in all three streams, as the reference derives them.
 """
 from __future__ import annotations
 
@@ -34,18 +40,40 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def _params(shapes: Dict[str, tuple], device, dtype) -> nn.ParameterDict:
+def param(shape, device, dtype) -> nn.Parameter:
+    """One uninitialised inference-only parameter."""
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
+                        requires_grad=False)
+
+
+def param_dict(shapes: Dict[str, tuple], device, dtype) -> nn.ParameterDict:
     """One uninitialised parameter per ``name -> shape``, or per ``name ->
     (shape, dtype name)`` where a leaf keeps its own dtype (the MoE
-    router's fp32 inside a bf16 model)."""
+    router's fp32 inside a bf16 model, Mamba2's and xLSTM's fp32 gate
+    leaves)."""
     out = {}
     for name, shape in shapes.items():
         dt = dtype
         if isinstance(shape[-1], str):
             shape, dt = shape[0], _DTYPES[shape[1]]
-        out[name] = nn.Parameter(torch.empty(shape, device=device, dtype=dt),
-                                 requires_grad=False)
+        out[name] = param(shape, device, dt)
     return nn.ParameterDict(out)
+
+
+class ZooModel(nn.Module):
+    """What every family's model shares: its device (that of its
+    ``final_norm``) and the check that an input lies there."""
+
+    @property
+    def device(self) -> torch.device:
+        return self.final_norm.device
+
+    def _on_device(self, name: str, t) -> torch.Tensor:
+        if not isinstance(t, torch.Tensor) or t.device != self.device:
+            where = t.device if isinstance(t, torch.Tensor) else type(t)
+            raise ValueError(f"{name} must be a tensor on the model's device "
+                             f"{self.device}, got {where}")
+        return t
 
 
 class Block(nn.Module):
@@ -56,17 +84,14 @@ class Block(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_model
-        self.attn = _params(L.attn_shapes(cfg), device, dtype)
-        self.attn_norm = nn.Parameter(torch.empty(d, device=device,
-                                                  dtype=dtype),
-                                      requires_grad=False)
+        self.attn = param_dict(L.attn_shapes(cfg), device, dtype)
+        self.attn_norm = param(d, device, dtype)
         if cfg.moe is None:
-            self.mlp = _params(L.mlp_shapes(cfg), device, dtype)
+            self.mlp = param_dict(L.mlp_shapes(cfg), device, dtype)
         else:
-            self.moe = _params(moe_lib.moe_params_shape(cfg), device, dtype)
-        self.mlp_norm = nn.Parameter(torch.empty(d, device=device,
-                                                 dtype=dtype),
-                                     requires_grad=False)
+            self.moe = param_dict(moe_lib.moe_params_shape(cfg), device,
+                                  dtype)
+        self.mlp_norm = param(d, device, dtype)
 
     def ffn(self, h: torch.Tensor, one_group: bool = False) -> torch.Tensor:
         """The MLP slot on ``h [B,S,D]``. An MoE routes each batch row as a
@@ -80,22 +105,26 @@ class Block(nn.Module):
                                      with_aux=False)[0].transpose(0, 1)
         return moe_lib.moe_apply(self.moe, h, cfg, with_aux=False)[0]
 
-    def forward(self, x, positions, causal: bool):
+    def forward(self, x, positions, causal: bool, positions_3d=None):
         """Returns the block's output and its rotated ``k`` and ``v``
         ``[B,S,Hkv,hd]`` (what a prefill writes to the cache)."""
         cfg = self.cfg
         h = L.rmsnorm(x, self.attn_norm, cfg.norm_eps)
-        q, k, v = L.attention_qkv(self.attn, h, positions, cfg)
-        x = x + L.attention_out(self.attn, q, k, v, cfg, causal)
+        q, k, v = L.attention_qkv(self.attn, h, positions, cfg,
+                                  positions_3d=positions_3d)
+        x = x + L.attention_out(self.attn, q, k, v, cfg, causal,
+                                cfg.attn_window)
         h = L.rmsnorm(x, self.mlp_norm, cfg.norm_eps)
         return x + self.ffn(h), k, v
 
 
-class Transformer(nn.Module):
-    """The dense or MoE model; its tensors are uninitialised until
-    ``init`` fills them (on ``meta`` they are shapes only). ``device=None``
-    is the card. Its methods take token ids and lengths on the model's
-    device and never move them: a tensor on another device raises."""
+class Transformer(ZooModel):
+    """The dense, MoE or VLM-backbone model; its tensors are uninitialised
+    until ``init`` fills them (on ``meta`` they are shapes only).
+    ``device=None`` is the card. Its methods take ``inputs`` (token ids
+    ``[B, S]``, or a vlm's embeddings ``[B, S, D]``) and lengths on the
+    model's device and never move them: a tensor on another device
+    raises."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -106,77 +135,79 @@ class Transformer(nn.Module):
         d, v = cfg.d_model, cfg.vocab_size
         self.layers = nn.ModuleList(Block(cfg, device, dtype)
                                     for _ in range(cfg.n_layers))
-        self.final_norm = nn.Parameter(torch.empty(d, device=device,
-                                                   dtype=dtype),
-                                       requires_grad=False)
-        self.lm_head = None
-        if not cfg.tie_embeddings:
-            self.lm_head = nn.Parameter(torch.empty((d, v), device=device,
-                                                    dtype=dtype),
-                                        requires_grad=False)
-        self.embed = nn.Parameter(torch.empty((v, d), device=device,
-                                              dtype=dtype),
-                                  requires_grad=False)
-
-    @property
-    def device(self) -> torch.device:
-        return self.embed.device
+        self.final_norm = param(d, device, dtype)
+        self.lm_head = self.embed = None
+        if not (cfg.tie_embeddings and cfg.uses_tokens):
+            self.lm_head = param((d, v), device, dtype)
+        if cfg.uses_tokens:
+            self.embed = param((v, d), device, dtype)
 
     def head(self) -> torch.Tensor:
         """``[d, vocab]``: the LM head, or the embedding's transpose when
         the embeddings are tied (e.g. phi4-mini)."""
         return self.embed.T if self.lm_head is None else self.lm_head
 
-    def _on_device(self, name: str, t) -> torch.Tensor:
-        if not isinstance(t, torch.Tensor) or t.device != self.device:
-            where = t.device if isinstance(t, torch.Tensor) else type(t)
-            raise ValueError(f"{name} must be a tensor on the model's device "
-                             f"{self.device}, got {where}")
-        return t
+    def _embed(self, inputs: torch.Tensor) -> torch.Tensor:
+        """Token ids -> their embeddings; a vlm's embeddings in the model's
+        dtype (the reference's ``embed_inputs``)."""
+        if self.cfg.uses_tokens:
+            return self.embed[self._on_device("tokens", inputs).long()]
+        return self._on_device("embeds", inputs).to(self.final_norm.dtype)
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[self._on_device("tokens", tokens).long()]
+    def _positions(self, B: int, S: int, positions_3d=None):
+        """Positions ``[B,S]`` and, for an M-RoPE config, ``positions_3d
+        [3,B,S]`` (the token positions in all three streams unless
+        given)."""
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        if self.cfg.rope_type != "mrope":
+            return positions, None
+        if positions_3d is None:
+            return positions, positions[None].expand(3, B, S)
+        return positions, self._on_device("positions_3d", positions_3d)
 
-    def hidden(self, tokens: torch.Tensor, causal: bool = True):
+    def hidden(self, inputs: torch.Tensor, causal: bool = True,
+               positions_3d: Optional[torch.Tensor] = None):
         """The final-normed hidden states ``[B,S,D]`` of a full-sequence
         pass; ``causal=False`` is the encoders' bidirectional pass."""
-        x = self._embed(tokens)
-        B, S = tokens.shape
-        positions = torch.arange(S, device=self.device).expand(B, S)
+        x = self._embed(inputs)
+        positions, p3 = self._positions(*x.shape[:2], positions_3d)
         for blk in self.layers:
-            x, _, _ = blk(x, positions, causal)
+            x, _, _ = blk(x, positions, causal, p3)
         return L.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor,
+                positions_3d: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Full-sequence causal forward -> logits ``[B,S,V]``."""
-        return self.hidden(tokens) @ self.head()
+        return self.hidden(inputs, positions_3d=positions_3d) @ self.head()
 
     def init_cache(self, batch: int, max_len: int) -> Dict:
         """Zeroed ``k``/``v`` ``[L, B, max_len, Hkv, hd]`` and ``pos`` 0."""
         cfg = self.cfg
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=self.embed.dtype,
+        return {"k": torch.zeros(shape, dtype=self.final_norm.dtype,
                                  device=self.device),
-                "v": torch.zeros(shape, dtype=self.embed.dtype,
+                "v": torch.zeros(shape, dtype=self.final_norm.dtype,
                                  device=self.device),
                 "pos": 0}
 
-    def prefill(self, tokens: torch.Tensor, cache: Dict,
-                lengths: Optional[torch.Tensor] = None):
-        """Run the prompt ``[B,S]`` through the model, writing its K/V into
-        ``cache`` in place. Returns ``(last-position logits [B,V], cache)``.
+    def prefill(self, inputs: torch.Tensor, cache: Dict,
+                lengths: Optional[torch.Tensor] = None,
+                positions_3d: Optional[torch.Tensor] = None):
+        """Run the prompt (``[B,S]`` ids, or a vlm's ``[B,S,D]``
+        embeddings) through the model, writing its K/V into ``cache`` in
+        place. Returns ``(last-position logits [B,V], cache)``.
 
         With ``lengths`` ([B] per-row real prompt lengths) the logits are
         gathered at each row's last real token and ``cache["pos"]`` becomes
         the per-row position vector; without, ``pos`` is ``S`` and the
         logits are the last position's."""
         cfg = self.cfg
-        x = self._embed(tokens)
-        B, S = tokens.shape
-        positions = torch.arange(S, device=self.device).expand(B, S)
+        x = self._embed(inputs)
+        B, S = x.shape[:2]
+        positions, p3 = self._positions(B, S, positions_3d)
         for i, blk in enumerate(self.layers):
-            x, k, v = blk(x, positions, True)
+            x, k, v = blk(x, positions, True, p3)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
         if lengths is None:
@@ -203,23 +234,33 @@ class Transformer(nn.Module):
         for i, blk in enumerate(self.layers):
             h = L.rmsnorm(x, blk.attn_norm, cfg.norm_eps)
             x = x + L.cached_attention_chunk(blk.attn, h, cache["k"][i],
-                                             cache["v"][i], offset, cfg)
+                                             cache["v"][i], offset, cfg,
+                                             window=cfg.attn_window)
             h = L.rmsnorm(x, blk.mlp_norm, cfg.norm_eps)
             x = x + blk.ffn(h)
         x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
         return x @ self.head(), cache
 
-    def decode_step(self, tokens: torch.Tensor, cache: Dict):
-        """One-token decode, tokens ``[B,1]``; ``cache["pos"]`` is an int
-        (lock-step) or a ``[B]`` tensor (per-row positions). Writes the new
-        K/V in place and returns ``(logits [B,V], cache)``."""
+    def decode_step(self, inputs: torch.Tensor, cache: Dict):
+        """One-token decode, tokens ``[B,1]`` (a vlm's embeddings ``[B,1,
+        D]``); ``cache["pos"]`` is an int (lock-step) or a ``[B]`` tensor
+        (per-row positions). Writes the new K/V in place and returns
+        ``(logits [B,V], cache)``."""
         cfg = self.cfg
-        x = self._embed(tokens)
+        x = self._embed(inputs)
+        B = x.shape[0]
         index = cache["pos"]
+        p3 = None
+        if cfg.rope_type == "mrope":   # the position in all three streams
+            p3 = (index.reshape(1, B, 1) if isinstance(index, torch.Tensor)
+                  else torch.full((1, B, 1), int(index),
+                                  device=self.device)).expand(3, B, 1)
         for i, blk in enumerate(self.layers):
             h = L.rmsnorm(x, blk.attn_norm, cfg.norm_eps)
             x = x + L.cached_attention_step(blk.attn, h, cache["k"][i],
-                                            cache["v"][i], index, cfg)
+                                            cache["v"][i], index, cfg,
+                                            window=cfg.attn_window,
+                                            positions_3d=p3)
             h = L.rmsnorm(x, blk.mlp_norm, cfg.norm_eps)
             x = x + blk.ffn(h, one_group=True)
         cache["pos"] = index + 1
@@ -261,3 +302,6 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
         else:
             dense_init_(p, gen)
     return model
+
+
+Model = Transformer

@@ -59,8 +59,8 @@ from repro_torch.models.config import ModelConfig
 
 ADMISSION_POLICIES = ("fcfs", "sjf")
 # families whose decode takes per-row positions (the reference's
-# core.generator.PER_ROW_POS_FAMILIES); the port models ``dense`` and
-# ``moe`` (vlm raises in the model API)
+# core.generator.PER_ROW_POS_FAMILIES); the engine takes the token-input
+# ones (not the vlm backbone), as the reference's does
 PER_ROW_POS_FAMILIES = ("dense", "moe", "vlm")
 
 

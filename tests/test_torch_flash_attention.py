@@ -150,6 +150,69 @@ def test_flash_attention_any_head_dim_matches_jax(dh, dtype):
         assert (padded[..., dh:] == 0).all()
 
 
+def _jax_window_attention(q, k, v, window, causal):
+    """The reference model's attention core, ``L.multihead_attention`` with
+    its ``attention_scores_mask``, on heads ``q [B,H,S,dh]``, ``k, v
+    [B,Hkv,S,dh]`` (numpy): x holds q's heads, so ``wq`` and ``wo`` are
+    identities, and ``wk``/``wv`` read k and v off columns appended to x."""
+    from repro import configs as jconfigs
+    from repro.models import layers as JL
+    B, H, S, dh = q.shape
+    hkv = k.shape[1]
+    D = H * dh
+    cfg = jconfigs.get_smoke("llama3_8b").replace(
+        n_heads=H, n_kv_heads=hkv, d_model=D, head_dim=dh, dtype="float32",
+        rope_type="none")
+    x = np.concatenate([q.transpose(0, 2, 1, 3).reshape(B, S, D),
+                        k.transpose(0, 2, 1, 3).reshape(B, S, hkv * dh),
+                        v.transpose(0, 2, 1, 3).reshape(B, S, hkv * dh)], -1)
+    width = x.shape[-1]
+    pick = np.eye(width, dtype=np.float32)
+    params = {"wq": pick[:, :D], "wk": pick[:, D:D + hkv * dh],
+              "wv": pick[:, D + hkv * dh:], "wo": np.eye(D, dtype=np.float32)}
+    out = JL.multihead_attention(
+        {n: jnp.asarray(w) for n, w in params.items()}, jnp.asarray(x),
+        jnp.zeros((B, S), jnp.int32), cfg, causal=causal, use_rope=False,
+        window=window)
+    return np.asarray(out).reshape(B, S, H, dh).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("S", [63, 64, 200])
+@pytest.mark.parametrize("window", [1, 16, 64])
+def test_flash_attention_window_matches_jax(window, S, group):
+    """The sliding window (key ``j`` visible to query ``i`` iff ``j <= i``
+    and ``j > i - window``): the plain version, through the dispatch, against
+    the reference model's masked einsum attention in fp32."""
+    H = 4
+    arrays = _qkv(np.random.default_rng(window * 1000 + S + group), 2, H,
+                  H // group, S, 16)
+    want = _jax_window_attention(*arrays, window, True)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(*_torch(arrays, torch.float32), causal=True,
+                              window=window)
+    assert ops.launch_counts()["flash_attention"] == 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    if window == 1:   # each row sees only its own key
+        v = torch.from_numpy(arrays[2]).repeat_interleave(group, dim=1)
+        np.testing.assert_allclose(got.numpy(), v.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_window_at_least_S_is_no_window(causal):
+    """A window as long as the sequence masks nothing; 0 is no window."""
+    q, k, v = _torch(_qkv(np.random.default_rng(7), 1, 4, 2, 50, 16),
+                     torch.float32)
+    full = ref.flash_attention(q, k, v, causal=causal)
+    for window in (0, 50, 4096):
+        assert torch.equal(ref.flash_attention(q, k, v, causal=causal,
+                                               window=window), full)
+    want = _jax_window_attention(*(t.numpy() for t in (q, k, v)), 8, causal)
+    got = ops.flash_attention(q, k, v, causal=causal, window=8)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
 # -- on the card ----------------------------------------------------------------
 
 
@@ -278,3 +341,44 @@ def test_flash_kernel_any_head_dim(cuda_device, dh, dtype, causal):
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
     if dtype == "bfloat16":
         assert _row_rel_err(got, want) <= ATTN_ROW_REL_LIMIT
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh,dtype", [(64, "bfloat16"), (128, "bfloat16"),
+                                      (80, "bfloat16"), (32, "bfloat16"),
+                                      (64, "float32"), (16, "float32")])
+@pytest.mark.parametrize("S,window,group", [
+    (63, 1, 1), (65, 17, 4), (200, 64, 1), (1000, 17, 8), (1000, 64, 4),
+    (1000, 4096, 1), (300, 129, 2)])
+def test_flash_kernel_window_matches_plain(cuda_device, S, window, group, dh,
+                                           dtype, causal):
+    """The window in all three kernels (bf16 at dh 64/128/80 on wgmma, at
+    dh 32 on mma.sync, fp32 on FMAs) against the plain version: within
+    ATTN_TOL and, in bf16, the worst-row limit; no NaN."""
+    _, tdt, tol = DTYPES[dtype]
+    H = 8
+    args = _torch(_qkv(np.random.default_rng(S + window + dh), 1, H,
+                       H // group, S, dh), tdt, cuda_device)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(*args, causal=causal, window=window)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.flash_attention(*args, causal=causal, window=window)
+    assert not bool(got.isnan().any())
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+    if dtype == "bfloat16":
+        assert _row_rel_err(got, want) <= ATTN_ROW_REL_LIMIT
+    if window == 1 and causal:
+        assert torch.equal(got, args[2].repeat_interleave(group, dim=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_window_zero_equals_no_window(cuda_device, dtype):
+    """window=0 runs the kernel without a window: bit for bit the call
+    without the argument."""
+    _, tdt, _ = DTYPES[dtype]
+    args = _torch(_qkv(np.random.default_rng(3), 2, 8, 2, 300, 64), tdt,
+                  cuda_device)
+    assert torch.equal(ops.flash_attention(*args, causal=True, window=0),
+                       ops.flash_attention(*args, causal=True))

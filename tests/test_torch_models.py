@@ -136,9 +136,9 @@ def test_attention_goes_through_the_kernel_dispatch(monkeypatch):
     calls = []
     real = ops.flash_attention
 
-    def spy(q, k, v, *, causal):
+    def spy(q, k, v, *, causal, **kw):
         calls.append((tuple(q.shape), tuple(k.shape), causal))
-        return real(q, k, v, causal=causal)
+        return real(q, k, v, causal=causal, **kw)
 
     monkeypatch.setattr(ops, "flash_attention", spy)
     tok = torch.randint(4, 512, (2, 10))
@@ -256,39 +256,43 @@ def test_bi_reranker_matches_jax():
                                rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("arch", DENSE + MOE)
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
 def test_param_count_matches_jax_on_meta(arch):
-    """Every dense and MoE FULL config: the port's count, from shapes on
+    """Every FULL config of the zoo: the port's count, from shapes on
     ``meta`` (nothing allocated), equals the reference's, and so do the
-    active count, the bytes (bf16; an MoE's router in fp32) and the model
-    FLOPs."""
+    active count, the bytes (bf16; an MoE's router, Mamba2's and xLSTM's
+    gate leaves in fp32) and the model FLOPs."""
     cfg, jcfg = tconfigs.get_config(arch), jconfigs.get_config(arch)
-    model = api.get_model(cfg).Transformer(cfg, device="meta")
+    model = api.build(cfg, device="meta")
     assert all(p.is_meta for p in model.parameters())
     assert cfg.param_count() == jcfg.param_count()
     assert cfg.active_param_count() == jcfg.active_param_count()
     assert api.param_bytes(model) == japi.param_bytes(
         japi.get_model(jcfg).init_shape(jcfg))
-    if cfg.moe is None:
+    if cfg.moe is None and cfg.family in ("dense", "vlm", "audio"):
         assert api.param_bytes(model) == 2 * cfg.param_count()    # bf16
     for kind in ("train", "prefill", "decode"):
         assert api.model_flops(cfg, 8, 512, kind) == japi.model_flops(
             jcfg, 8, 512, kind)
 
 
-@pytest.mark.parametrize("arch", [a for a in jconfigs.ARCH_IDS
-                                  if a not in DENSE + MOE])
-def test_unported_families_raise_naming_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        tconfigs.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        api.get_model(tconfigs.get_smoke("llama3_8b").replace(
-            family=jconfigs.get_smoke(arch).family))
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_every_family_is_ported(arch):
+    """Every id of the reference's zoo loads in the port, equal to the
+    reference's config, and its family has a model module; an unknown
+    family raises."""
+    for get in ("get_config", "get_smoke"):
+        cfg = getattr(tconfigs, get)(arch)
+        assert cfg == convert.model_config(getattr(jconfigs, get)(arch))
+        assert api.get_model(cfg) is api.FAMILY_MODULES[cfg.family]
+    with pytest.raises(ValueError, match="unknown model family"):
+        api.get_model(cfg.replace(family="retnet"))
 
 
-@pytest.mark.parametrize("field,value", [("attn_window", 16),
-                                         ("attn_logit_softcap", 30.0)])
+@pytest.mark.parametrize("field,value", [("attn_logit_softcap", 30.0)])
 def test_windowed_or_softcapped_attention_raises(field, value):
+    """Soft-capped logits raise (no config of the zoo sets them); a window
+    runs, through the kernel (tests/test_torch_zoo.py)."""
     cfg = tconfigs.get_smoke("llama3_8b").replace(**{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         transformer.Transformer(cfg, device="meta")
