@@ -68,7 +68,8 @@ Phases, each of which raises on failure and prints its wall seconds:
 9. the model at full width: Llama-3-8B (8,030,261,248 parameters) built on
    the card from a seed, then ``repro_torch.launch.serve`` with
    ``model_llama3_8b.json`` (transformer embedder, fused IVF DB,
-   cross-encoder, ModelLLM), which must answer every request with
+   cross-encoder, ModelLLM) over MODEL_REQUESTS (24) requests, which must
+   answer every request with
    ``flash_attention`` launched once per layer of every prefill, embedder
    and cross-encoder batch;
 10. serving: every registered scenario but ``shard_scale`` (phase 5)
@@ -80,7 +81,7 @@ Phases, each of which raises on failure and prints its wall seconds:
    ``update_storm`` and ``replica_failure`` served live on the card (every
    request answered but the injected kills'); ``model_llama3_8b.json``
    served closed-loop at concurrency 8 (its rate R), open-loop Poisson at
-   0.5 R and 0.9 R, and elastic at 0.9 R with up to 2 replicas and a
+   0.9 R, and elastic at 0.9 R with up to 2 replicas and a
    Chrome trace under ``build/`` (no failed request, the kernels launched,
    the elastic run's peak memory at most the closed run's + 2 GiB); and
    ``--stage-pipeline`` on ``fused_ivf.json``, whose pipelined outputs
@@ -95,12 +96,12 @@ Phases, each of which raises on failure and prints its wall seconds:
    383 beside 384, pq_topk's 256-subspace table, flash_attention at the
    Llama-3-8B prefill at each head dim beside 128;
 12. engine: Llama-3-8B (random bf16 weights from seed 0) generating for
-   24 RAG prompts of 16 to 512 tokens lock-step (``ModelLLM``, batch 8)
+   16 RAG prompts of 16 to 512 tokens lock-step (``ModelLLM``, batch 8)
    and through ``GenEngine`` at (slots 8, chunk 128, budget 4, fcfs) and
    (slots 3, chunk 32, budget 1, sjf): greedy tokens equal but for rows
    whose first difference is a near tie of the lock-step logits; then
    ``model_llama3_8b_engine.json`` served as phase 10 serves the lock-step
-   spec (closed at concurrency 8, open at 0.5 R and 0.9 R of its own R,
+   spec (closed at concurrency 8, open at 0.9 R of its own R,
    elastic at 0.9 R with a trace that must hold the engine's ``gen.*``
    instants), every query generated and counted once, with the engine's
    decode steps, prefill chunks and mean active slots;
@@ -108,11 +109,10 @@ Phases, each of which raises on failure and prints its wall seconds:
    built on the card, its counts, bytes and model FLOPs against the
    reference's, ``time_model`` (prefill and decode step against their
    bounds, the experts a step routes to, launches and idle share), the
-   engine beside lock-step at the served capacity factor (rows that
-   differ counted: the two route other groups, so they drop other tokens)
-   and held to it at full width without drops (fp32, 4 layers), then
-   ``model_qwen3_moe_30b_a3b.json`` served lock-step (flash_attention in
-   every prefill layer), closed at concurrency 8 and open at 0.5 R;
+   served model's engine beside lock-step on 8 prompts (its drops
+   counted, not held), the engine held to lock-step at full width without
+   drops (fp32, 4 layers), then ``model_qwen3_moe_30b_a3b.json`` served lock-step (flash_attention
+   in every prefill layer) and closed at concurrency 8;
 14. zoo: flash_attention with a sliding window against its plain version
    (every combination of window 1, 17, 64 and 4,096, S 63, 65 and 1,000,
    GQA groups 1, 4 and 8, causal or not, and the wgmma kernel at dh 64,
@@ -132,11 +132,39 @@ Phases, each of which raises on failure and prints its wall seconds:
    8 (``model_<arch>.json``; Qwen2-VL through the ``model`` factory's
    ``cfg=``) with every request answered and flash_attention launched once
    per attention layer of every prefill (32, 64, 9 and 0 a batch) and of
-   every embedder and cross-encoder batch.
+   every embedder and cross-encoder batch;
+15. flash bwd (right after phase 7): flash_attention_bwd, from the forward
+   kernel's output and log-sum-exp, against its plain version
+   (``ref.flash_attention_bwd``) and the exact gradient (autograd of the
+   plain attention in fp32) at 1,024 edge shapes (dh 24, 64, 80, 128 x S
+   1, 63, 65, 192 x GQA group 1, 3, 4, 8 x causal or not x window 0, 1,
+   17, 4,096 x bf16, fp32), the forward's log-sum-exp against the plain
+   one, autograd of ``ops.flash_attention`` equal to the kernel pair; then
+   Phi-4-mini's training shape (B 2, H 24, Hkv 8, S 4,096, dh 128, causal,
+   bf16): the kernel, the plain version, SDPA's backward with K/V
+   repeated, forward + backward against SDPA's, and the bound;
+16. train (after phase 12): one fp32 train step of every family at SMOKE
+   on the card against the same step on the CPU (loss, gradients,
+   updated parameters and moments); Phi-4-mini-3.8B at full width and
+   depth (4,450,618,368 random parameters, bf16, remat full) trained on a
+   repeated batch of 2 x 4,096 tokens through ``make_train_step``: one
+   warm-up and 5 timed steps (CUDA events), tokens/s, MFU against the
+   bf16 peak, ``roofline_report``'s bound, peak memory, the attention
+   kernels' launches and device-time shares (``torch.profiler``), the
+   loss falling at lr TRAIN_LR and every parameter leaf moved (the share
+   of its entries that changed, and the parameters' relative change,
+   printed); then ``repro_torch.launch.train`` at SMOKE killed after
+   its first checkpoint and relaunched, ending bit for bit where an
+   uninterrupted run ends.
 
 The last lines are one JSON object on the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a card, or run
 outside a checkout, it exits non-zero before printing a result.
+
+``python3 chip_smoke.py --lr-witness`` runs ``lr_witness`` alone: the
+full-width Phi-4-mini step at 8 layers, bf16 and fp32, by the kernels and
+by the plain attention, at lr 3e-4 and 1e-5, printing losses and what
+moved.
 """
 from __future__ import annotations
 
@@ -151,11 +179,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-BF16_FLOP_PER_S = 989e12   # tensor cores, dense
-INT8_OPS_PER_S = 1979e12   # tensor cores, dense
+# The card's peaks (NVIDIA H100 SXM data sheet, dense, at the 700 W power
+# limit) and the bound on them: the port's repro_torch.roofline.analysis,
+# the one source of every bound the port prints. Outside a checkout the
+# import fails and main() says so.
+sys.path.insert(0, str(SRC))
+try:
+    from repro_torch.roofline.analysis import H100
+    from repro_torch.roofline.analysis import bound as hw_bound
+except ImportError:
+    H100 = hw_bound = None
 TOL = 1e-5                 # |score| tolerance: unit vectors, fp32
 # attention output tolerance (rtol and atol, as the reference's kernel test
 # states them): bf16 rounds the probabilities and the output; fp32 sums in
@@ -267,12 +300,13 @@ def speed(t: dict, bound_ms: float) -> str:
             f" ms, {t['call_ms'] / t['library_call_ms']:.3f}x")
 
 
-def bound(n_bytes: float, n_flop: float, peak: float = FP32_FLOP_PER_S):
-    """Least time on this card: the larger of bytes over the memory rate
-    and the operations over their type's peak (fp32 FMA by default)."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / peak
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+def bound(n_bytes: float, n_flop: float, peak: float = None):
+    """Least time on this card in ms (``roofline.analysis.bound`` on
+    ``H100``): the larger of bytes over the memory rate and the operations
+    over their type's peak (fp32 FMA by default)."""
+    sec, by = hw_bound(n_bytes, n_flop,
+                       H100.fp32_flops if peak is None else peak)
+    return 1e3 * sec, by
 
 
 def check(name, got, what) -> dict:
@@ -758,7 +792,7 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
     # FLOP: one d-long dot product per (query, row)
     # (the products run on the int8 tensor cores: their rate)
     bms, by = bound(N * DIM + NQ * DIM * 4 + DIM * 4 + NQ * N * 4,
-                    2.0 * NQ * N * DIM, INT8_OPS_PER_S)
+                    2.0 * NQ * N * DIM, H100.int8_ops)
     records["quant_score"] = dict(
         name="quant_score", route="cuda",
         source="src/repro_torch/csrc/quant_score.cu",
@@ -857,7 +891,7 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
     # scale, the outputs; operations: one d-long dot product per (query,
     # live row), at the int8 tensor cores' rate
     bms, by = bound(n_live * DIM + N + NQ * DIM * 4 + DIM * 4 + NQ * K * 8,
-                    2.0 * NQ * n_live * DIM, INT8_OPS_PER_S)
+                    2.0 * NQ * n_live * DIM, H100.int8_ops)
     # the C entry point alone (the scan and its merge, no limb split): at
     # k=K and at k=1 (the same loads and products, few candidates)
     lib, fn = _build.entry("sq8_topk", 8, 5, "s8")
@@ -902,7 +936,7 @@ def phase_quant_kernels(torch, ops, ref, compare_topk):
             *ops.sq8_topk(q, codes, scale, live, K)), "plain")
         n_live = int(live.sum())
         wb, wby = bound(n_live * d + N + NQ * d * 4 + d * 4 + NQ * K * 8,
-                        2.0 * NQ * n_live * d, INT8_OPS_PER_S)
+                        2.0 * NQ * n_live * d, H100.int8_ops)
         tw = {"ms": kernel_ms(lambda: ops.sq8_topk(q, codes, scale, live, K),
                               torch),
               "call_ms": median_ms(
@@ -1739,7 +1773,7 @@ def phase_flash(torch, ops, ref):
         # products, 4*B*H*S^2*dh, halved when causal
         n_bytes = 2 * (2 * B * H * S * dh + 2 * B * hkv * S * dh)
         n_flop = 4.0 * B * H * S * S * dh / (2 if causal else 1)
-        bms, by = bound(n_bytes, n_flop, BF16_FLOP_PER_S)
+        bms, by = bound(n_bytes, n_flop, H100.peak_flops)
         say(f"flash_attention {name} B={B} H={H} Hkv={hkv} S={S} dh={dh} "
             f"causal={causal} bf16: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention (K/V "
@@ -1758,6 +1792,178 @@ def phase_flash(torch, ops, ref):
         del q, k, v, kr, vr, got, want
     record["max_abs_err"] = worst
     return record
+
+
+# the backward's gradients against its plain version (ref.flash_attention_bwd,
+# which rounds P and dS where the kernel does), as max|d| over the largest
+# |want| of the three gradients (at S 1, dq and dk are 0): bf16 rounds dq,
+# dk and dv once (2^-9) and sums in another order; fp32 sums in another
+# order
+BWD_TOL = {"bfloat16": 3e-2, "float32": 1e-4}
+# ... and against the exact gradient (autograd of the plain attention in
+# fp32 on the same inputs): bf16 also rounds P, dS and the forward's output
+BWD_EXACT_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+# the forward's log-sum-exp against the plain one in fp32 (logits of |s|
+# < ~10; bf16 products accumulate in fp32, so only the sum order differs)
+LSE_TOL = 1e-3
+BWD_WINDOWS = (0, 1, 17, 4096)
+# Phi-4-mini-3.8B's attention in the train phase: batch 2 of 4,096 tokens
+TRAIN_ATTN = (2, 24, 8, 4096, 128, True)
+
+
+def grad_err(got, want) -> float:
+    """max|got - want| over the gradients (dq, dk, dv), over the largest
+    |want| of the three, in fp32."""
+    scale = max(float(w.float().abs().max()) for w in want)
+    return max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, want)) / max(scale, 1e-30)
+
+
+def phase_flash_bwd(torch, ops, ref):
+    """flash_attention_bwd (and the forward's log-sum-exp) against their
+    plain versions and the exact gradient at the edge shapes, the
+    autograd path, then the training shape's times beside SDPA's
+    backward and the bound; returns the kernel's record."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.roofline import op_cost
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+    def inputs(B, H, hkv, S, dh, dtype):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((B, H, S, dh), (B, hkv, S, dh), (B, hkv, S, dh),
+                              (B, H, S, dh))]
+
+    worst = {dt: [0.0, 0.0, 0.0] for dt in dtypes}   # ref, exact, lse
+    worst_abs, n = 0.0, 0
+    for dt, dh, S, group, causal, window in itertools.product(
+            dtypes, (24, 64, 80, 128), (1, 63, 65, 192), (1, 3, 4, 8),
+            (True, False), BWD_WINDOWS):
+        q, k, v, do = inputs(1, 2 * group, 2, S, dh, dtypes[dt])
+        o, lse = tfa.flash_attention_cuda(q, k, v, causal, window,
+                                          with_lse=True)
+        e_lse = float((lse - ref.attention_lse(
+            q, k, causal=causal, window=window)).abs().max())
+        got = tfa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal,
+                                           window)
+        want = ref.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                       window=window)
+        leaf = [t.float().requires_grad_() for t in (q, k, v)]
+        exact = torch.autograd.grad(
+            ref.flash_attention(*leaf, causal=causal, window=window), leaf,
+            do.float())
+        e_ref, e_exact = grad_err(got, want), grad_err(got, exact)
+        worst_abs = max(worst_abs, *(float((g.float() - w.float()).abs()
+                                           .max()) for g, w in zip(got, want)))
+        if not (e_ref <= BWD_TOL[dt] and e_exact <= BWD_EXACT_TOL[dt]
+                and e_lse <= LSE_TOL):
+            raise AssertionError(
+                f"flash_attention_bwd {dt} dh={dh} S={S} group={group} "
+                f"causal={causal} window={window}: against the plain "
+                f"version {e_ref:.3g} (limit {BWD_TOL[dt]}), the exact "
+                f"gradient {e_exact:.3g} (limit {BWD_EXACT_TOL[dt]}), lse "
+                f"{e_lse:.3g} (limit {LSE_TOL})")
+        for i, e in enumerate((e_ref, e_exact, e_lse)):
+            worst[dt][i] = max(worst[dt][i], e)
+        n += 1
+    say(f"flash_attention_bwd: {n} edge shapes (dh 24, 64, 80, 128 x S 1, "
+        f"63, 65, 192 x GQA group 1, 3, 4, 8 x causal or not x window "
+        f"{BWD_WINDOWS} x bf16, fp32) pass; worst against the plain "
+        f"version, the exact gradient, and the forward's lse: " + "; ".join(
+            f"{dt} {w[0]:.3g}, {w[1]:.3g}, {w[2]:.3g}"
+            for dt, w in worst.items()) + f" (max|d| {worst_abs:.3g})")
+
+    # the autograd path: ops.flash_attention on inputs that need grad
+    for dt, dtype in dtypes.items():
+        q, k, v, do = inputs(2, 6, 2, 130, 80, dtype)
+        leaf = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = ops.launch_counts()
+        out = ops.flash_attention(*leaf, causal=True, window=64)
+        got = torch.autograd.grad(out, leaf, do)
+        after = ops.launch_counts()
+        o, lse = tfa.flash_attention_cuda(q, k, v, True, 64, with_lse=True)
+        want = tfa.flash_attention_bwd_cuda(q, k, v, o, do, lse, True, 64)
+        if not (all(torch.equal(g, w) for g, w in zip(got, want))
+                and torch.equal(out, o)
+                and after["flash_attention_bwd"]
+                == before["flash_attention_bwd"] + 1):
+            raise AssertionError(f"ops.flash_attention {dt}: autograd does "
+                                 f"not go through the backward kernel")
+    say("flash_attention: autograd of ops.flash_attention on the card is the "
+        "kernel pair, bit for bit (bf16, fp32)")
+
+    B, H, hkv, S, dh, causal = TRAIN_ATTN
+    q, k, v, do = inputs(B, H, hkv, S, dh, torch.bfloat16)
+    o, lse = tfa.flash_attention_cuda(q, k, v, causal, with_lse=True)
+
+    def kernel():
+        return tfa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal)
+
+    def plain():
+        return ref.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+
+    got, want = kernel(), plain()
+    err = grad_err(got, want)
+    abs_err = max(float((g.float() - w.float()).abs().max())
+                  for g, w in zip(got, want))
+    if err > BWD_TOL["bfloat16"]:
+        raise AssertionError(f"flash_attention_bwd at the training shape: "
+                             f"{err} against the plain version")
+    del got, want
+    torch.cuda.empty_cache()
+    lq, lk, lv = (t.detach().clone().requires_grad_()
+                  for t in (q, k.repeat_interleave(H // hkv, 1),
+                            v.repeat_interleave(H // hkv, 1)))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+
+    def library():   # SDPA's backward alone, K/V repeated
+        return torch.autograd.grad(lo, (lq, lk, lv), do, retain_graph=True)
+
+    gq, gk, gv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def kernel_pair():   # forward with lse + backward, through autograd
+        return torch.autograd.grad(
+            ops.flash_attention(gq, gk, gv, causal=causal), (gq, gk, gv), do)
+
+    def library_pair():
+        return torch.autograd.grad(F.scaled_dot_product_attention(
+            lq, lk, lv, is_causal=causal), (lq, lk, lv), do)
+
+    t = {"ms": kernel_ms(kernel, torch), "call_ms": median_ms(kernel, torch),
+         "plain_ms": median_ms(plain, torch, runs=3),
+         "library_ms": kernel_ms(library, torch),
+         "library_call_ms": median_ms(library, torch),
+         "fwd_bwd_ms": kernel_ms(kernel_pair, torch),
+         "library_fwd_bwd_ms": kernel_ms(library_pair, torch)}
+    fwd_flop = op_cost.attention_flops(q.shape, causal, 0)
+    n_flop = op_cost.BWD_FLOP_RATIO * fwd_flop
+    # q, o, dO read and dq written; k, v read and dk, dv written; lse read
+    n_bytes = 2 * (4 * B * H * S * dh + 4 * B * hkv * S * dh) + 4 * B * H * S
+    bms, by = bound(n_bytes, n_flop, H100.peak_flops)
+    say(f"flash_attention_bwd at the training shape B={B} H={H} Hkv={hkv} "
+        f"S={S} dh={dh} causal bf16: kernel {t['ms']:.4f} ms (single calls "
+        f"{t['call_ms']:.4f}), plain {t['plain_ms']:.2f} ms, SDPA's backward "
+        f"(K/V repeated) {t['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}; "
+        f"{n_bytes / 1e6:.1f} MB, {n_flop / 1e9:.1f} GFLOP), "
+        f"{t['ms'] / t['library_ms']:.3f}x SDPA, {100 * bms / t['ms']:.1f} % "
+        f"of the bound; forward + backward {t['fwd_bwd_ms']:.4f} ms against "
+        f"SDPA's {t['library_fwd_bwd_ms']:.4f} ms; max|d| {abs_err:.3g}")
+    del lq, lk, lv, lo, gq, gk, gv
+    torch.cuda.empty_cache()
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                replaces="none: src/repro/train/train_step.py:90 "
+                         "differentiates the einsums of "
+                         "src/repro/models/layers.py:213 (the Pallas kernel "
+                         "at src/repro/kernels/flash_attention.py:85 has no "
+                         "backward)",
+                shape=dict(zip(("B", "H", "Hkv", "S", "dh", "causal"),
+                               TRAIN_ATTN)),
+                max_abs_err=max(worst_abs, abs_err), max_rel_err=err,
+                bound_ms=bms, bound_by=by, **t)
 
 
 def greedy_gaps(torch, model, prompts, lengths, ids):
@@ -1921,9 +2127,9 @@ def time_model(torch, model, runs=RUNS) -> dict:
     # model FLOPs at the bf16 tensor cores' peak
     weight_bytes = api.param_bytes(model)
     out = dict(prefill_ms=prefill_ms, step_ms=step_ms,
-               bound_step_ms=1e3 * weight_bytes / HBM_BYTES_PER_S,
+               bound_step_ms=1e3 * weight_bytes / H100.hbm_bw,
                bound_prefill_ms=1e3 * api.model_flops(cfg, B, S, "prefill")
-               / BF16_FLOP_PER_S)
+               / H100.peak_flops)
     head = (f"{cfg.name} at B={B}, S={S}: prefill {prefill_ms:.2f} ms "
             f"(bound {out['bound_prefill_ms']:.2f} ms: model FLOPs at the "
             f"bf16 peak), decode step {step_ms:.2f} ms (bound "
@@ -1935,7 +2141,7 @@ def time_model(torch, model, runs=RUNS) -> dict:
         read = weight_bytes - expert * (cfg.n_layers * m.num_experts
                                         - sum(used))
         out.update(experts_used=sum(used) / len(used),
-                   bound_routed_ms=1e3 * read / HBM_BYTES_PER_S)
+                   bound_routed_ms=1e3 * read / H100.hbm_bw)
         head += (f"; the step routes to {out['experts_used']:.1f} of "
                  f"{m.num_experts} experts a layer (mean of {len(used)} "
                  f"layers): bound {out['bound_routed_ms']:.2f} ms if only "
@@ -2106,7 +2312,9 @@ LIVE_SCENARIOS = ("steady", "update_storm", "replica_failure")
 # retrieval agrees; each request whose ids differ inside a near tie may move
 # a mean quality metric by at most 1/n_queries
 SIM_QUALITY_TOL = 1e-9
-MODEL_REQUESTS = 48
+# requests of the Llama-3-8B spec's serve runs (48 before the train phase
+# came: cut for the whole run's time)
+MODEL_REQUESTS = 24
 # the model runs' latency SLO: an interactive answer of 16 tokens from an
 # 8B generator (TTFT ~0.11 s, 15 decode steps of 40-70 ms at batch 8)
 MODEL_SLO_MS = 2000.0
@@ -2445,7 +2653,8 @@ def phase_serving(torch, ops):
     t0 = time.perf_counter()
     (ROOT / "build").mkdir(exist_ok=True)
     model_under_load(torch, ops, DEVICE, specs / "model_llama3_8b.json",
-                     MODEL_REQUESTS, ROOT / "build" / "serving_trace.json")
+                     MODEL_REQUESTS, ROOT / "build" / "serving_trace.json",
+                     shares=(0.9,))
     say(f"serving: model under load {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     stage_pipeline(torch, ops, DEVICE, specs / "fused_ivf.json")
@@ -2675,12 +2884,12 @@ def phase_limits(torch, ops, ref, compare_topk, records) -> None:
 
 
 # the engine phase: the token-level engine at Llama-3-8B's full width
-ENGINE_PROMPTS = 24
+ENGINE_PROMPTS = 16         # 24 before the train phase came
 # (slots, chunk_tokens, prefill_chunks_per_step, admission)
 ENGINE_SETTINGS = ((8, 128, 4, "fcfs"), (3, 32, 1, "sjf"))
-# requests of each engine serve run (fewer than the lock-step runs' 48,
-# for the whole run's time)
-ENGINE_LOAD_REQUESTS = 32
+# requests of each engine serve run (32 before the train phase came, for
+# the whole run's time)
+ENGINE_LOAD_REQUESTS = 16
 
 
 def rag_requests(n):
@@ -2717,11 +2926,13 @@ def phase_engine(torch, ops):
     return model_under_load(
         torch, ops, DEVICE,
         SRC / "repro_torch" / "specs" / "model_llama3_8b_engine.json",
-        ENGINE_LOAD_REQUESTS, ROOT / "build" / "engine_trace.json")
+        ENGINE_LOAD_REQUESTS, ROOT / "build" / "engine_trace.json",
+        shares=(0.9,))
 
 
-def engine_matches_lockstep(torch, llm, settings, require=True):
-    """ENGINE_PROMPTS RAG prompts through the lock-step ``llm`` (batch 8,
+def engine_matches_lockstep(torch, llm, settings, require=True,
+                            n_prompts=ENGINE_PROMPTS):
+    """``n_prompts`` RAG prompts through the lock-step ``llm`` (batch 8,
     padded to 512) and through a ``GenEngine`` on its weights in each of
     ``settings``: greedy tokens equal outside near ties of the lock-step
     logits (at the tolerance of the model's dtype). With ``require``
@@ -2735,7 +2946,7 @@ def engine_matches_lockstep(torch, llm, settings, require=True):
     from repro_torch.serving.genengine import EngineLLM, engine_from_model_llm
 
     name = llm.cfg.name
-    questions, contexts = rag_requests(ENGINE_PROMPTS)
+    questions, contexts = rag_requests(n_prompts)
     prompts = llm.tok.encode_batch([build_prompt(q, c) for q, c in
                                     zip(questions, contexts)], 512)
     lengths = np.maximum((prompts != 0).sum(1), 1)
@@ -2745,7 +2956,7 @@ def engine_matches_lockstep(torch, llm, settings, require=True):
                      for a in llm.generate(questions, contexts)])
     torch.cuda.synchronize()
     lock_s = time.perf_counter() - t0
-    say(f"engine {name}: {ENGINE_PROMPTS} prompts of {int(lengths.min())} "
+    say(f"engine {name}: {n_prompts} prompts of {int(lengths.min())} "
         f"to {int(lengths.max())} tokens, lock-step (batch 8, padded to 512) "
         f"{lock_s:.2f} s")
     gaps = None
@@ -2778,12 +2989,12 @@ def engine_matches_lockstep(torch, llm, settings, require=True):
         say(f"engine {name} ({llm.cfg.dtype}, capacity factor "
             f"{llm.cfg.moe.capacity_factor if llm.cfg.moe else '-'}; slots "
             f"{slots}, chunk {chunk}, budget {budget}, {admission}): "
-            f"{ENGINE_PROMPTS} prompts in {wall:.2f} s; {held}; "
+            f"{n_prompts} prompts in {wall:.2f} s; {held}; "
             f"{int(c['steps'])} steps, {int(c['prefill_chunks'])} prefill "
             f"chunks, {int(c['decode_steps'])} decode steps, mean active "
             f"slots {c['mean_active_slots']:.3f}; {eng.stats.n_requests} "
             f"requests recorded")
-        if eng.stats.n_requests != ENGINE_PROMPTS:
+        if eng.stats.n_requests != n_prompts:
             raise AssertionError(f"engine recorded {eng.stats.n_requests}")
         del eng
 
@@ -2798,19 +3009,23 @@ QWEN3_MOE_ACTIVE = 3_353_020_416
 QWEN3_MOE_BYTES = 61_089_386_496
 MOE_ENGINE_SETTINGS = ((8, 128, 4, "fcfs"),)
 MOE_CHECK_LAYERS = 4       # the fp32 engine check's depth (12.5 GB)
+MOE_SERVED_PROMPTS = 8     # the served bf16 model's engine run (24 before
+                           # the train phase came)
 # requests of each serve run of the moe spec (a decode step takes 75-160
-# ms; fewer than the Llama runs' 48 for the whole run's time)
+# ms; fewer than the Llama runs' former 48 for the whole run's time). Not
+# fewer: the stream of 12 holds no insert, so the freshness scan that
+# serve_counted holds to a launch never runs
 MOE_REQUESTS = 24
 
 
 def phase_moe(torch, ops):
     """Qwen3-30B-A3B (random bf16 weights from seed 0) at full width on
     the card: its counts against the reference's, ``time_model``, the
-    engine beside lock-step (counted), the engine against lock-step at
-    full width without drops in fp32 at 4 layers (held), then
-    ``model_qwen3_moe_30b_a3b.json`` served lock-step (flash_attention in
-    every prefill layer) and closed and open (0.5 R) under load. Returns
-    flash_attention's launches in the lock-step serve run."""
+    served model's engine beside lock-step on one batch of prompts (its
+    drops: counted), the engine against lock-step at full width without
+    drops in fp32 at 4 layers (held), then ``model_qwen3_moe_30b_a3b.json`` served lock-step
+    (flash_attention in every prefill layer) and closed under load.
+    Returns flash_attention's launches in the lock-step serve run."""
     import dataclasses
     import gc
 
@@ -2854,12 +3069,13 @@ def phase_moe(torch, ops):
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del logits
     time_model(torch, model)
-    # the served model (capacity factor 1.25): its prefill routes each
-    # padded 512-token row as a group, the engine each 128-token chunk, so
-    # they drop other tokens: counted, not held
+    # the served model (capacity factor 1.25), one batch of prompts: its
+    # prefill routes each padded 512-token row as a group, the engine each
+    # 128-token chunk, so they drop other tokens: counted, not held
     llm = ModelLLM(cfg, max_prompt=512, max_new=16, batch_size=8,
                    device=DEVICE, model=model)
-    engine_matches_lockstep(torch, llm, MOE_ENGINE_SETTINGS, require=False)
+    engine_matches_lockstep(torch, llm, MOE_ENGINE_SETTINGS, require=False,
+                            n_prompts=MOE_SERVED_PROMPTS)
     say(f"{QWEN3_MOE}: max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del llm, model
@@ -2881,8 +3097,7 @@ def phase_moe(torch, ops):
 
     spec = SRC / "repro_torch" / "specs" / "model_qwen3_moe_30b_a3b.json"
     launches = serve_counted(torch, ops, spec, cfg, MOE_REQUESTS)
-    model_under_load(torch, ops, DEVICE, spec, MOE_REQUESTS, None,
-                     shares=(0.5,))
+    model_under_load(torch, ops, DEVICE, spec, MOE_REQUESTS, None, shares=())
     return launches
 
 
@@ -2902,8 +3117,10 @@ ZOO_FLASH = {"qwen2_vl_72b": 32, "whisper_large_v3": 64, "xlstm_1_3b": 0,
 # ... and at SMOKE
 ZOO_SMOKE_FLASH = {"qwen2_vl_72b": 2, "whisper_large_v3": 4,
                    "xlstm_1_3b": 0, "zamba2_2_7b": 2}
-ZOO_REQUESTS = 24          # closed loop at concurrency 8, each family
-ZOO_RUNS = 5               # time_model's runs (an xLSTM prefill ~1 s)
+# closed loop at concurrency 8, each family (not fewer: MOE_REQUESTS), and
+# time_model's runs (an xLSTM prefill ~1 s; 5 before the train phase came)
+ZOO_REQUESTS = 24
+ZOO_RUNS = 3
 # (B, H, Hkv, S, dh, causal, window) of the new attention callers
 ZOO_FLASH_SHAPES = {
     "zamba2 shared block": (1, 32, 32, 6144, 80, True, 4096),
@@ -3007,7 +3224,7 @@ def zoo_flash(torch, ops, ref, record):
         pairs = visible_pairs(S, causal, window)
         n_bytes = 2 * (2 * B * H * S * dh + 2 * B * hkv * S * dh)
         n_flop = 4.0 * B * H * pairs * dh
-        bms, by = bound(n_bytes, n_flop, BF16_FLOP_PER_S)
+        bms, by = bound(n_bytes, n_flop, H100.peak_flops)
         say(f"flash_attention {name} B={B} H={H} Hkv={hkv} S={S} dh={dh} "
             f"causal={causal} window={window} bf16: worst row "
             f"||d||/||want|| {rel:.4g} (limit {ATTN_ROW_REL_LIMIT}; with one "
@@ -3167,11 +3384,414 @@ def phase_zoo(torch, ops, ref, record):
     return launches
 
 
+# the train phase: every family's step card against CPU at SMOKE (fp32),
+# Phi-4-mini-3.8B trained whole on the card, a killed run restarted
+TRAIN_ARCH = "phi4_mini_3_8b"
+TRAIN_SEQ = 4096           # the reference's train_4k length
+TRAIN_BATCH = 2            # halved (never the width) if it does not fit
+TRAIN_STEPS = 5            # timed, after one warm-up step
+# AdamW's rate of the full-width run, after one warm-up step. Chosen after
+# H100 runs at 3e-4 and 1e-4 failed the falling-loss check (PERF.md §6).
+# bf16 parameters take the update rounded (p - lr * delta, as the
+# reference): at 1e-5 and |delta| <= 1 a weight of |w| >= 2^-8 keeps its
+# value, so the run also prints, and holds, the share of each leaf that
+# moved and the parameters' relative change
+TRAIN_LR = 1e-5
+# the learning-rate witness (``--lr-witness``): Phi-4-mini at full width
+# and LR_WITNESS_LAYERS of its 32 layers, bf16 and fp32 parameters, the
+# attention kernels and the plain attention under autograd
+LR_WITNESS_LAYERS = 8
+LR_WITNESS_RUNS = (("bfloat16", "kernels", 3e-4), ("bfloat16", "plain", 3e-4),
+                   ("float32", "kernels", 3e-4), ("bfloat16", "kernels", 1e-5),
+                   ("float32", "kernels", 1e-5))
+# card against CPU, one fp32 step: loss relative; gradients and updated
+# parameters elementwise (rtol, atol). The sums run in another order, and
+# the fp32 attention kernels' against the plain einsums; AdamW's first
+# step moves each weight by about lr * sign(g), so a gradient within its
+# error of 0 moves by at most 2 lr |g| / eps-scale: atol 1e-5 on params
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = (1e-3, 1e-5)
+TRAIN_PARAM_TOL = (1e-4, 1e-5)
+RESTART_STEPS, RESTART_EVERY = 40, 5
+
+
+def train_batch(cfg, B, S, seed, device):
+    """A seeded batch: token ids and labels, a vlm's embeddings, Whisper's
+    frames (numpy, then on ``device``)."""
+    import numpy as np
+
+    import torch
+
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(4, cfg.vocab_size, (B, S)),
+         "labels": rng.integers(4, cfg.vocab_size, (B, S))}
+    if cfg.family == "vlm":
+        b["embeds"] = rng.standard_normal((B, S, cfg.d_model))
+    if cfg.family == "audio":
+        b["frames"] = rng.standard_normal((B, cfg.encoder_seq, cfg.d_model))
+    dtype = torch.float32 if cfg.dtype == "float32" else torch.bfloat16
+    return {k: torch.from_numpy(v).to(device=device,
+                                      dtype=dtype if v.dtype.kind == "f"
+                                      else torch.long)
+            for k, v in b.items()}
+
+
+def train_card_equals_cpu(torch, arch):
+    """One fp32 SMOKE train step of ``arch`` on the card and on the CPU
+    from the same weights and batch: loss, gradients and the updated
+    parameters and moments."""
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.train.train_step import (TrainConfig, make_train_step,
+                                              train_state)
+
+    cfg = configs.get_smoke(arch).replace(dtype="float32")
+    cpu = api.get_model(cfg).init(cfg, seed=0, device="cpu")
+    card = api.build(cfg, device=DEVICE)
+    with torch.no_grad():
+        for (_, a), (_, b) in zip(cpu.named_parameters(),
+                                  card.named_parameters()):
+            b.copy_(a)
+    tcfg = TrainConfig()
+    out = {}
+    for where, model in (("cpu", cpu), (DEVICE, card)):
+        state = train_state(model, tcfg)
+        batch = train_batch(cfg, 2, 16, 0, where)
+        params = list(state["params"].values())
+        loss = api.loss_fn(model, batch)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        state, metrics = make_train_step(cfg, tcfg)(state, batch)
+        out[where] = dict(
+            loss=float(metrics["loss"]), grads=[
+                torch.zeros_like(p) if g is None else g.detach().cpu()
+                for p, g in zip(params, grads)],
+            params=[p.detach().cpu() for p in params],
+            mu=[t.cpu() for t in state["opt"]["mu"].values()],
+            nu=[t.cpu() for t in state["opt"]["nu"].values()])
+    a, b = out["cpu"], out[DEVICE]
+    rel = abs(a["loss"] - b["loss"]) / abs(a["loss"])
+    worst = {}
+    for key, (rtol, atol) in (("grads", TRAIN_GRAD_TOL),
+                              ("params", TRAIN_PARAM_TOL),
+                              ("mu", TRAIN_GRAD_TOL), ("nu", TRAIN_GRAD_TOL)):
+        worst[key] = max(float((x - y).abs().max())
+                         for x, y in zip(a[key], b[key]))
+        if not all(torch.allclose(y, x, rtol=rtol, atol=atol)
+                   for x, y in zip(a[key], b[key])):
+            raise AssertionError(f"train {arch}: {key} on the card differ "
+                                 f"from the CPU's (max|d| {worst[key]})")
+    if rel > TRAIN_LOSS_TOL:
+        raise AssertionError(f"train {arch}: loss {b['loss']} on the card, "
+                             f"{a['loss']} on the CPU")
+    return rel, worst
+
+
+def host_params(state):
+    """Every parameter copied to the host (what ``param_change`` compares
+    against; the card's peak stays the step's own)."""
+    return {n: p.detach().to("cpu", copy=True)
+            for n, p in state["params"].items()}
+
+
+def param_change(torch, state, before):
+    """What the steps since ``before`` (``host_params``) changed: each
+    leaf's share of entries whose value moved, the share over all
+    entries, and ``||theta - theta_before|| / ||theta_before||`` (fp32
+    sums)."""
+    import math
+
+    shares, moved, total, d2, n2 = {}, 0, 0, 0.0, 0.0
+    for name, p in state["params"].items():
+        b = before[name].to(p.device)
+        k = int((p.detach() != b).sum())
+        shares[name] = k / p.numel()
+        moved, total = moved + k, total + p.numel()
+        d2 += float((p.detach().float() - b.float()).square().sum())
+        n2 += float(b.float().square().sum())
+        del b
+    return shares, moved / total, math.sqrt(d2 / n2)
+
+
+def change_summary(shares, overall, rel) -> str:
+    low = min(shares, key=shares.get)
+    high = max(shares, key=shares.get)
+    return (f"entries moved {100 * overall:.2f} % of all, by leaf "
+            f"{100 * shares[low]:.3g} % ({low}) to {100 * shares[high]:.3g} % "
+            f"({high}); ||dtheta|| / ||theta|| {rel:.4g}")
+
+
+def train_full(torch, ops, batch_size):
+    """Phi-4-mini-3.8B at full width and depth, bf16, remat full: one
+    warm-up and TRAIN_STEPS timed steps through ``make_train_step`` on one
+    repeated batch of ``batch_size`` x TRAIN_SEQ; returns the record (the
+    loss must fall)."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.roofline.analysis import roofline_report
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step)
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    B, S = batch_size, TRAIN_SEQ
+    n = cfg.param_count()
+    # the peak reckoned before the run: bf16 weights and gradients, fp32
+    # moments, one loss chunk's logits (fp32, its bf16 twin and gradient)
+    # and every layer's saved input under remat full
+    from repro_torch.models.layers import LOSS_CHUNK_ELEMS
+    reckon = (12 * n + 3 * 4 * LOSS_CHUNK_ELEMS
+              + cfg.n_layers * B * S * cfg.d_model * 2)
+    say(f"train {cfg.name}: {n} parameters, batch {B} x {S}, bf16, remat "
+        f"{cfg.remat}; reckoned peak {reckon / 1e9:.1f} GB (weights and "
+        f"gradients {4 * n / 1e9:.1f}, fp32 moments {8 * n / 1e9:.1f}, one "
+        f"loss chunk {12 * LOSS_CHUNK_ELEMS / 1e9:.1f}, saved layer inputs "
+        f"{cfg.n_layers * B * S * cfg.d_model * 2 / 1e9:.2f})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                       total_steps=1000))
+    t0 = time.perf_counter()
+    state = init_train_state(0, cfg, tcfg, DEVICE)
+    torch.cuda.synchronize()
+    say(f"train {cfg.name}: drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s, {api.count_params(state['model'])}"
+        f" parameters")
+    step = make_train_step(cfg, tcfg)
+    data = synthetic_batch(DataConfig(seq_len=S, global_batch=B), cfg.vocab_size,
+                           0)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.items()}
+    before = host_params(state)
+    state, metrics = step(state, batch)          # warm-up
+    losses = [float(metrics["loss"])]
+    ops.reset_launch_counts()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    shares, moved, rel = param_change(torch, state, before)
+    del before
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels)
+    fwd_us = sum(e.self_device_time_total for e in kernels
+                 if "flash_" in e.key)
+    bwd_us = sum(e.self_device_time_total for e in kernels
+                 if any(k in e.key for k in ("dkdv_", "dq_bf16", "dot_kernel")))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    # the attention kernels' shares (nan where the profiler saw no device
+    # time: then the step's CUDA events stand alone)
+    fwd_share = fwd_us / busy if busy else float("nan")
+    bwd_share = bwd_us / busy if busy else float("nan")
+    del state, metrics, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = sorted(times)[len(times) // 2]
+    report = roofline_report(cfg, ShapeConfig(f"train B{B} S{S}", S, B,
+                                              "train"))
+    bound_ms = 1e3 * max(report["compute_s"], report["memory_s"])
+    mfu = api.model_flops(cfg, B, S, "train") / (step_ms / 1e3) / H100.peak_flops
+    per_step = {k: launches[k] / TRAIN_STEPS
+                for k in ("flash_attention", "flash_attention_bwd")}
+    say(f"train {cfg.name} B={B} S={S}: step {step_ms:.1f} ms (CUDA events, "
+        f"median of {TRAIN_STEPS}; {', '.join(f'{t:.1f}' for t in times)}), "
+        f"{B * S / (step_ms / 1e3):.0f} tokens/s, MFU {100 * mfu:.1f} % "
+        f"(model FLOPs {report['model_flops']:.4g} over the step at "
+        f"{H100.peak_flops / 1e12:.0f} TFLOP/s); roofline bound "
+        f"{bound_ms:.1f} ms ({report['bottleneck']}: compute "
+        f"{1e3 * report['compute_s']:.1f} ms from {report['flops_per_chip']:.4g}"
+        f" FLOP counted, memory {1e3 * report['memory_s']:.1f} ms from "
+        f"{report['bytes_per_chip']:.4g} bytes of eager traffic, "
+        f"{1e3 * report['memory_flash_s']:.1f} without [S, S] tensors); peak "
+        f"{peak / 2**30:.2f} GiB; launches a step: flash_attention "
+        f"{per_step['flash_attention']:g}, flash_attention_bwd "
+        f"{per_step['flash_attention_bwd']:g}; device time of a profiled "
+        f"step {busy / 1e3:.1f} ms, flash_attention {100 * fwd_share:.1f} "
+        f"%, flash_attention_bwd {100 * bwd_share:.1f} %; top kernels "
+        + ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.1f} ms"
+                    for e in top)
+        + f"; loss {', '.join(f'{x:.4f}' for x in losses)} at lr "
+        f"{TRAIN_LR:g}; over the {1 + TRAIN_STEPS} steps "
+        + change_summary(shares, moved, rel))
+    if not losses[-1] < losses[1]:
+        raise AssertionError(f"train {cfg.name}: the loss did not fall over "
+                             f"the timed steps: {losses}")
+    if min(shares.values()) == 0:
+        raise AssertionError(f"train {cfg.name}: leaves the steps left "
+                             f"unchanged: {[n for n, v in shares.items() if not v]}")
+    if min(per_step.values()) == 0:
+        raise AssertionError(f"train {cfg.name}: launches {launches}")
+    return dict(batch=B, seq=S, step_ms=step_ms, step_times_ms=times,
+                tokens_per_s=B * S / (step_ms / 1e3), mfu=mfu,
+                bound_ms=bound_ms, roofline=report, peak_gib=peak / 2**30,
+                launches=launches, device_ms=busy / 1e3,
+                flash_share=fwd_share, flash_bwd_share=bwd_share,
+                losses=losses, lr=TRAIN_LR, moved_share=moved,
+                min_leaf_moved_share=min(shares.values()),
+                rel_change=rel)
+
+
+def lr_witness(torch, ops, ref):
+    """``python3 chip_smoke.py --lr-witness``: Phi-4-mini at full width
+    and LR_WITNESS_LAYERS layers, batch TRAIN_BATCH x TRAIN_SEQ, remat
+    full, one warm-up and TRAIN_STEPS steps on the repeated batch of the
+    train phase at each of LR_WITNESS_RUNS (parameters' dtype, attention
+    by the kernels or the plain version under autograd, lr): the losses
+    and what the steps changed. Prints; checks nothing."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step)
+
+    kernels = ops.flash_attention
+
+    def plain(q, k, v, *, causal, window=0):
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+
+    base = configs.get_config(TRAIN_ARCH).replace(
+        n_layers=LR_WITNESS_LAYERS)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    data = synthetic_batch(DataConfig(seq_len=S, global_batch=B),
+                           base.vocab_size, 0)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.items()}
+    for dtype, attention, lr in LR_WITNESS_RUNS:
+        cfg = base.replace(dtype=dtype)
+        tcfg = TrainConfig(opt=AdamWConfig(lr=lr, warmup_steps=1,
+                                           total_steps=1000))
+        ops.flash_attention = plain if attention == "plain" else kernels
+        try:
+            state = init_train_state(0, cfg, tcfg, DEVICE)
+            step = make_train_step(cfg, tcfg)
+            before = host_params(state)
+            losses = []
+            for _ in range(1 + TRAIN_STEPS):
+                state, metrics = step(state, batch)
+                losses.append(float(metrics["loss"]))
+            change = param_change(torch, state, before)
+        finally:
+            ops.flash_attention = kernels
+        say(f"lr witness {cfg.name} at {LR_WITNESS_LAYERS} layers, {dtype} "
+            f"parameters, attention by the {attention} version, lr {lr:g}: "
+            f"loss {', '.join(f'{x:.4f}' for x in losses)}; "
+            + change_summary(*change))
+        del state, before, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def train_restart(torch):
+    """``repro_torch.launch.train`` at SMOKE on the card: run A goes
+    RESTART_STEPS steps uninterrupted; run B is killed (SIGKILL) once its
+    first checkpoint is written and relaunched, restarting from its latest
+    checkpoint. B's last checkpoint must equal A's bit for bit."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            "llama3_8b", "--smoke", "--steps", str(RESTART_STEPS),
+            "--ckpt-every", str(RESTART_EVERY), "--seq-len", "64",
+            "--global-batch", "4", "--log-every", "0", "--device", DEVICE]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    dirs = {r: ROOT / "build" / f"train_restart_{r}" for r in "AB"}
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+
+    def run(d):
+        return subprocess.run(base + ["--ckpt-dir", str(d)], env=env,
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+
+    run(dirs["A"])
+    first = dirs["B"] / f"step_{RESTART_EVERY:08d}" / "manifest.json"
+    last = f"step_{RESTART_STEPS:08d}"
+    proc = subprocess.Popen(base + ["--ckpt-dir", str(dirs["B"])], env=env,
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)
+    try:
+        deadline = time.monotonic() + 300
+        while not first.exists():
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError("train restart: run B ended or hung "
+                                     "before its first checkpoint")
+            time.sleep(0.005)
+        proc.kill()
+    finally:
+        proc.kill()
+        proc.wait()
+    if (dirs["B"] / last).exists():
+        raise AssertionError("train restart: run B finished before the kill")
+    killed_at = max(int(p.name[5:]) for p in dirs["B"].glob("step_*")
+                    if not p.name.endswith(".tmp"))
+    out = run(dirs["B"])
+    if f"restored checkpoint at step {killed_at}" not in out:
+        raise AssertionError(f"train restart: run B did not restore step "
+                             f"{killed_at}: {out}")
+    a = np.load(dirs["A"] / last / "arrays.npz")
+    b = np.load(dirs["B"] / last / "arrays.npz")
+    diff = [k for k in a.files if not np.array_equal(a[k], b[k])]
+    if sorted(a.files) != sorted(b.files) or diff:
+        raise AssertionError(f"train restart: the restarted run's step "
+                             f"{RESTART_STEPS} differs in {diff[:5]}")
+    say(f"train restart: launch.train killed after its step {killed_at} "
+        f"checkpoint and relaunched ends at step {RESTART_STEPS} equal bit "
+        f"for bit to an uninterrupted run ({len(a.files)} arrays)")
+    return killed_at
+
+
+def phase_train(torch, ops):
+    """The train phase (module docstring, phase 16); returns the Phi-4
+    record and the main path's launches."""
+    from repro_torch import configs
+
+    worst = {}
+    for arch in configs.ARCH_IDS:
+        rel, w = train_card_equals_cpu(torch, arch)
+        for k, v in dict(w, loss=rel).items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    say(f"train: one fp32 step of each of the {len(configs.ARCH_IDS)} "
+        f"families at SMOKE on the card equals the CPU's (loss relative "
+        f"{worst['loss']:.3g}, limit {TRAIN_LOSS_TOL}; max|d| gradients "
+        f"{worst['grads']:.3g}, updated parameters {worst['params']:.3g}, "
+        f"mu {worst['mu']:.3g}, nu {worst['nu']:.3g})")
+    try:
+        rec = train_full(torch, ops, TRAIN_BATCH)
+    except torch.cuda.OutOfMemoryError as exc:
+        say(f"train: batch {TRAIN_BATCH} does not fit ({exc}); halving it")
+        import gc
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec = train_full(torch, ops, TRAIN_BATCH // 2)
+    rec["restart_killed_at"] = train_restart(torch)
+    return rec
+
+
 def main() -> int:
-    if not (SRC / "repro_torch" / "csrc").is_dir():
+    if not (SRC / "repro_torch" / "csrc").is_dir() or H100 is None:
         raise SystemExit("chip_smoke.py runs from the root of a checkout "
                          "(src/repro_torch not found)")
-    sys.path.insert(0, str(SRC))
     import torch
 
     if not torch.cuda.is_available():
@@ -3187,6 +3807,11 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.parity import compare_topk
 
+    if sys.argv[1:] == ["--lr-witness"]:
+        lr_witness(torch, ops, ref)
+        say(card)
+        return 0
+
     t0 = time.perf_counter()
     reports = _build.build_all()
     say(f"build: {len(reports)} kernels in {time.perf_counter() - t0:.1f} s")
@@ -3195,7 +3820,8 @@ def main() -> int:
     widths = {"topk_search": [DIM], "ivf_topk": [DIM],
               "quant_score": [DIM, 768, 1024],
               "sq8_topk": [DIM, 768, 1024], "pq_topk": [PQ_M],
-              "flash_attention": [128, 64], "topk_large": [DIM]}
+              "flash_attention": [128, 64], "flash_attention_bwd": [128, 64],
+              "topk_large": [DIM]}
     for name, log in reports.items():
         entry = ""
         for line in log.splitlines():
@@ -3231,6 +3857,10 @@ def main() -> int:
     timings["flash kernel"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    records["flash_attention_bwd"] = phase_flash_bwd(torch, ops, ref)
+    timings["flash bwd"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     phase_model_smoke(torch, ops)
     timings["model smoke"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3248,6 +3878,10 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_engine(torch, ops)
     timings["engine"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train = phase_train(torch, ops)
+    timings["train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     moe_flash_launches = phase_moe(torch, ops)
     timings["moe"] = time.perf_counter() - t0
@@ -3275,7 +3909,14 @@ def main() -> int:
             rec["launches_by_path"] = {"model_llama3_8b": flash_launches,
                                        "model_qwen3_moe_30b_a3b":
                                            moe_flash_launches,
-                                       **zoo_flash_launches}
+                                       **zoo_flash_launches,
+                                       f"train_{TRAIN_ARCH}":
+                                           train["launches"][name]}
+        elif name == "flash_attention_bwd":
+            rec["launches_by_path"] = {
+                f"train_{TRAIN_ARCH}": train["launches"][name]}
+            rec["train"] = {k: v for k, v in train.items()
+                            if k not in ("launches", "roofline")}
         else:
             rec["launches_by_path"] = {
                 "dbs": db_launches[name],

@@ -24,7 +24,12 @@ the same state, the reference's state goes across as numpy arrays:
   ``model_llm_from_jax``, ``engine_from_jax`` (the token-level engine's
   weights and settings), ``transformer_embedder_from_jax`` (with its
   ``proj``) and ``cross_reranker_from_jax`` (with its ``head``) carry the
-  model-backed components across with it.
+  model-backed components across with it;
+* ``tree_by_name`` — any tree shaped like a family's parameters (its
+  gradients, AdamW's moments, the compression residual) as the port's
+  ``{parameter name: fp32 tensor}``, by the same per-family mapping;
+  ``train_state_from_jax`` — a ``repro.train`` train state (params,
+  ``mu``, ``nu``, ``step``, ``err``) as the port's (``train.train_step``).
 
 The arguments are read by attribute only: this module imports nothing of the
 JAX package.
@@ -50,6 +55,7 @@ from repro_torch.models.xlstm import XLSTM
 from repro_torch.models.zamba2 import Zamba2
 from repro_torch.serving.genengine import GenEngine, _EngineCore
 from repro_torch.sharded.vectordb import ShardedDBConfig, ShardedVectorDB
+from repro_torch.train.train_step import TrainConfig, train_state
 
 
 def embedder_from_jax(jax_embedder) -> HashEmbedder:
@@ -285,3 +291,32 @@ def cross_reranker_from_jax(jax_rr, device=None) -> CrossEncoderReranker:
         batch_size=jax_rr.batch_size, device=device,
         model=transformer_from_jax(jax_rr.params, cfg, device),
         head=np.array(jax_rr.head, np.float32))
+
+
+def tree_by_name(tree, cfg: ModelConfig, device=None) -> Dict[str,
+                                                             torch.Tensor]:
+    """A tree with the structure of a ``cfg`` model's reference parameters
+    (its gradients, AdamW's ``mu`` or ``nu``, the residual ``err``) as
+    ``{port parameter name: tensor}``, through ``model_from_jax``'s
+    mapping, in fp32 (the moments' dtype) on ``device``."""
+    model = model_from_jax(tree, cfg.replace(dtype="float32"), device)
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+def train_state_from_jax(state, cfg: ModelConfig, device=None) -> Dict:
+    """The port's train state (``train.train_step.train_state``) holding a
+    ``repro.train`` state: the params in ``cfg``'s dtype, AdamW's fp32
+    ``mu`` and ``nu``, its ``step`` and, where the state has one, the
+    compression residual ``err``, on ``device`` (``None`` is the card)."""
+    device = resolve_device(device)
+    model = model_from_jax(state["params"], cfg, device)
+    out = train_state(model, TrainConfig(compress_grads="err" in state))
+    for key in ("mu", "nu"):
+        for name, t in tree_by_name(state["opt"][key], cfg, device).items():
+            out["opt"][key][name].copy_(t)
+    out["opt"]["step"] = torch.tensor(int(np.asarray(state["opt"]["step"])),
+                                      dtype=torch.int32)
+    if "err" in state:
+        for name, t in tree_by_name(state["err"], cfg, device).items():
+            out["err"][name].copy_(t)
+    return out

@@ -131,6 +131,6 @@ def _encode_fn(model: transformer.Transformer, proj: torch.Tensor,
     """Non-causal encoder forward -> unit vectors [B, dim] fp32. The model
     attends to the pad keys too, as the reference's does; only the pooling
     masks them."""
-    pooled = masked_mean_pool(model.hidden(tokens, causal=False), tokens)
+    pooled = masked_mean_pool(model.hidden(tokens, causal=False)[0], tokens)
     v = pooled @ proj
     return v / (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + 1e-9)

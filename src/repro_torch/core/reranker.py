@@ -91,7 +91,7 @@ class CrossEncoderReranker(BaseReranker):
 def _cross_score(model: transformer.Transformer, head: torch.Tensor,
                  tokens: torch.Tensor) -> torch.Tensor:
     """Encoder forward + mean-pool + linear head -> [B] scores fp32."""
-    pooled = masked_mean_pool(model.hidden(tokens, causal=False), tokens)
+    pooled = masked_mean_pool(model.hidden(tokens, causal=False)[0], tokens)
     return (pooled @ head)[:, 0]
 
 

@@ -33,6 +33,11 @@
 // Other head dims arrive zero-padded to the next of these by the wrapper,
 // with the true dh as an argument: the softmax scale is 1/sqrt(true dh),
 // and zero columns add nothing to q.k or to the output's true columns.
+// On request (a non-null lse pointer: the training forward), each of the
+// three also writes every row's natural log-sum-exp of its scaled logits,
+// fp32 [B,H,S], from the running max and normaliser it already holds, in
+// its epilogue only; flash_attention_bwd.cu recomputes P from it. A null
+// pointer (serving) leaves the schedule as it was.
 //
 // What the Hopper design does about the bound:
 //  * A block of three warpgroups per 128-row q tile: one producer thread
@@ -83,6 +88,7 @@
 #include <string.h>
 
 #include "cp_async.cuh"
+#include "mma_sync.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -91,64 +97,10 @@ constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // key/value rows per tile
 constexpr int THREADS = 128;    // 4 warps, 16 query rows each
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr float M_INIT = -1.0e30f;   // running max before any key
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 b16 matrices from shared memory; lane i gives the address of
-// row i % 8 of matrix i / 8.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// The same, each matrix transposed on the way to registers.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p))
-      : "memory");
-}
-
-// c[16x8] += a[16x16] b[16x8], bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// 2^x (ex2.approx.ftz: one MUFU op; 2^-inf = 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // Rows row0 .. row0+63 of a [S, DH] bf16 head into shared memory with row
 // pitch DH + 8; rows past S are zero-filled.
@@ -174,8 +126,9 @@ __device__ __forceinline__ void load_tile(bf16* sm, const bf16* g, int row0,
 template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int H,
-                  int rep, int S, int window, float scale_log2) {
+                  const bf16* __restrict__ v, bf16* __restrict__ o,
+                  float* __restrict__ lse, int H, int rep, int S, int window,
+                  float scale_log2) {
   constexpr int LD = DH + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);   // [BQ][LD]
@@ -307,6 +260,10 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const float l = fmaxf(quad_sum(l_r[i]), 1e-30f);
     if (row[i] >= S) continue;
+    // the row's natural log-sum-exp of its scaled logits, on request (m_r
+    // and the exponents are in base 2)
+    if (lse != nullptr && t == 0)
+      lse[static_cast<size_t>(bh) * S + row[i]] = (m_r[i] + log2f(l)) * LN2;
 #pragma unroll
     for (int dn = 0; dn < DH / 8; ++dn)
       *reinterpret_cast<uint32_t*>(og + static_cast<size_t>(row[i]) * DH +
@@ -321,8 +278,9 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int H,
-                 int rep, int S, int window, float scale) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int H, int rep, int S, int window,
+                 float scale) {
   constexpr int LD = DH + 1, LP = BK + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);   // [BQ][LD], scaled
@@ -408,6 +366,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < DH / 2; ++i) orow[2 * i + half] = acc[i] / den;
+    if (lse != nullptr && half == 0)   // on request: the row's log-sum-exp
+      lse[static_cast<size_t>(bh) * S + qrow] = m + logf(den);
   }
 }
 
@@ -477,8 +437,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
                    bf16* __restrict__ o, long long o_sb, long long o_sh,
-                   long long o_ss, int H, int rep, int S, int BH, int window,
-                   float scale_log2) {
+                   long long o_ss, float* __restrict__ lse, int H, int rep,
+                   int S, int BH, int window, float scale_log2) {
   using L = Layout<DH>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -739,7 +699,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const bool odd = t4 & 1, hi = t4 >> 1;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float inv = 1.f / fmaxf(quad_sum(l_r[i]), 1e-30f);
+      const float l = fmaxf(quad_sum(l_r[i]), 1e-30f);
+      const float inv = 1.f / l;
+      // on request, the row's natural log-sum-exp of its scaled logits: m_r
+      // is the raw logits' max, the exponents base 2 at scale_log2
+      if (lse != nullptr && t4 == 0 && row[i] < S)
+        lse[(static_cast<size_t>(tl.b) * H + tl.h) * S + row[i]] =
+            (m_r[i] * scale_log2 + log2f(l)) * LN2;
       bf16* orow = og + row[i] * o_ss;
 #pragma unroll
       for (int c = 0; c < L::CH; ++c) {
@@ -828,8 +794,8 @@ bool encode_heads(CUtensorMap* map, const void* base, int dh, int S,
 
 template <int DH, bool CAUSAL>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                         const long long* st, int B, int H, int Hkv, int S,
-                         int scale_dh, int window, int n_sm,
+                         float* lse, const long long* st, int B, int H,
+                         int Hkv, int S, int scale_dh, int window, int n_sm,
                          cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   if (!encode_heads(&qm, q, DH, S, H, B, st[0], st[1], st[2], wg::BQ) ||
@@ -845,15 +811,16 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   const int grid = min(n_sm, n_tiles);   // persistent: one block per SM
   const double scale = 1.0 / sqrt(static_cast<double>(scale_dh));
   kern<<<grid, wg::THREADS, smem, stream>>>(
-      qm, km, vm, static_cast<bf16*>(o), st[9], st[10], st[11], H, H / Hkv, S,
-      B * H, window, static_cast<float>(scale * 1.4426950408889634));
+      qm, km, vm, static_cast<bf16*>(o), st[9], st[10], st[11], lse, H,
+      H / Hkv, S, B * H, window,
+      static_cast<float>(scale * 1.4426950408889634));
   return cudaGetLastError();
 }
 
 template <typename T, int DH, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int H, int rep, int S, int scale_dh, int window,
-                   cudaStream_t stream) {
+                   float* lse, int B, int H, int rep, int S, int scale_dh,
+                   int window, cudaStream_t stream) {
   const double scale = 1.0 / sqrt(static_cast<double>(scale_dh));
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
   if constexpr (sizeof(T) == 2) {
@@ -865,7 +832,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return err;
     kern<<<grid, THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), H, rep, S,
+        static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, rep, S,
         window, static_cast<float>(scale * 1.4426950408889634));
   } else {
     const size_t smem =
@@ -877,7 +844,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     if (err != cudaSuccess) return err;
     kern<<<grid, THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), H, rep, S,
+        static_cast<const float*>(v), static_cast<float*>(o), lse, H, rep, S,
         window, static_cast<float>(scale));
   }
   return cudaGetLastError();
@@ -885,23 +852,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 template <typename T, bool CAUSAL>
 cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o,
-                        int B, int H, int rep, int S, int dh, int sd, int w,
-                        cudaStream_t st) {
+                        float* lse, int B, int H, int rep, int S, int dh,
+                        int sd, int w, cudaStream_t st) {
   switch (dh) {
     case 16:
-      return launch<T, 16, CAUSAL>(q, k, v, o, B, H, rep, S, sd, w, st);
+      return launch<T, 16, CAUSAL>(q, k, v, o, lse, B, H, rep, S, sd, w,
+                                   st);
     case 32:
-      return launch<T, 32, CAUSAL>(q, k, v, o, B, H, rep, S, sd, w, st);
+      return launch<T, 32, CAUSAL>(q, k, v, o, lse, B, H, rep, S, sd, w,
+                                   st);
     case 256:
-      return launch<T, 256, CAUSAL>(q, k, v, o, B, H, rep, S, sd, w, st);
+      return launch<T, 256, CAUSAL>(q, k, v, o, lse, B, H, rep, S, sd, w,
+                                    st);
     default: break;
   }
   if constexpr (sizeof(T) == 4) {   // bf16 at 64 and 128 runs on wgmma
     switch (dh) {
       case 64:
-        return launch<T, 64, CAUSAL>(q, k, v, o, B, H, rep, S, sd, w, st);
+        return launch<T, 64, CAUSAL>(q, k, v, o, lse, B, H, rep, S, sd, w,
+                                   st);
       case 128:
-        return launch<T, 128, CAUSAL>(q, k, v, o, B, H, rep, S, sd, w, st);
+        return launch<T, 128, CAUSAL>(q, k, v, o, lse, B, H, rep, S, sd, w,
+                                    st);
       default: break;
     }
   }
@@ -909,9 +881,9 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o,
 }
 
 template <typename T>
-int run(const void* q, const void* k, const void* v, void* o, int B, int H,
-        int Hkv, int S, int dh, int causal, int scale_dh, int window,
-        void* stream) {
+int run(const void* q, const void* k, const void* v, void* o, void* lse,
+        int B, int H, int Hkv, int S, int dh, int causal, int scale_dh,
+        int window, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || S < 1 || H % Hkv || scale_dh < 1 ||
       scale_dh > dh || window < 0 ||
       static_cast<long long>(B) * H > 0x7fffffffLL ||
@@ -920,10 +892,10 @@ int run(const void* q, const void* k, const void* v, void* o, int B, int H,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rep = H / Hkv;
   return static_cast<int>(
-      causal ? dispatch_dh<T, true>(q, k, v, o, B, H, rep, S, dh, scale_dh,
-                                    window, st)
-             : dispatch_dh<T, false>(q, k, v, o, B, H, rep, S, dh, scale_dh,
-                                     window, st));
+      causal ? dispatch_dh<T, true>(q, k, v, o, static_cast<float*>(lse), B,
+                                    H, rep, S, dh, scale_dh, window, st)
+             : dispatch_dh<T, false>(q, k, v, o, static_cast<float*>(lse), B,
+                                     H, rep, S, dh, scale_dh, window, st));
 }
 
 // The SM count of the current device if it is an sm_90 card (the library
@@ -949,16 +921,16 @@ int sm90_count() {
 
 template <bool CAUSAL>
 cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
-                           void* o, const long long* st, int B, int H,
-                           int Hkv, int S, int dh, int scale_dh, int window,
-                           int n_sm, cudaStream_t stream) {
+                           void* o, float* lse, const long long* st, int B,
+                           int H, int Hkv, int S, int dh, int scale_dh,
+                           int window, int n_sm, cudaStream_t stream) {
   switch (dh) {
     case 64:
-      return launch_wgmma<64, CAUSAL>(q, k, v, o, st, B, H, Hkv, S, scale_dh,
-                                      window, n_sm, stream);
+      return launch_wgmma<64, CAUSAL>(q, k, v, o, lse, st, B, H, Hkv, S,
+                                      scale_dh, window, n_sm, stream);
     case 128:
-      return launch_wgmma<128, CAUSAL>(q, k, v, o, st, B, H, Hkv, S, scale_dh,
-                                       window, n_sm, stream);
+      return launch_wgmma<128, CAUSAL>(q, k, v, o, lse, st, B, H, Hkv, S,
+                                       scale_dh, window, n_sm, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -980,32 +952,35 @@ extern "C" const char* flash_attention_error_string(int err) {
 // q/o:[B,H,S,dh], k/v:[B,Hkv,S,dh], contiguous, 16-byte aligned; H % Hkv
 // == 0; bf16 at dh in {16, 32, 256}, fp32 at dh in {16, 32, 64, 128, 256};
 // the softmax scale is 1/sqrt(scale_dh), 1 <= scale_dh <= dh (the head dim
-// before the wrapper's zero padding); window >= 0 (0: none). Launches on
+// before the wrapper's zero padding); window >= 0 (0: none). lse, where
+// not null, receives each row's natural log-sum-exp of its scaled logits,
+// fp32 [B,H,S] (what the backward kernels recompute P from). Launches on
 // `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o, int B, int H,
-                                    int Hkv, int S, int dh, int causal,
+                                    const void* v, void* o, void* lse, int B,
+                                    int H, int Hkv, int S, int dh, int causal,
                                     int scale_dh, int window, void* stream) {
-  return run<bf16>(q, k, v, o, B, H, Hkv, S, dh, causal, scale_dh, window,
-                   stream);
+  return run<bf16>(q, k, v, o, lse, B, H, Hkv, S, dh, causal, scale_dh,
+                   window, stream);
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o, int B, int H,
-                                   int Hkv, int S, int dh, int causal,
+                                   const void* v, void* o, void* lse, int B,
+                                   int H, int Hkv, int S, int dh, int causal,
                                    int scale_dh, int window, void* stream) {
-  return run<float>(q, k, v, o, B, H, Hkv, S, dh, causal, scale_dh, window,
-                    stream);
+  return run<float>(q, k, v, o, lse, B, H, Hkv, S, dh, causal, scale_dh,
+                    window, stream);
 }
 
 // The Hopper path, bf16 at dh in {64, 128}, on an sm_90 card only. One
-// array of 28 int64 carries the call, so the host spends little on it:
+// array of 29 int64 carries the call, so the host spends little on it:
 // a[0..4) the q, k, v, o pointers (q/o:[B,H,S,dh], k/v:[B,Hkv,S,dh]);
 // a[4..10) B, H, Hkv, S, dh, causal; a[10..26) the element strides
 // (b, h, s, d) of q, k, v and o: unit stride in dh, 16-byte multiples
 // elsewhere, every base 16-byte aligned, H % Hkv == 0; a[26] the head dim
 // whose 1/sqrt scales the logits (1 <= a[26] <= dh); a[27] the window
-// (>= 0, 0: none); or cudaErrorInvalidValue. Launches a persistent grid
+// (>= 0, 0: none); a[28] the fp32 [B,H,S] log-sum-exp output, or 0 for
+// none; or cudaErrorInvalidValue. Launches a persistent grid
 // of at most one block per SM. Returns cudaGetLastError() (0 on success).
 extern "C" int flash_attention_wgmma(const long long* a, void* stream) {
   const void* base[4] = {reinterpret_cast<const void*>(a[0]),
@@ -1014,6 +989,7 @@ extern "C" int flash_attention_wgmma(const long long* a, void* stream) {
                          reinterpret_cast<const void*>(a[3])};
   const long long B = a[4], H = a[5], Hkv = a[6], S = a[7], dh = a[8];
   const long long causal = a[9], scale_dh = a[26], window = a[27];
+  float* lse = reinterpret_cast<float*>(a[28]);
   if (B < 1 || H < 1 || Hkv < 1 || S < 1 || H % Hkv || S > 0x7fffffffLL ||
       scale_dh < 1 || scale_dh > dh || window < 0 || window > 0x7fffffffLL ||
       B * H * ((S + wg::BQ - 1) / wg::BQ) > 0x7fffffffLL)
@@ -1040,11 +1016,11 @@ extern "C" int flash_attention_wgmma(const long long* a, void* stream) {
             d = static_cast<int>(dh);
   return static_cast<int>(
       causal ? dispatch_wgmma<true>(base[0], base[1], base[2],
-                                    const_cast<void*>(base[3]), st, b, h, hkv,
-                                    s, d, static_cast<int>(scale_dh),
+                                    const_cast<void*>(base[3]), lse, st, b, h,
+                                    hkv, s, d, static_cast<int>(scale_dh),
                                     static_cast<int>(window), n_sm, sm)
              : dispatch_wgmma<false>(base[0], base[1], base[2],
-                                     const_cast<void*>(base[3]), st, b, h,
-                                     hkv, s, d, static_cast<int>(scale_dh),
+                                     const_cast<void*>(base[3]), lse, st, b,
+                                     h, hkv, s, d, static_cast<int>(scale_dh),
                                      static_cast<int>(window), n_sm, sm));
 }

@@ -1,5 +1,5 @@
-"""Liveness and straggler tracking: the port of the two classes of
-``repro.distributed.fault_tolerance`` that serving uses.
+"""Fault tolerance and elasticity: the port of
+``repro.distributed.fault_tolerance``.
 
   * ``HeartbeatTracker`` — every worker stamps (host_id, step, t) after each
     step; the coordinator's view is a local dict or a directory of stamp
@@ -7,9 +7,15 @@
   * ``StragglerDetector`` — per-member duration quantiles; a member whose
     median exceeds ``quantile × tolerance`` is flagged.  The elastic
     executor and the scenario simulator key it by replica id.
-
-The reference's elastic mesh plan and checkpoint-restart runner belong to
-training (ROADMAP.md queue 1 item 11) and are not ported here.
+  * ``ElasticPlan`` / ``plan_elastic_mesh`` — given the surviving device
+    count, the largest (data, model) mesh (or (pod, data, model)) that
+    keeps the tensor-parallel degree; training restarts on it from the
+    latest checkpoint (arrays are keyed by name, so any mesh can load
+    them).
+  * ``FaultTolerantRunner`` — heartbeats, straggler records and periodic
+    asynchronous checkpoints around a step function; the data pipeline
+    being a pure function of (seed, step), a restart from the latest
+    checkpoint ends bit for bit where an uninterrupted run ends.
 """
 from __future__ import annotations
 
@@ -17,7 +23,7 @@ import json
 import os
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -127,3 +133,62 @@ class StragglerDetector:
         fleet = float(np.quantile(list(medians.values()), self.quantile))
         return [h for h, m in medians.items()
                 if m > self.tolerance * fleet]
+
+
+@dataclass
+class ElasticPlan:
+    mesh_shape: Tuple[int, ...]
+    mesh_axes: Tuple[str, ...]
+    devices_used: int
+    dropped: int
+
+
+def plan_elastic_mesh(n_devices: int, model_parallel: int,
+                      multi_pod_size: int = 0) -> ElasticPlan:
+    """Largest (pod, data, model) mesh fitting n_devices.
+
+    The tensor-parallel degree is kept (re-sharding it mid-run changes
+    every operation's layout); data parallelism is the elastic axis."""
+    assert n_devices >= model_parallel, (n_devices, model_parallel)
+    if multi_pod_size and n_devices >= 2 * multi_pod_size:
+        pods = n_devices // multi_pod_size
+        data = multi_pod_size // model_parallel
+        used = pods * data * model_parallel
+        return ElasticPlan((pods, data, model_parallel),
+                           ("pod", "data", "model"), used,
+                           n_devices - used)
+    data = n_devices // model_parallel
+    used = data * model_parallel
+    return ElasticPlan((data, model_parallel), ("data", "model"),
+                       used, n_devices - used)
+
+
+class FaultTolerantRunner:
+    """Glue: heartbeat + straggler + checkpoint-restart around a step fn."""
+
+    def __init__(self, ckpt_manager, heartbeats: HeartbeatTracker,
+                 stragglers: StragglerDetector, host_id: int = 0,
+                 ckpt_every: int = 100):
+        self.ckpt = ckpt_manager
+        self.hb = heartbeats
+        self.sd = stragglers
+        self.host_id = host_id
+        self.ckpt_every = ckpt_every
+
+    def run(self, state, step_fn, batch_iter, n_steps: int,
+            start_step: int = 0):
+        step = start_step
+        metrics = None
+        for batch in batch_iter:
+            if step >= n_steps:
+                break
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            dt = time.perf_counter() - t0
+            self.hb.stamp(self.host_id, step)
+            self.sd.record(self.host_id, dt)
+            step += 1
+            if step % self.ckpt_every == 0:
+                self.ckpt.save(state, step)
+        self.ckpt.save(state, step, blocking=True)
+        return state, step, metrics

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 # <repo>/build/kernels: src/repro_torch/kernels/_build.py -> parents[3]
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("topk_search", "ivf_topk", "quant_score", "sq8_topk", "pq_topk",
-           "flash_attention", "topk_large")
+           "flash_attention", "flash_attention_bwd", "topk_large")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -15,11 +15,20 @@ q, k and v), the kernel told the true dh for its softmax scale, and the
 output sliced back. The plain version is
 ``repro_torch.kernels.ref.flash_attention``; ``repro_torch.kernels.ops``
 picks between them by the device of the inputs.
+
+Training (``flash_attention_op``, a ``torch.library`` operation with its
+autograd registered): the forward asks the kernel for each row's
+log-sum-exp beside the output, and the backward is ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd_cuda``:
+D = rowsum(dO * o), then dK/dV per KV-head key tile over its group's query
+heads, then dQ per q tile), on contiguous ``[B, heads, S, dh]`` copies of
+q, k, v, o and dO padded as the forward pads them. Its plain version is
+``ref.flash_attention_bwd``.
 """
 from __future__ import annotations
 
 import functools
 import struct
+from typing import Tuple
 
 import torch
 
@@ -47,22 +56,22 @@ def padded_head_dim(dh: int) -> int:
     return next(w for w in HEAD_DIMS if w >= dh)
 
 
-_CALL = struct.Struct("28q")   # the C entry point's argument array
+_CALL = struct.Struct("29q")   # the C entry point's argument array
 
 
 def wgmma_call(q, k, v, o, causal: bool, scale_dh: int,
-               window: int = 0) -> bytes:
+               window: int = 0, lse=None) -> bytes:
     """The packed arguments of ``flash_attention_wgmma``: the four
     pointers, B, H, Hkv, S, dh, causal, then the element strides of q, k,
     v and o, four each (the C entry point checks them: unit stride in the
     last dim, 16-byte multiples elsewhere, 16-byte aligned bases), then
-    the head dim of the softmax scale ``1/sqrt(scale_dh)`` and the
-    window (0: none)."""
+    the head dim of the softmax scale ``1/sqrt(scale_dh)``, the window (0:
+    none) and the fp32 ``[B, H, S]`` log-sum-exp output (0: none)."""
     B, H, S, dh = q.shape
     return _CALL.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                       B, H, k.shape[1], S, dh, int(causal), *q.stride(),
                       *k.stride(), *v.stride(), *o.stride(), scale_dh,
-                      window)
+                      window, 0 if lse is None else lse.data_ptr())
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,8 +81,8 @@ def _card(index: int):
     return (p.major, p.minor), p.name
 
 
-def _flash_wgmma(q, k, v, causal: bool, scale_dh: int,
-                 window: int) -> torch.Tensor:
+def _flash_wgmma(q, k, v, causal: bool, scale_dh: int, window: int,
+                 lse=None) -> torch.Tensor:
     dev = q.device
     if not q.is_cuda:
         raise ValueError(f"q must be on a CUDA device, got {dev}")
@@ -90,7 +99,7 @@ def _flash_wgmma(q, k, v, causal: bool, scale_dh: int,
     lib, fn = _build.entry("flash_attention", 1, 0, "wgmma")
     # the current stream's raw handle (no Stream object: a few microseconds
     # a call, which the encoders' small grids would pay)
-    err = fn(wgmma_call(q, k, v, out, causal, scale_dh, window),
+    err = fn(wgmma_call(q, k, v, out, causal, scale_dh, window, lse),
              torch._C._cuda_getCurrentRawStream(dev.index))
     if err == INVALID_VALUE:
         raise ValueError(
@@ -102,8 +111,13 @@ def _flash_wgmma(q, k, v, causal: bool, scale_dh: int,
     return out
 
 
+def _lse_out(q: torch.Tensor) -> torch.Tensor:
+    return torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool, window: int = 0) -> torch.Tensor:
+                         causal: bool, window: int = 0,
+                         with_lse: bool = False):
     """q:[B,H,S,dh], k/v:[B,Hkv,S,dh], one dtype (bf16 or fp32) on one CUDA
     device; H % Hkv == 0, 1 <= dh <= 256; ``window > 0`` masks the keys
     ``j <= i - window`` (0 or less: no window, as the reference reads
@@ -113,7 +127,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     outside ``HEAD_DIMS`` runs at ``padded_head_dim(dh)`` on zero-padded
     copies of q, k and v, with the softmax scale of the true dh, and
     returns a view of the true columns. Returns ``[B,H,S,dh]`` in q's
-    dtype."""
+    dtype; with ``with_lse`` also each row's natural log-sum-exp of its
+    scaled logits, fp32 ``[B,H,S]`` (what the backward reads)."""
     _check_shapes(q, k, v)
     window = max(int(window), 0)
     dh = q.shape[3]
@@ -121,8 +136,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if width != dh:
         pad = (0, width - dh)
         q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
+    lse = _lse_out(q) if with_lse else None
     if q.dtype == torch.bfloat16 and width in WGMMA_HEAD_DIMS:
-        out = _flash_wgmma(q, k, v, causal, dh, window)
+        out = _flash_wgmma(q, k, v, causal, dh, window, lse)
     else:
         dev = q.device
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -130,12 +146,121 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _build.require(k, "k", (q.dtype,), 4, dev)
         _build.require(v, "v", (q.dtype,), 4, dev)
         B, H, S = q.shape[:3]
-        lib, fn = _build.entry("flash_attention", 4, 8, _ENTRY[q.dtype])
+        lib, fn = _build.entry("flash_attention", 5, 8, _ENTRY[q.dtype])
         out = torch.empty_like(q)
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                 H, k.shape[1], S, width, int(causal), dh, window,
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(), B, H, k.shape[1], S,
+                 width, int(causal), dh, window,
                  torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, "flash_attention", err)
     from repro_torch.kernels.ops import count_launch  # ops imports this module
     count_launch("flash_attention")
-    return out if width == dh else out[..., :dh]
+    out = out if width == dh else out[..., :dh]
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd_cuda(q, k, v, o, dout, lse, causal: bool,
+                             window: int = 0):
+    """The gradients ``(dq [B,H,S,dh], dk, dv [B,Hkv,S,dh])`` of attention
+    from its inputs, output ``o``, the output's gradient ``dout`` and the
+    forward's log-sum-exp ``lse`` (fp32 ``[B,H,S]``), one dtype (bf16 or
+    fp32) on one CUDA device, by ``csrc/flash_attention_bwd.cu``: D =
+    rowsum(dO * o), then dK/dV and dQ. The five tensors are copied to
+    contiguous ``[B, heads, S, dh]`` (and zero-padded as the forward pads
+    them: zero columns add nothing to the true columns' gradients); the
+    gradients are contiguous, or views of the true columns."""
+    _check_shapes(q, k, v)
+    if o.shape != q.shape or dout.shape != q.shape or lse.shape != q.shape[:3]:
+        raise ValueError(f"o {tuple(o.shape)}, dout {tuple(dout.shape)}, lse "
+                         f"{tuple(lse.shape)} do not fit q {tuple(q.shape)}")
+    window = max(int(window), 0)
+    dh = q.shape[3]
+    width = padded_head_dim(dh)
+    if width != dh:
+        pad = (0, width - dh)
+        q, k, v, o, dout = (torch.nn.functional.pad(t, pad)
+                            for t in (q, k, v, o, dout))
+    q, k, v, o, dout = (t.contiguous() for t in (q, k, v, o, dout))
+    dev = q.device
+    _build.require(q, "q", tuple(_ENTRY), 4, dev)
+    for name, t in (("k", k), ("v", v), ("o", o), ("dout", dout)):
+        _build.require(t, name, (q.dtype,), 4, dev)
+    lse = lse.contiguous()
+    _build.require(lse, "lse", (torch.float32,), 3, dev)
+    B, H, S = q.shape[:3]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dsum = torch.empty_like(lse)   # the kernel's scratch: D
+    lib, fn = _build.entry("flash_attention_bwd", 10, 8, _ENTRY[q.dtype])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), dsum.data_ptr(), B, H, k.shape[1], S, width,
+             int(causal), dh, window,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "flash_attention_bwd", err)
+    from repro_torch.kernels.ops import count_launch
+    count_launch("flash_attention_bwd")
+    if width != dh:
+        dq, dk, dv = dq[..., :dh], dk[..., :dh], dv[..., :dh]
+    return dq, dk, dv
+
+
+# -- the library operations: training under autograd, and meta tensors -----
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: int,
+                       with_lse: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_cuda`` as a library operation -> ``(out, lse)``,
+    the lse ``[0]`` unless ``with_lse``. Its autograd is the backward
+    kernel (``flash_attention_bwd_op``, which needs ``with_lse``); on
+    ``meta`` tensors it gives the shapes (``roofline.op_cost`` registers
+    its FLOP formula)."""
+    if with_lse:
+        return flash_attention_cuda(q, k, v, causal, window, with_lse=True)
+    out = flash_attention_cuda(q, k, v, causal, window)
+    return out, q.new_empty(0, dtype=torch.float32)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window, with_lse):
+    lse_shape = q.shape[:3] if with_lse else (0,)
+    return (q.new_empty(q.shape),
+            q.new_empty(lse_shape, dtype=torch.float32))
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           o: torch.Tensor, dout: torch.Tensor,
+                           lse: torch.Tensor, causal: bool, window: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """``flash_attention_bwd_cuda`` as a library operation."""
+    dq, dk, dv = flash_attention_bwd_cuda(q, k, v, o, dout, lse, causal,
+                                          window)
+    return dq, dk, dv
+
+
+@flash_attention_bwd_op.register_fake
+def _(q, k, v, o, dout, lse, causal, window):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, window, with_lse = inputs
+    if not with_lse:
+        raise ValueError("flash_attention_op differentiates only with_lse")
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.causal, ctx.window = causal, window
+
+
+def _backward(ctx, dout, _dlse):
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd_op(q, k, v, out, dout, lse, ctx.causal,
+                                        ctx.window)
+    return dq, dk, dv, None, None, None
+
+
+flash_attention_op.register_autograd(_backward, setup_context=_setup_context)

@@ -24,15 +24,24 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import topk_search as _ts
 
 
-def _on_cuda(*tensors: torch.Tensor) -> bool:
+def _device(*tensors: torch.Tensor) -> str:
+    """The one device type of ``tensors``: cpu, cuda or (shapes only)
+    meta."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: "
                          f"{sorted(str(d) for d in devices)}")
     dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
+    if dev.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cuda"
+    return dev.type
+
+
+def _on_cuda(*tensors: torch.Tensor) -> bool:
+    dev = _device(*tensors)
+    if dev == "meta":
+        raise ValueError("unsupported device meta")
+    return dev == "cuda"
 
 
 def topk_search(q, vecs, live, k: int):
@@ -80,14 +89,26 @@ def pq_topk(q, codebook, cent, packed_codes, packed_slot, packed_ok,
 def flash_attention(q, k, v, *, causal: bool, window: int = 0):
     """Grouped-query attention, q:[B,H,S,dh], k/v:[B,Hkv,S,dh], keys
     ``j <= i - window`` masked when ``window > 0``; see
-    ``ref.flash_attention`` for the contract."""
-    if _on_cuda(q, k, v):
+    ``ref.flash_attention`` for the contract. On the card, where autograd
+    records the call (an input that requires grad, grad mode on), it goes
+    through ``flash_attention_op``: the forward kernel with its
+    log-sum-exp, and the backward kernel for the gradients; otherwise
+    (serving) the forward kernel alone. On the CPU the plain version, under
+    plain autograd. On ``meta`` tensors the operation's shapes (what
+    ``roofline.op_cost`` counts)."""
+    dev = _device(q, k, v)
+    if dev == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    if dev == "cuda" and not grad:
         return _fa.flash_attention_cuda(q, k, v, causal, window)
-    return ref.flash_attention(q, k, v, causal=causal, window=window)
+    return _fa.flash_attention_op(q, k, v, causal, max(int(window), 0),
+                                  grad)[0]
 
 
 KERNELS = ("topk_search", "quant_score", "ivf_topk", "sq8_topk", "pq_topk",
-           "flash_attention")
+           "flash_attention", "flash_attention_bwd")
 
 
 class _LaunchCounts:

@@ -217,3 +217,56 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
         logits = logits.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
+
+
+def attention_lse(q, k, *, causal: bool = True, window: int = 0):
+    """Each row's natural log-sum-exp of its scaled logits over the keys it
+    sees, fp32 ``[B,H,S]``: what the forward kernel writes on request. The
+    logits are taken in fp32 from q and k."""
+    S, dh = q.shape[2], q.shape[3]
+    k = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (
+        1.0 / math.sqrt(dh))
+    mask = attention_mask(S, causal, window, q.device)
+    if mask is not None:
+        logits = logits.masked_fill(~mask, float("-inf"))
+    return torch.logsumexp(logits, dim=-1)
+
+
+def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True,
+                        window: int = 0):
+    """The gradients of attention step by step, as the backward kernel
+    computes them: ``(dq [B,H,S,dh], dk, dv [B,Hkv,S,dh])`` in q's dtype
+    from q, k, v, the output ``o``, its gradient ``dout`` and the forward's
+    log-sum-exp ``lse`` (fp32 ``[B,H,S]``).
+
+    In fp32 from the inputs: P = exp(q kᵀ / sqrt(dh) - lse) over the
+    visible pairs (0 elsewhere), D = rowsum(dO ⊙ o), dS = P ⊙ (dO vᵀ - D);
+    P and dS are rounded to the input dtype before the products dv = Pᵀ dO,
+    dq = dS k / sqrt(dh) and dk = dSᵀ q / sqrt(dh), as the kernel rounds its
+    bf16 fragments; dk and dv are summed over each KV head's group of query
+    heads."""
+    dt = q.dtype
+    B, H, S, dh = q.shape
+    hkv = k.shape[1]
+    rep = H // hkv
+    scale = 1.0 / math.sqrt(dh)
+    qf, kf, vf, of, df = (t.float() for t in (q, k, v, o, dout))
+    kr = kf.repeat_interleave(rep, dim=1)
+    vr = vf.repeat_interleave(rep, dim=1)
+    p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", qf, kr) * scale
+                  - lse.float()[..., None])
+    mask = attention_mask(S, causal, window, q.device)
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    d = (df * of).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", df, vr) - d)
+    p, ds = p.to(dt).float(), ds.to(dt).float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, df)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale
+
+    def group_sum(t):
+        return t.reshape(B, hkv, rep, S, dh).sum(2)
+
+    return dq.to(dt), group_sum(dk).to(dt), group_sum(dv).to(dt)

@@ -8,7 +8,8 @@ Every family of the reference's zoo is ported: ``dense``, ``moe`` and
 ``audio`` by ``models.whisper``, ``ssm`` by ``models.xlstm`` and
 ``hybrid`` by ``models.zamba2`` (with ``models.mamba2``). Each module has
 ``Model`` (an ``nn.Module`` whose tensors ``init`` fills; on ``meta`` its
-shapes alone) and ``init(cfg, seed, device)``.
+shapes alone), ``init(cfg, seed, device)`` and ``loss_fn(model, batch,
+aux_weight)`` (the training loss; ``loss_fn`` here picks the family's).
 """
 from __future__ import annotations
 
@@ -63,3 +64,13 @@ def model_flops(cfg: ModelConfig, batch: int, seq: int, kind: str) -> float:
     if kind == "decode":
         return 2.0 * n * batch
     raise ValueError(kind)
+
+
+def loss_fn(model: nn.Module, batch, moe_impl: str = "sort"):
+    """The family's training loss of ``batch`` at its default auxiliary
+    weight (0.01 for the transformer families' MoE load balancing, 0
+    elsewhere), as the reference's ``make_train_step`` takes it."""
+    mod = get_model(model.cfg)
+    if mod is transformer:
+        return mod.loss_fn(model, batch, moe_impl=moe_impl)
+    return mod.loss_fn(model, batch)

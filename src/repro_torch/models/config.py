@@ -1,5 +1,6 @@
 """Model configuration dataclasses: the port's copy of
-``repro.models.config`` (``MoEConfig``, ``ModelConfig``).
+``repro.models.config`` (``MoEConfig``, ``ModelConfig``, and the shape
+cells ``ShapeConfig`` / ``SHAPES`` that ``roofline.analysis`` reads).
 
 Configs are plain frozen dataclasses, so they hash and compare. Every
 family of the reference's zoo has a model in the port
@@ -101,3 +102,25 @@ class ModelConfig:
         per_expert = 3 * d * m.expert_d_ff
         dead = self.n_layers * (m.num_experts - m.top_k) * per_expert
         return total - dead
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

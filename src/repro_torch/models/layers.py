@@ -15,15 +15,25 @@ reference computes them outside any Pallas kernel (their queries and keys
 differ in length, which the kernel's contract does not take). The
 reference's ``constrain`` (a sharding hint, a no-op on one device) is
 dropped.
+
+Training: ``token_cross_entropy`` is the reference's loss; ``lm_loss``
+computes the same mean from the hidden states and the head in row chunks
+whose logits are recomputed in the backward (so a 200k-entry vocabulary
+never holds a whole ``[B, S, V]`` logits tensor and its gradient);
+``remat`` maps ``cfg.remat`` (``none | dots | full``) onto
+``torch.utils.checkpoint`` (non-reentrant; ``dots`` keeps the weight
+matrix products' outputs, the reference's
+``checkpoint_dots_with_no_batch_dims``).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
@@ -333,3 +343,82 @@ def cached_cross_attention_step(params: Params, x: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vv)
     return out.reshape(B, 1, cfg.n_heads * hd) @ params["wo"]
+
+
+# -- training ------------------------------------------------------------------
+
+
+def token_cross_entropy(logits: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy over the positions with ``label >= 0``, in fp32
+    (the reference's ``token_cross_entropy``)."""
+    return _nll_sum(logits, labels) / _n_labels(labels)
+
+
+def _n_labels(labels: torch.Tensor) -> torch.Tensor:
+    return (labels >= 0).sum().float().clamp(min=1.0)
+
+
+def _nll_sum(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    logits = logits.float()
+    mask = (labels >= 0).float()
+    tgt = logits.gather(-1, labels.clamp(min=0).long()[..., None])[..., 0]
+    return ((torch.logsumexp(logits, dim=-1) - tgt) * mask).sum()
+
+
+def _head_nll_sum(x, head, labels):
+    return _nll_sum(x @ head, labels)
+
+
+LOSS_CHUNK_ELEMS = 1 << 28   # logits a chunk of ``lm_loss`` (1 GiB in fp32)
+
+
+def lm_loss(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+            chunk_elems: int = LOSS_CHUNK_ELEMS) -> torch.Tensor:
+    """``token_cross_entropy(x @ head, labels)`` for hidden states ``x
+    [B,S,D]`` and the head ``[D,V]``, the logits taken in x's dtype as the
+    reference takes them, over chunks of ``chunk_elems // V`` rows; with
+    more than one chunk each is checkpointed, so only one chunk's logits
+    exist at a time, forward or backward."""
+    D, V = head.shape
+    xf, lf = x.reshape(-1, D), labels.reshape(-1)
+    rows = max(1, chunk_elems // V)
+    if rows >= xf.shape[0]:
+        return _head_nll_sum(xf, head, lf) / _n_labels(labels)
+    total = x.new_zeros((), dtype=torch.float32)
+    for r0 in range(0, xf.shape[0], rows):
+        part = (xf[r0:r0 + rows], head, lf[r0:r0 + rows])
+        total = total + (torch.utils.checkpoint.checkpoint(
+            _head_nll_sum, *part, use_reentrant=False)
+            if torch.is_grad_enabled() else _head_nll_sum(*part))
+    return total / _n_labels(labels)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def remat(fn: Callable, mode: str, *args):
+    """``fn(*args)`` under ``cfg.remat``'s recomputation when autograd
+    records it: ``none`` keeps every activation, ``full`` only the
+    arguments (the block is recomputed in the backward), ``dots`` the
+    arguments and the outputs of the weight products (``aten.mm`` /
+    ``addmm``: the 2-d products, as the reference's policy keeps dots
+    without batch dims), the rest recomputed."""
+    if mode not in ("none", "dots", "full"):
+        raise ValueError(f"remat {mode!r} not in none | dots | full")
+    if mode == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    kw = {"context_fn": _dots_context} if mode == "dots" else {}
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             **kw)

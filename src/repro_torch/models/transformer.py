@@ -6,7 +6,12 @@ port of ``repro.models.transformer``.
 them. Weights keep the reference's layout (``x @ W`` with ``W [in, out]``;
 the embedding ``[vocab, d]``, its transpose the LM head when tied), so a
 JAX parameter tree goes across as copies (``repro_torch.convert``).
-Inference only: no parameter takes a gradient.
+Parameters are made inference-only (serving); training turns them
+trainable (``repro_torch.train.train_step``) and takes its loss from
+``loss_fn``: the causal forward with every block under ``cfg.remat``, the
+MoE blocks' load-balancing loss weighted ``aux_weight``, and the
+reference's token cross entropy from the hidden states
+(``layers.lm_loss``).
 
 An MoE config (``cfg.moe``) puts ``repro_torch.models.moe``'s sort
 dispatch in every block's MLP slot (``Block.moe``: the router in fp32, the
@@ -93,21 +98,27 @@ class Block(nn.Module):
                                   dtype)
         self.mlp_norm = param(d, device, dtype)
 
-    def ffn(self, h: torch.Tensor, one_group: bool = False) -> torch.Tensor:
-        """The MLP slot on ``h [B,S,D]``. An MoE routes each batch row as a
-        group, or with ``one_group`` (decode, ``S == 1``) the whole batch
-        as one group (``[B,1,D] -> [1,B,D]``)."""
+    def ffn(self, h: torch.Tensor, one_group: bool = False,
+            moe_impl: str = "sort", with_aux: bool = False):
+        """The MLP slot on ``h [B,S,D]`` -> ``(y, aux)``. An MoE routes each
+        batch row as a group with ``moe_impl``'s dispatch, or with
+        ``one_group`` (decode, ``S == 1``) the whole batch as one group
+        (``[B,1,D] -> [1,B,D]``). ``aux`` is the MoE's load-balancing loss
+        (fp32) with ``with_aux``, else 0 (and always 0 for a dense MLP)."""
         cfg = self.cfg
         if cfg.moe is None:
-            return L.mlp_apply(self.mlp, h, cfg.activation)
+            return L.mlp_apply(self.mlp, h, cfg.activation), 0.0
         if one_group:
-            return moe_lib.moe_apply(self.moe, h.transpose(0, 1), cfg,
-                                     with_aux=False)[0].transpose(0, 1)
-        return moe_lib.moe_apply(self.moe, h, cfg, with_aux=False)[0]
+            h = h.transpose(0, 1)
+        y, aux = moe_lib.moe_apply(self.moe, h, cfg, moe_impl, with_aux)
+        return (y.transpose(0, 1) if one_group else y,
+                aux if with_aux else 0.0)
 
-    def forward(self, x, positions, causal: bool, positions_3d=None):
-        """Returns the block's output and its rotated ``k`` and ``v``
-        ``[B,S,Hkv,hd]`` (what a prefill writes to the cache)."""
+    def forward(self, x, positions, causal: bool, positions_3d=None,
+                moe_impl: str = "sort", with_aux: bool = False):
+        """The block (the reference's ``_block``) -> its output, its rotated
+        ``k`` and ``v`` ``[B,S,Hkv,hd]`` (what a prefill writes to the
+        cache) and ``ffn``'s ``aux``."""
         cfg = self.cfg
         h = L.rmsnorm(x, self.attn_norm, cfg.norm_eps)
         q, k, v = L.attention_qkv(self.attn, h, positions, cfg,
@@ -115,7 +126,8 @@ class Block(nn.Module):
         x = x + L.attention_out(self.attn, q, k, v, cfg, causal,
                                 cfg.attn_window)
         h = L.rmsnorm(x, self.mlp_norm, cfg.norm_eps)
-        return x + self.ffn(h), k, v
+        y, aux = self.ffn(h, moe_impl=moe_impl, with_aux=with_aux)
+        return x + y, k, v, aux
 
 
 class Transformer(ZooModel):
@@ -166,19 +178,27 @@ class Transformer(ZooModel):
         return positions, self._on_device("positions_3d", positions_3d)
 
     def hidden(self, inputs: torch.Tensor, causal: bool = True,
-               positions_3d: Optional[torch.Tensor] = None):
+               positions_3d: Optional[torch.Tensor] = None,
+               remat: str = "none", moe_impl: str = "sort",
+               with_aux: bool = False):
         """The final-normed hidden states ``[B,S,D]`` of a full-sequence
-        pass; ``causal=False`` is the encoders' bidirectional pass."""
+        pass and the blocks' summed ``aux`` (``Block.ffn``); ``causal=False``
+        is the encoders' bidirectional pass. Training runs every block
+        under ``remat`` (``cfg.remat``, ``layers.remat``)."""
         x = self._embed(inputs)
         positions, p3 = self._positions(*x.shape[:2], positions_3d)
+        aux = 0.0
         for blk in self.layers:
-            x, _, _ = blk(x, positions, causal, p3)
-        return L.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
+            x, _, _, a = L.remat(blk, remat, x, positions, causal, p3,
+                                 moe_impl, with_aux)
+            aux = aux + a
+        return L.rmsnorm(x, self.final_norm, self.cfg.norm_eps), aux
 
     def forward(self, inputs: torch.Tensor,
                 positions_3d: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Full-sequence causal forward -> logits ``[B,S,V]``."""
-        return self.hidden(inputs, positions_3d=positions_3d) @ self.head()
+        return (self.hidden(inputs, positions_3d=positions_3d)[0]
+                @ self.head())
 
     def init_cache(self, batch: int, max_len: int) -> Dict:
         """Zeroed ``k``/``v`` ``[L, B, max_len, Hkv, hd]`` and ``pos`` 0."""
@@ -207,7 +227,7 @@ class Transformer(ZooModel):
         B, S = x.shape[:2]
         positions, p3 = self._positions(B, S, positions_3d)
         for i, blk in enumerate(self.layers):
-            x, k, v = blk(x, positions, True, p3)
+            x, k, v, _ = blk(x, positions, True, p3)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
         if lengths is None:
@@ -237,7 +257,7 @@ class Transformer(ZooModel):
                                              cache["v"][i], offset, cfg,
                                              window=cfg.attn_window)
             h = L.rmsnorm(x, blk.mlp_norm, cfg.norm_eps)
-            x = x + blk.ffn(h)
+            x = x + blk.ffn(h)[0]
         x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
         return x @ self.head(), cache
 
@@ -262,7 +282,7 @@ class Transformer(ZooModel):
                                             window=cfg.attn_window,
                                             positions_3d=p3)
             h = L.rmsnorm(x, blk.mlp_norm, cfg.norm_eps)
-            x = x + blk.ffn(h, one_group=True)
+            x = x + blk.ffn(h, one_group=True)[0]
         cache["pos"] = index + 1
         x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
         return (x @ self.head())[:, 0], cache
@@ -302,6 +322,30 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
         else:
             dense_init_(p, gen)
     return model
+
+
+def _inputs(model: Transformer, batch: Dict):
+    return batch["tokens"] if model.cfg.uses_tokens else batch["embeds"]
+
+
+def loss_fn(model: Transformer, batch: Dict, aux_weight: float = 0.01,
+            moe_impl: str = "sort") -> torch.Tensor:
+    """The reference's ``loss_fn``: mean token cross entropy of the causal
+    forward against ``batch["labels"]`` (positions with a label < 0
+    skipped) plus ``aux_weight`` times the MoE load-balancing loss.
+    ``batch`` holds ``tokens`` ``[B,S]`` (a vlm's ``embeds`` ``[B,S,D]``,
+    with ``positions_3d`` optional) and ``labels``, on the model's
+    device."""
+    x, aux = model.hidden(_inputs(model, batch), True,
+                          batch.get("positions_3d"), model.cfg.remat,
+                          moe_impl, with_aux=True)
+    return L.lm_loss(x, model.head(), batch["labels"]) + aux_weight * aux
+
+
+def logits(model: Transformer, batch: Dict) -> torch.Tensor:
+    """The full-sequence logits ``[B,S,V]`` of a batch (``loss_fn``'s
+    inputs)."""
+    return model(_inputs(model, batch), batch.get("positions_3d"))
 
 
 Model = Transformer

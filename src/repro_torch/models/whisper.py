@@ -10,6 +10,11 @@ output is plain torch (its queries and keys differ in length). A KV cache
 holds the decoder's self-attention ``k``/``v``, the encoder's projected
 ``cross_k``/``cross_v`` and one position for the whole batch (the
 reference decodes this family lock-step).
+
+Training (``loss_fn``): the reference's token cross entropy of the decoder
+over the encoder's output, every encoder and decoder layer recomputed in
+the backward unless ``cfg.remat`` is ``none`` (the reference checkpoints
+both scans whole, without a policy).
 """
 from __future__ import annotations
 
@@ -83,44 +88,58 @@ class Whisper(ZooModel):
     def device(self) -> torch.device:
         return self.lm_head.device
 
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
-        """frames ``[B, T, d]`` -> the encoder output ``[B, T, d]``."""
+    def _enc_layer(self, x, lp, positions):
+        cfg = self.cfg
+        h = _ln(x, lp.attn_norm, cfg.norm_eps)
+        x = x + L.multihead_attention(lp.attn, h, positions, cfg,
+                                      causal=False, use_rope=False)
+        h = _ln(x, lp.mlp_norm, cfg.norm_eps)
+        return x + L.mlp_apply(lp.mlp, h, cfg.activation)
+
+    def encode(self, frames: torch.Tensor,
+               remat: str = "none") -> torch.Tensor:
+        """frames ``[B, T, d]`` -> the encoder output ``[B, T, d]``; each
+        layer under ``remat`` (``layers.remat``)."""
         cfg = self.cfg
         x = self._on_device("frames", frames).to(self.lm_head.dtype)
         B, T, d = x.shape
         x = x + L.sinusoidal_positions(T, d, self.device).to(x.dtype)[None]
         positions = torch.arange(T, device=self.device).expand(B, T)
         for lp in self.encoder:
-            h = _ln(x, lp.attn_norm, cfg.norm_eps)
-            x = x + L.multihead_attention(lp.attn, h, positions, cfg,
-                                          causal=False, use_rope=False)
-            h = _ln(x, lp.mlp_norm, cfg.norm_eps)
-            x = x + L.mlp_apply(lp.mlp, h, cfg.activation)
+            x = L.remat(self._enc_layer, remat, x, lp, positions)
         return _ln(x, self.enc_final_norm, cfg.norm_eps)
 
+    def _dec_layer(self, x, lp, positions, enc_out):
+        """One decoder layer; returns its output and its self-attention
+        ``k``, ``v``."""
+        cfg = self.cfg
+        h = _ln(x, lp.self_norm, cfg.norm_eps)
+        q, k, v = L.attention_qkv(lp.self_attn, h, positions, cfg,
+                                  use_rope=False)
+        x = x + L.attention_out(lp.self_attn, q, k, v, cfg, True)
+        h = _ln(x, lp.cross_norm, cfg.norm_eps)
+        x = x + L.multihead_attention(lp.cross_attn, h, positions, cfg,
+                                      causal=False, kv_x=enc_out,
+                                      use_rope=False)
+        h = _ln(x, lp.mlp_norm, cfg.norm_eps)
+        return x + L.mlp_apply(lp.mlp, h, cfg.activation), k, v
+
     def _decoder_pass(self, tokens: torch.Tensor, enc_out: torch.Tensor,
-                      cache=None):
+                      cache=None, remat: str = "none"):
         """The decoder over ``tokens [B,S]``; with a ``cache``, each layer's
-        self-attention K/V are written to its first S positions."""
+        self-attention K/V are written to its first S positions; each
+        layer under ``remat``."""
         cfg = self.cfg
         x = self.embed[self._on_device("tokens", tokens).long()]
         B, S, d = x.shape
         x = x + L.sinusoidal_positions(S, d, self.device).to(x.dtype)[None]
         positions = torch.arange(S, device=self.device).expand(B, S)
         for i, lp in enumerate(self.decoder):
-            h = _ln(x, lp.self_norm, cfg.norm_eps)
-            q, k, v = L.attention_qkv(lp.self_attn, h, positions, cfg,
-                                      use_rope=False)
-            x = x + L.attention_out(lp.self_attn, q, k, v, cfg, True)
+            x, k, v = L.remat(self._dec_layer, remat, x, lp, positions,
+                              enc_out)
             if cache is not None:
                 cache["k"][i, :, :S] = k
                 cache["v"][i, :, :S] = v
-            h = _ln(x, lp.cross_norm, cfg.norm_eps)
-            x = x + L.multihead_attention(lp.cross_attn, h, positions, cfg,
-                                          causal=False, kv_x=enc_out,
-                                          use_rope=False)
-            h = _ln(x, lp.mlp_norm, cfg.norm_eps)
-            x = x + L.mlp_apply(lp.mlp, h, cfg.activation)
         return _ln(x, self.dec_final_norm, cfg.norm_eps)
 
     def forward(self, tokens: torch.Tensor,
@@ -189,6 +208,23 @@ class Whisper(ZooModel):
         cache["pos"] = index + 1
         x = _ln(x, self.dec_final_norm, cfg.norm_eps)
         return (x @ self.lm_head)[:, 0], cache
+
+
+def loss_fn(model: Whisper, batch: Dict,
+            aux_weight: float = 0.0) -> torch.Tensor:
+    """The reference's ``loss_fn``: mean token cross entropy of the decoder
+    over ``batch["tokens"]`` and the encoder over ``batch["frames"]``
+    against ``batch["labels"]`` (no auxiliary loss: ``aux_weight`` is
+    unused, as there)."""
+    remat = "none" if model.cfg.remat == "none" else "full"
+    x = model._decoder_pass(batch["tokens"],
+                            model.encode(batch["frames"], remat),
+                            remat=remat)
+    return L.lm_loss(x, model.lm_head, batch["labels"])
+
+
+def logits(model: Whisper, batch: Dict) -> torch.Tensor:
+    return model(batch["tokens"], batch["frames"])
 
 
 Model = Whisper

@@ -12,6 +12,10 @@ computes every cell with einsums and scans.
   dh, dh]``, ``n [nh, dh]``, ``m [nh]``.
 * sLSTM (scalar memory, block-diagonal hidden recurrence): a loop over
   time in fp32 with the stabiliser ``m``.
+
+Training (``loss_fn``): the reference's token cross entropy of the
+parallel forward from zero states, each group recomputed in the backward
+unless ``cfg.remat`` is ``none``.
 """
 from __future__ import annotations
 
@@ -331,6 +335,36 @@ class XLSTM(ZooModel):
         cache["pos"] = cache["pos"] + 1
         x = L.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         return (x @ self.lm_head)[:, 0], cache
+
+
+def _train_group(model: XLSTM, x: torch.Tensor, g: int) -> torch.Tensor:
+    """Group ``g``'s mLSTM blocks (parallel form) and sLSTM block from zero
+    states."""
+    cfg = model.cfg
+    G, M = _groups(cfg)
+    for j in range(M):
+        x, _ = mlstm_block(x, model.mlstm[g * M + j], cfg)
+    zero = torch.zeros((x.shape[0], cfg.d_model), dtype=torch.float32,
+                       device=x.device)
+    return slstm_block(x, model.slstm[g], cfg, (zero,) * 4)[0]
+
+
+def loss_fn(model: XLSTM, batch: Dict,
+            aux_weight: float = 0.0) -> torch.Tensor:
+    """The reference's ``loss_fn``: mean token cross entropy of the
+    forward over ``batch["tokens"]`` against ``batch["labels"]``
+    (``aux_weight`` unused, as there)."""
+    cfg = model.cfg
+    remat = "none" if cfg.remat == "none" else "full"
+    x = model.embed[model._on_device("tokens", batch["tokens"]).long()]
+    for g in range(len(model.slstm)):
+        x = L.remat(_train_group, remat, model, x, g)
+    x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return L.lm_loss(x, model.lm_head, batch["labels"])
+
+
+def logits(model: XLSTM, batch: Dict) -> torch.Tensor:
+    return model(batch["tokens"])
 
 
 Model = XLSTM

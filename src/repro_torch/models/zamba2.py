@@ -9,6 +9,10 @@ with that window, and each of the G applications keeps its own
 ring-buffered KV cache of ``M = min(max_len, window)`` slots, slot
 ``position % M``. As in the reference, the released checkpoints'
 per-application LoRA deltas on the shared block are omitted.
+
+Training (``loss_fn``): the reference's token cross entropy, each group
+(its Mamba2 layers and the shared block) recomputed in the backward unless
+``cfg.remat`` is ``none``.
 """
 from __future__ import annotations
 
@@ -76,7 +80,7 @@ class Zamba2(ZooModel):
                 if cache is not None:
                     for name, t in st.items():
                         cache["mamba"][name][g, e] = t
-            x, k, v = self.shared(x, positions, True)
+            x, k, v, _ = self.shared(x, positions, True)
             if cache is not None:
                 self._keep_window(cache, g, k, v)
         return x
@@ -174,6 +178,37 @@ class Zamba2(ZooModel):
         cache["pos"] = pos + 1
         x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
         return (x @ self.lm_head)[:, 0], cache
+
+
+def _train_group(model: Zamba2, x: torch.Tensor, g: int,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """Group ``g``'s Mamba2 layers, then the shared block (causal, with
+    the config's window)."""
+    cfg = model.cfg
+    G, E = _groups(cfg)
+    for e in range(E):
+        x, _ = mamba2.block_forward(x, model.mamba[g * E + e], cfg)
+    return model.shared(x, positions, True)[0]
+
+
+def loss_fn(model: Zamba2, batch: Dict,
+            aux_weight: float = 0.0) -> torch.Tensor:
+    """The reference's ``loss_fn``: mean token cross entropy of the
+    forward over ``batch["tokens"]`` against ``batch["labels"]``
+    (``aux_weight`` unused, as there)."""
+    cfg = model.cfg
+    remat = "none" if cfg.remat == "none" else "full"
+    x = model._tokens(batch["tokens"])
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=model.device).expand(B, S)
+    for g in range(_groups(cfg)[0]):
+        x = L.remat(_train_group, remat, model, x, g, positions)
+    x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)
+    return L.lm_loss(x, model.lm_head, batch["labels"])
+
+
+def logits(model: Zamba2, batch: Dict) -> torch.Tensor:
+    return model(batch["tokens"])
 
 
 Model = Zamba2

@@ -382,3 +382,122 @@ def test_flash_kernel_window_zero_equals_no_window(cuda_device, dtype):
                   cuda_device)
     assert torch.equal(ops.flash_attention(*args, causal=True, window=0),
                        ops.flash_attention(*args, causal=True))
+
+
+# -- the gradient ---------------------------------------------------------------
+
+import jax  # noqa: E402
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,dh,causal", [
+    (1, 2, 2, 64, 16, True), (2, 3, 1, 37, 24, True), (2, 6, 2, 65, 80, False),
+    (1, 8, 2, 33, 64, True), (1, 3, 3, 1, 16, True)])
+def test_flash_attention_grad_matches_jax(B, H, Hkv, S, dh, causal):
+    """The gradient of ``ops.flash_attention`` on the CPU (plain autograd of
+    the plain version) against ``jax.grad`` of the reference's attention,
+    fp32, from the same inputs and output gradient: within 1e-5 (the sums'
+    order)."""
+    rng = np.random.default_rng(S * 3 + dh)
+    arrays = _qkv(rng, B, H, Hkv, S, dh)
+    g = rng.standard_normal((B, H, S, dh)).astype(np.float32)
+    want = jax.grad(lambda q, k, v: jnp.sum(
+        jref.flash_attention(q, k, v, causal=causal) * g),
+        argnums=(0, 1, 2))(*(jnp.asarray(a) for a in arrays))
+    leaves = [t.requires_grad_() for t in _torch(arrays, torch.float32)]
+    got = torch.autograd.grad(ops.flash_attention(*leaves, causal=causal),
+                              leaves, torch.from_numpy(g))
+    assert ops.launch_counts()["flash_attention_bwd"] == 0   # CPU: plain
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("window", [0, 1, 7, 40])
+@pytest.mark.parametrize("H,Hkv,S,dh", [(4, 2, 33, 24), (6, 2, 65, 16),
+                                        (3, 1, 1, 8)])
+def test_plain_backward_matches_autograd(H, Hkv, S, dh, causal, window):
+    """``ref.flash_attention_bwd`` (the backward kernel's plain version,
+    from the output and ``ref.attention_lse``) against autograd of
+    ``ref.flash_attention`` in fp64 inputs, any window and GQA group:
+    within 1e-5 (the log-sum-exp and the probabilities are fp32)."""
+    rng = np.random.default_rng(S + window + H)
+    arrays = [a.astype(np.float64) for a in _qkv(rng, 2, H, Hkv, S, dh)]
+    leaves = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    out = ref.flash_attention(*leaves, causal=causal, window=window)
+    do = torch.from_numpy(rng.standard_normal(out.shape))
+    want = torch.autograd.grad(out, leaves, do)
+    q, k, v = (t.detach() for t in leaves)
+    lse = ref.attention_lse(q, k, causal=causal, window=window)
+    got = ref.flash_attention_bwd(q, k, v, out.detach(), do, lse,
+                                  causal=causal, window=window)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+BWD_TOL = {"bfloat16": 3e-2, "float32": 1e-4}   # chip_smoke.py's
+
+
+def _grad_err(got, want) -> float:
+    """max|got - want| over dq, dk, dv, over the largest |want| of the
+    three (chip_smoke.py's ``grad_err``)."""
+    scale = max(float(w.float().abs().max()) for w in want)
+    return max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, want)) / max(scale, 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("window", [0, 17])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,group,dh", [(1, 1, 16), (63, 3, 24), (65, 4, 64),
+                                        (192, 8, 128), (130, 2, 80),
+                                        (64, 1, 200)])
+def test_flash_bwd_kernel_matches_plain(cuda_device, S, group, dh, causal,
+                                        window, dtype):
+    """The backward kernel (from the forward kernel's output and
+    log-sum-exp) against ``ref.flash_attention_bwd`` on the same inputs,
+    within BWD_TOL of the largest gradient; the log-sum-exp within 1e-3
+    of the plain one."""
+    _, tdt, _ = DTYPES[dtype]
+    rng = np.random.default_rng(S * 11 + dh + group)
+    q, k, v = _torch(_qkv(rng, 2, 2 * group, 2, S, dh), tdt, cuda_device)
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(
+        np.float32)).to(device=cuda_device, dtype=tdt)
+    o, lse = tfa.flash_attention_cuda(q, k, v, causal, window, with_lse=True)
+    assert float((lse - ref.attention_lse(q, k, causal=causal,
+                                          window=window)).abs().max()) < 1e-3
+    ops.reset_launch_counts()
+    got = tfa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal, window)
+    assert ops.launch_counts()["flash_attention_bwd"] == 1
+    want = ref.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                   window=window)
+    assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
+    assert all(g.dtype == tdt for g in got)
+    assert _grad_err(got, want) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_autograd_on_card_runs_the_kernels(cuda_device, dtype):
+    """``ops.flash_attention`` on inputs that need grad goes through
+    ``flash_attention_op`` and its registered autograd: the forward kernel with its log-sum-exp, then one
+    backward launch whose gradients equal the direct call's bit for bit.
+    Under ``no_grad`` the forward alone (no log-sum-exp)."""
+    _, tdt, _ = DTYPES[dtype]
+    rng = np.random.default_rng(3)
+    q, k, v = _torch(_qkv(rng, 2, 6, 2, 130, 64), tdt, cuda_device)
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(
+        np.float32)).to(device=cuda_device, dtype=tdt)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launch_counts()
+    out = ops.flash_attention(*leaves, causal=True)
+    got = torch.autograd.grad(out, leaves, do)
+    assert ops.launch_counts()["flash_attention_bwd"] == 1
+    o, lse = tfa.flash_attention_cuda(q, k, v, True, with_lse=True)
+    want = tfa.flash_attention_bwd_cuda(q, k, v, o, do, lse, True)
+    assert torch.equal(out, o)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with torch.no_grad():
+        assert not ops.flash_attention(*leaves, causal=True).requires_grad

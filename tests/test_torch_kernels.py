@@ -508,9 +508,13 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                                          (1, 1, 4, 64))]
     with pytest.raises(ValueError, match="must be on"):
         tfa.flash_attention_cuda(*bf, True)
+    with pytest.raises(ValueError, match="must be on"):
+        tfa.flash_attention_bwd_cuda(*bf, bf[0], bf[0],
+                                     torch.zeros(1, 2, 4), True)
     assert ops.launch_counts() == {"topk_search": 0, "quant_score": 0,
                                    "ivf_topk": 0, "sq8_topk": 0,
-                                   "pq_topk": 0, "flash_attention": 0}
+                                   "pq_topk": 0, "flash_attention": 0,
+                                   "flash_attention_bwd": 0}
 
 
 def test_compare_topk_flags_a_wrong_id():
