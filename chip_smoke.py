@@ -136,13 +136,16 @@ Phases, each of which raises on failure and prints its wall seconds:
 15. flash bwd (right after phase 7): flash_attention_bwd, from the forward
    kernel's output and log-sum-exp, against its plain version
    (``ref.flash_attention_bwd``) and the exact gradient (autograd of the
-   plain attention in fp32) at 1,024 edge shapes (dh 24, 64, 80, 128 x S
-   1, 63, 65, 192 x GQA group 1, 3, 4, 8 x causal or not x window 0, 1,
-   17, 4,096 x bf16, fp32), the forward's log-sum-exp against the plain
-   one, autograd of ``ops.flash_attention`` equal to the kernel pair; then
-   Phi-4-mini's training shape (B 2, H 24, Hkv 8, S 4,096, dh 128, causal,
-   bf16): the kernel, the plain version, SDPA's backward with K/V
-   repeated, forward + backward against SDPA's, and the bound;
+   plain attention in fp32) at 960 edge shapes (dh 24, 64, 80, 128 x S
+   1, 65, 192, 300 x GQA group 1, 3, 8 x causal or not x (window, soft
+   cap) (0, 0), (0, 50), (1, 0), (17, 50), (4,096, 50) x bf16, fp32; bf16
+   at dh 64, 80 and 128 on the Hopper design), the forward's log-sum-exp
+   against the plain one, autograd of ``ops.flash_attention`` equal to
+   the kernel pair; then Phi-4-mini's training shape (B 2, H 24, Hkv 8, S
+   4,096, dh 128, causal, bf16): the Hopper design's kernels seen by
+   ``torch.profiler``, two calls bit-equal, the kernel, the plain
+   version, SDPA's backward with K/V repeated, forward + backward against
+   SDPA's, and the bound;
 16. train (after phase 12): one fp32 train step of every family at SMOKE
    on the card against the same step on the CPU (loss, gradients,
    updated parameters and moments); Phi-4-mini-3.8B at full width and
@@ -1806,7 +1809,14 @@ BWD_EXACT_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
 # the forward's log-sum-exp against the plain one in fp32 (logits of |s|
 # < ~10; bf16 products accumulate in fp32, so only the sum order differs)
 LSE_TOL = 1e-3
-BWD_WINDOWS = (0, 1, 17, 4096)
+# the edge sweep's (window, soft cap) pairs: 50 is Gemma 2's attention
+# logit cap (arXiv:2408.00118); a capped shape's q is scaled by CAP_Q so
+# that its logits bend
+BWD_WINDOW_CAPS = ((0, 0.0), (0, 50.0), (1, 0.0), (17, 50.0), (4096, 50.0))
+CAP_Q = 4.0
+# the backward's kernels by name: the Hopper design's three, the others'
+BWD_KERNELS = ("bwd_wgmma_kernel", "wg::pre_kernel", "wg::post_kernel",
+               "dkdv_", "dq_bf16", "dq_f32", "dot_kernel")
 # Phi-4-mini-3.8B's attention in the train phase: batch 2 of 4,096 tokens
 TRAIN_ATTN = (2, 24, 8, 4096, 128, True)
 
@@ -1839,22 +1849,24 @@ def phase_flash_bwd(torch, ops, ref):
 
     worst = {dt: [0.0, 0.0, 0.0] for dt in dtypes}   # ref, exact, lse
     worst_abs, n = 0.0, 0
-    for dt, dh, S, group, causal, window in itertools.product(
-            dtypes, (24, 64, 80, 128), (1, 63, 65, 192), (1, 3, 4, 8),
-            (True, False), BWD_WINDOWS):
+    for dt, dh, S, group, causal, (window, cap) in itertools.product(
+            dtypes, (24, 64, 80, 128), (1, 65, 192, 300), (1, 3, 8),
+            (True, False), BWD_WINDOW_CAPS):
         q, k, v, do = inputs(1, 2 * group, 2, S, dh, dtypes[dt])
+        if cap:
+            q = q * CAP_Q
         o, lse = tfa.flash_attention_cuda(q, k, v, causal, window,
-                                          with_lse=True)
+                                          with_lse=True, softcap=cap)
         e_lse = float((lse - ref.attention_lse(
-            q, k, causal=causal, window=window)).abs().max())
+            q, k, causal=causal, window=window, softcap=cap)).abs().max())
         got = tfa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal,
-                                           window)
+                                           window, cap)
         want = ref.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
-                                       window=window)
+                                       window=window, softcap=cap)
         leaf = [t.float().requires_grad_() for t in (q, k, v)]
         exact = torch.autograd.grad(
-            ref.flash_attention(*leaf, causal=causal, window=window), leaf,
-            do.float())
+            ref.flash_attention(*leaf, causal=causal, window=window,
+                                softcap=cap), leaf, do.float())
         e_ref, e_exact = grad_err(got, want), grad_err(got, exact)
         worst_abs = max(worst_abs, *(float((g.float() - w.float()).abs()
                                            .max()) for g, w in zip(got, want)))
@@ -1862,7 +1874,8 @@ def phase_flash_bwd(torch, ops, ref):
                 and e_lse <= LSE_TOL):
             raise AssertionError(
                 f"flash_attention_bwd {dt} dh={dh} S={S} group={group} "
-                f"causal={causal} window={window}: against the plain "
+                f"causal={causal} window={window} softcap={cap}: against "
+                f"the plain "
                 f"version {e_ref:.3g} (limit {BWD_TOL[dt]}), the exact "
                 f"gradient {e_exact:.3g} (limit {BWD_EXACT_TOL[dt]}), lse "
                 f"{e_lse:.3g} (limit {LSE_TOL})")
@@ -1870,8 +1883,9 @@ def phase_flash_bwd(torch, ops, ref):
             worst[dt][i] = max(worst[dt][i], e)
         n += 1
     say(f"flash_attention_bwd: {n} edge shapes (dh 24, 64, 80, 128 x S 1, "
-        f"63, 65, 192 x GQA group 1, 3, 4, 8 x causal or not x window "
-        f"{BWD_WINDOWS} x bf16, fp32) pass; worst against the plain "
+        f"65, 192, 300 x GQA group 1, 3, 8 x causal or not x (window, soft "
+        f"cap) {BWD_WINDOW_CAPS} x bf16, fp32; bf16 at dh 64, 80, 128 on "
+        f"the Hopper design) pass; worst against the plain "
         f"version, the exact gradient, and the forward's lse: " + "; ".join(
             f"{dt} {w[0]:.3g}, {w[1]:.3g}, {w[2]:.3g}"
             for dt, w in worst.items()) + f" (max|d| {worst_abs:.3g})")
@@ -1905,14 +1919,33 @@ def phase_flash_bwd(torch, ops, ref):
     def plain():
         return ref.flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
 
-    got, want = kernel(), plain()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = kernel()
+        torch.cuda.synchronize()
+    again = kernel()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("flash_attention_bwd at the training shape: "
+                             "two calls differ (dQ's sum order is fixed)")
+    by_kernel = {e.key: e.self_device_time_total / 1e3
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+    if not any("bwd_wgmma_kernel" in key for key in by_kernel) or any(
+            "dkdv_" in key for key in by_kernel):
+        raise AssertionError(f"flash_attention_bwd at the training shape "
+                             f"did not run the Hopper design: {by_kernel}")
+    say("flash_attention_bwd at the training shape: the Hopper design, two "
+        "calls bit-equal; device ms by kernel (torch.profiler, one call): "
+        + ", ".join(f"{re.sub(r'^void |[(].*$', '', key)} {ms:.4f}"
+                    for key, ms in by_kernel.items()))
+    want = plain()
     err = grad_err(got, want)
     abs_err = max(float((g.float() - w.float()).abs().max())
                   for g, w in zip(got, want))
     if err > BWD_TOL["bfloat16"]:
         raise AssertionError(f"flash_attention_bwd at the training shape: "
                              f"{err} against the plain version")
-    del got, want
+    del got, again, want
     torch.cuda.empty_cache()
     lq, lk, lv = (t.detach().clone().requires_grad_()
                   for t in (q, k.repeat_interleave(H // hkv, 1),
@@ -3595,7 +3628,7 @@ def train_full(torch, ops, batch_size):
     fwd_us = sum(e.self_device_time_total for e in kernels
                  if "flash_" in e.key)
     bwd_us = sum(e.self_device_time_total for e in kernels
-                 if any(k in e.key for k in ("dkdv_", "dq_bf16", "dot_kernel")))
+                 if any(k in e.key for k in BWD_KERNELS))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
     # the attention kernels' shares (nan where the profiler saw no device
     # time: then the step's CUDA events stand alone)

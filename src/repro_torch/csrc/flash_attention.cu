@@ -81,6 +81,17 @@
 //    its own key (window >= 1), so no row is left empty. At window 0 the
 //    loop bounds and the tile schedule are those without a window, and
 //    the window's masking pass is skipped.
+//  * Soft cap (all three kernels; softcap > 0, 0 none): each logit s
+//    (scaled by 1/sqrt(dh)) becomes softcap * tanh(s / softcap) before the
+//    mask, as the reference model's attn_logit_softcap; the
+//    log-sum-exp is that of the capped logits. The Hopper kernel applies
+//    it to the raw fragment in the raw logits' units, (softcap * sqrt(dh))
+//    * tanh(s_raw / (softcap * sqrt(dh))), so its running max and exponents
+//    are unchanged, with tanh from one ex2 (tanh_ex2, as the backward's
+//    Hopper design takes it); it is a template flag there, so the kernel
+//    without a cap is the one compiled before (the mma.sync and fp32
+//    kernels take tanhf, branching on the cap uniformly across the
+//    block).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -128,7 +139,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o,
                   float* __restrict__ lse, int H, int rep, int S, int window,
-                  float scale_log2) {
+                  float scale_log2, float softcap) {
   constexpr int LD = DH + 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);   // [BQ][LD]
@@ -148,6 +159,9 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int n_kt = CAUSAL ? min(n_all, (q0 + BQ - 1) / BK + 1) : n_all;
   // the first key tile any row of the block sees through its window
   const int j0 = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  // the cap in base 2: x = softcap log2(e) tanh(s scale / softcap)
+  const float cap_in = softcap > 0.f ? scale_log2 / (LOG2E * softcap) : 0.f;
+  const float cap_l2 = softcap * LOG2E;
 
   load_tile<DH>(qs, qg, q0, S, tid);
   load_tile<DH>(ks, kg, j0 * BK, S, tid);
@@ -204,7 +218,8 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
         for (int e = 2 * i; e < 2 * i + 2; ++e) {
-          float x = s[n][e] * scale_log2;
+          float x = softcap > 0.f ? cap_l2 * tanhf(s[n][e] * cap_in)
+                                  : s[n][e] * scale_log2;
           const int col = kv0 + n * 8 + 2 * t + (e & 1);
           if (masked && (col >= S || (CAUSAL && col > row[i]) ||
                          (window > 0 && col <= row[i] - window)))
@@ -280,7 +295,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int H, int rep, int S, int window,
-                 float scale) {
+                 float scale, float softcap) {
   constexpr int LD = DH + 1, LP = BK + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);   // [BQ][LD], scaled
@@ -329,6 +344,10 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float qd = qs[r * LD + d];
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) s[i] += qd * ks[(2 * i + half) * LD + d];
+    }
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] = softcap * tanhf(s[i] / softcap);
     }
     const bool masked = kv0 + BK > S || (CAUSAL && kv0 + BK - 1 > q0) ||
                         (window > 0 && kv0 <= q0 + BQ - 1 - window);
@@ -431,14 +450,15 @@ __device__ __forceinline__ void fence_pv(float (&oacc)[CH][32],
   for (int kk = 0; kk < KS; ++kk) sm90::reg_fence(pf[kk]);
 }
 
-template <int DH, bool CAUSAL>
+template <int DH, bool CAUSAL, bool CAP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
                    bf16* __restrict__ o, long long o_sb, long long o_sh,
                    long long o_ss, float* __restrict__ lse, int H, int rep,
-                   int S, int BH, int window, float scale_log2) {
+                   int S, int BH, int window, float scale_log2,
+                   float cap_raw, float cap_in) {
   using L = Layout<DH>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -591,6 +611,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       if (j == tl.n_kt - 1) sm90::mbar_arrive(&q_empty[qb]);   // Q is done
       if (j > tl.j0) sm90::mbar_arrive(&empty_v[pv_stage]);   // and V_{j-1}
 
+      // the soft cap, in the raw logits' units: cap_raw = softcap sqrt(dh),
+      // cap_in = 1 / cap_raw
+      if constexpr (CAP) {
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e)
+          s[e] = cap_raw * tanh_ex2(s[e] * cap_in);
+      }
       // online softmax in base 2 over rows g and g + 8 of each warp: the
       // running max m_r is kept on the raw logits, p = 2^(s*c - m*c) with
       // c = log2(e)/sqrt(dh), one FFMA and one ex2 per logit
@@ -745,65 +772,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
 }  // namespace wg
 
-// A [B, heads, S, dh] bf16 tensor with element strides (sb, sh, ss, 1) as a
-// 4-d map (dh, S, heads, B) read in boxes of 64 columns x `rows` rows, in
-// the 128-byte swizzle; rows past S read as zeros. The last few maps are
-// kept per thread: a caller whose buffers come back at the same addresses
-// and shapes (a model's layers, a benchmark's loop) skips the encoding.
-bool encode_heads(CUtensorMap* map, const void* base, int dh, int S,
-                  int heads, int B, long long sb, long long sh, long long ss,
-                  int rows) {
-  struct Entry {
-    const void* base;
-    long long key[8];
-    CUtensorMap map;
-  };
-  constexpr int CACHED = 8;
-  thread_local Entry cache[CACHED] = {};
-  thread_local int next = 0;
-  const long long key[8] = {dh, S, heads, B, sb, sh, ss, rows};
-  for (const Entry& e : cache)
-    if (e.base == base && e.base != nullptr &&
-        memcmp(e.key, key, sizeof(key)) == 0) {
-      *map = e.map;
-      return true;
-    }
-  const sm90::EncodeTiled enc = sm90::encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  if (enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-          dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  Entry& e = cache[next];
-  next = (next + 1) % CACHED;
-  e.base = base;
-  memcpy(e.key, key, sizeof(key));
-  e.map = *map;
-  return true;
-}
-
-template <int DH, bool CAUSAL>
+template <int DH, bool CAUSAL, bool CAP>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
                          float* lse, const long long* st, int B, int H,
-                         int Hkv, int S, int scale_dh, int window, int n_sm,
-                         cudaStream_t stream) {
+                         int Hkv, int S, int scale_dh, int window,
+                         double softcap, int n_sm, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
-  if (!encode_heads(&qm, q, DH, S, H, B, st[0], st[1], st[2], wg::BQ) ||
-      !encode_heads(&km, k, DH, S, Hkv, B, st[3], st[4], st[5], wg::BK) ||
-      !encode_heads(&vm, v, DH, S, Hkv, B, st[6], st[7], st[8], wg::BK))
+  if (!sm90::encode_heads(&qm, q, DH, S, H, B, st[0], st[1], st[2], wg::BQ) ||
+      !sm90::encode_heads(&km, k, DH, S, Hkv, B, st[3], st[4], st[5], wg::BK) ||
+      !sm90::encode_heads(&vm, v, DH, S, Hkv, B, st[6], st[7], st[8], wg::BK))
     return cudaErrorInvalidValue;
   const int smem = wg::Layout<DH>::BYTES;
-  auto kern = wg::flash_wgmma_kernel<DH, CAUSAL>;
+  auto kern = wg::flash_wgmma_kernel<DH, CAUSAL, CAP>;
   static const cudaError_t attr = cudaFuncSetAttribute(   // once per process
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
@@ -813,14 +793,16 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   kern<<<grid, wg::THREADS, smem, stream>>>(
       qm, km, vm, static_cast<bf16*>(o), st[9], st[10], st[11], lse, H,
       H / Hkv, S, B * H, window,
-      static_cast<float>(scale * 1.4426950408889634));
+      static_cast<float>(scale * 1.4426950408889634),
+      static_cast<float>(CAP ? softcap / scale : 0.0),
+      static_cast<float>(CAP ? scale / softcap : 0.0));
   return cudaGetLastError();
 }
 
 template <typename T, int DH, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int H, int rep, int S, int scale_dh,
-                   int window, cudaStream_t stream) {
+                   int window, float softcap, cudaStream_t stream) {
   const double scale = 1.0 / sqrt(static_cast<double>(scale_dh));
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
   if constexpr (sizeof(T) == 2) {
@@ -833,7 +815,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     kern<<<grid, THREADS, smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, H, rep, S,
-        window, static_cast<float>(scale * 1.4426950408889634));
+        window, static_cast<float>(scale * 1.4426950408889634), softcap);
   } else {
     const size_t smem =
         sizeof(float) * ((BQ + BK) * (DH + 1) + BK * DH + BQ * (BK + 1));
@@ -845,7 +827,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     kern<<<grid, THREADS, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), lse, H, rep, S,
-        window, static_cast<float>(scale));
+        window, static_cast<float>(scale), softcap);
   }
   return cudaGetLastError();
 }
@@ -853,27 +835,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 template <typename T, bool CAUSAL>
 cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o,
                         float* lse, int B, int H, int rep, int S, int dh,
-                        int sd, int w, cudaStream_t st) {
+                        int sd, int w, float cap, cudaStream_t st) {
   switch (dh) {
     case 16:
-      return launch<T, 16, CAUSAL>(q, k, v, o, lse, B, H, rep, S, sd, w,
+      return launch<T, 16, CAUSAL>(q, k, v, o, lse, B, H, rep, S, sd, w, cap,
                                    st);
     case 32:
-      return launch<T, 32, CAUSAL>(q, k, v, o, lse, B, H, rep, S, sd, w,
+      return launch<T, 32, CAUSAL>(q, k, v, o, lse, B, H, rep, S, sd, w, cap,
                                    st);
     case 256:
       return launch<T, 256, CAUSAL>(q, k, v, o, lse, B, H, rep, S, sd, w,
-                                    st);
+                                    cap, st);
     default: break;
   }
   if constexpr (sizeof(T) == 4) {   // bf16 at 64 and 128 runs on wgmma
     switch (dh) {
       case 64:
         return launch<T, 64, CAUSAL>(q, k, v, o, lse, B, H, rep, S, sd, w,
-                                   st);
+                                     cap, st);
       case 128:
         return launch<T, 128, CAUSAL>(q, k, v, o, lse, B, H, rep, S, sd, w,
-                                    st);
+                                      cap, st);
       default: break;
     }
   }
@@ -883,54 +865,38 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o,
 template <typename T>
 int run(const void* q, const void* k, const void* v, void* o, void* lse,
         int B, int H, int Hkv, int S, int dh, int causal, int scale_dh,
-        int window, void* stream) {
+        int window, double softcap, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || S < 1 || H % Hkv || scale_dh < 1 ||
-      scale_dh > dh || window < 0 ||
+      scale_dh > dh || window < 0 || !(softcap >= 0.0) ||
       static_cast<long long>(B) * H > 0x7fffffffLL ||
       (S + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rep = H / Hkv;
+  const float cap = static_cast<float>(softcap);
   return static_cast<int>(
       causal ? dispatch_dh<T, true>(q, k, v, o, static_cast<float*>(lse), B,
-                                    H, rep, S, dh, scale_dh, window, st)
+                                    H, rep, S, dh, scale_dh, window, cap, st)
              : dispatch_dh<T, false>(q, k, v, o, static_cast<float*>(lse), B,
-                                     H, rep, S, dh, scale_dh, window, st));
+                                     H, rep, S, dh, scale_dh, window, cap,
+                                     st));
 }
 
-// The SM count of the current device if it is an sm_90 card (the library
-// holds sm_90a code only), else 0; the answer is kept per device.
-int sm90_count() {
-  static int known[64];   // 0 not asked yet, -1 another card, else SMs
-  int dev = 0, major = 0, minor = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (known[dev] == 0)
-    known[dev] =
-        cudaDeviceGetAttribute(&major, cudaDevAttrComputeCapabilityMajor,
-                               dev) == cudaSuccess &&
-                cudaDeviceGetAttribute(&minor,
-                                       cudaDevAttrComputeCapabilityMinor,
-                                       dev) == cudaSuccess &&
-                cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                       dev) == cudaSuccess &&
-                major == 9 && minor == 0 && sms > 0
-            ? sms
-            : -1;
-  return known[dev] > 0 ? known[dev] : 0;
-}
-
-template <bool CAUSAL>
+template <bool CAUSAL, bool CAP>
 cudaError_t dispatch_wgmma(const void* q, const void* k, const void* v,
                            void* o, float* lse, const long long* st, int B,
                            int H, int Hkv, int S, int dh, int scale_dh,
-                           int window, int n_sm, cudaStream_t stream) {
+                           int window, double cap, int n_sm,
+                           cudaStream_t stream) {
   switch (dh) {
     case 64:
-      return launch_wgmma<64, CAUSAL>(q, k, v, o, lse, st, B, H, Hkv, S,
-                                      scale_dh, window, n_sm, stream);
+      return launch_wgmma<64, CAUSAL, CAP>(q, k, v, o, lse, st, B, H, Hkv, S,
+                                           scale_dh, window, cap, n_sm,
+                                           stream);
     case 128:
-      return launch_wgmma<128, CAUSAL>(q, k, v, o, lse, st, B, H, Hkv, S,
-                                       scale_dh, window, n_sm, stream);
+      return launch_wgmma<128, CAUSAL, CAP>(q, k, v, o, lse, st, B, H, Hkv,
+                                            S, scale_dh, window, cap, n_sm,
+                                            stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -952,36 +918,40 @@ extern "C" const char* flash_attention_error_string(int err) {
 // q/o:[B,H,S,dh], k/v:[B,Hkv,S,dh], contiguous, 16-byte aligned; H % Hkv
 // == 0; bf16 at dh in {16, 32, 256}, fp32 at dh in {16, 32, 64, 128, 256};
 // the softmax scale is 1/sqrt(scale_dh), 1 <= scale_dh <= dh (the head dim
-// before the wrapper's zero padding); window >= 0 (0: none). lse, where
-// not null, receives each row's natural log-sum-exp of its scaled logits,
-// fp32 [B,H,S] (what the backward kernels recompute P from). Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
+// before the wrapper's zero padding); window >= 0 (0: none); softcap >= 0
+// (0: none). lse, where not null, receives each row's natural log-sum-exp
+// of its scaled (and capped) logits, fp32 [B,H,S] (what the backward
+// kernels recompute P from). Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, void* lse, int B,
                                     int H, int Hkv, int S, int dh, int causal,
-                                    int scale_dh, int window, void* stream) {
+                                    int scale_dh, int window, double softcap,
+                                    void* stream) {
   return run<bf16>(q, k, v, o, lse, B, H, Hkv, S, dh, causal, scale_dh,
-                   window, stream);
+                   window, softcap, stream);
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int B,
                                    int H, int Hkv, int S, int dh, int causal,
-                                   int scale_dh, int window, void* stream) {
+                                   int scale_dh, int window, double softcap,
+                                   void* stream) {
   return run<float>(q, k, v, o, lse, B, H, Hkv, S, dh, causal, scale_dh,
-                    window, stream);
+                    window, softcap, stream);
 }
 
 // The Hopper path, bf16 at dh in {64, 128}, on an sm_90 card only. One
-// array of 29 int64 carries the call, so the host spends little on it:
-// a[0..4) the q, k, v, o pointers (q/o:[B,H,S,dh], k/v:[B,Hkv,S,dh]);
-// a[4..10) B, H, Hkv, S, dh, causal; a[10..26) the element strides
-// (b, h, s, d) of q, k, v and o: unit stride in dh, 16-byte multiples
-// elsewhere, every base 16-byte aligned, H % Hkv == 0; a[26] the head dim
-// whose 1/sqrt scales the logits (1 <= a[26] <= dh); a[27] the window
-// (>= 0, 0: none); a[28] the fp32 [B,H,S] log-sum-exp output, or 0 for
-// none; or cudaErrorInvalidValue. Launches a persistent grid
-// of at most one block per SM. Returns cudaGetLastError() (0 on success).
+// array of 29 int64 and a double carries the call, so the host spends
+// little on it: a[0..4) the q, k, v, o pointers (q/o:[B,H,S,dh],
+// k/v:[B,Hkv,S,dh]); a[4..10) B, H, Hkv, S, dh, causal; a[10..26) the
+// element strides (b, h, s, d) of q, k, v and o: unit stride in dh,
+// 16-byte multiples elsewhere, every base 16-byte aligned, H % Hkv == 0;
+// a[26] the head dim whose 1/sqrt scales the logits (1 <= a[26] <= dh);
+// a[27] the window (>= 0, 0: none); a[28] the fp32 [B,H,S] log-sum-exp
+// output, or 0 for none; a[29] the soft cap as a double (>= 0, 0: none);
+// or cudaErrorInvalidValue. Launches a persistent grid of at most one
+// block per SM. Returns cudaGetLastError() (0 on success).
 extern "C" int flash_attention_wgmma(const long long* a, void* stream) {
   const void* base[4] = {reinterpret_cast<const void*>(a[0]),
                          reinterpret_cast<const void*>(a[1]),
@@ -990,37 +960,38 @@ extern "C" int flash_attention_wgmma(const long long* a, void* stream) {
   const long long B = a[4], H = a[5], Hkv = a[6], S = a[7], dh = a[8];
   const long long causal = a[9], scale_dh = a[26], window = a[27];
   float* lse = reinterpret_cast<float*>(a[28]);
+  double cap;
+  memcpy(&cap, a + 29, sizeof(cap));
   if (B < 1 || H < 1 || Hkv < 1 || S < 1 || H % Hkv || S > 0x7fffffffLL ||
       scale_dh < 1 || scale_dh > dh || window < 0 || window > 0x7fffffffLL ||
-      B * H * ((S + wg::BQ - 1) / wg::BQ) > 0x7fffffffLL)
+      !(cap >= 0.0) || B * H * ((S + wg::BQ - 1) / wg::BQ) > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  // the maps take (b, h, s), a size-1 dim's stride (never read) set to 8
-  const long long heads[4] = {H, Hkv, Hkv, H};
   long long st[12];
-  for (int t = 0; t < 4; ++t) {
-    const long long* in = a + 10 + 4 * t;
-    const long long size[3] = {B, heads[t], S};
-    if (in[3] != 1 || reinterpret_cast<uintptr_t>(base[t]) % 16)
+  const long long heads[4] = {H, Hkv, Hkv, H};
+  for (int t = 0; t < 4; ++t)
+    if (!sm90::head_strides(st + 3 * t, base[t], a + 10 + 4 * t, B,
+                            heads[t], S))
       return static_cast<int>(cudaErrorInvalidValue);
-    for (int d = 0; d < 3; ++d) {
-      st[3 * t + d] = size[d] > 1 ? in[d] : 8;
-      if (st[3 * t + d] % 8 || st[3 * t + d] < 0)
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  const int n_sm = sm90_count();
+  const int n_sm = sm90::sm90_count();
   if (!n_sm) return static_cast<int>(cudaErrorInvalidDeviceFunction);
   const cudaStream_t sm = static_cast<cudaStream_t>(stream);
   const int b = static_cast<int>(B), h = static_cast<int>(H),
             hkv = static_cast<int>(Hkv), s = static_cast<int>(S),
-            d = static_cast<int>(dh);
-  return static_cast<int>(
-      causal ? dispatch_wgmma<true>(base[0], base[1], base[2],
-                                    const_cast<void*>(base[3]), lse, st, b, h,
-                                    hkv, s, d, static_cast<int>(scale_dh),
-                                    static_cast<int>(window), n_sm, sm)
-             : dispatch_wgmma<false>(base[0], base[1], base[2],
-                                     const_cast<void*>(base[3]), lse, st, b,
-                                     h, hkv, s, d, static_cast<int>(scale_dh),
-                                     static_cast<int>(window), n_sm, sm));
+            d = static_cast<int>(dh), sd = static_cast<int>(scale_dh),
+            w = static_cast<int>(window);
+  void* o = const_cast<void*>(base[3]);
+  const cudaError_t err =
+      causal ? (cap > 0.0 ? dispatch_wgmma<true, true>(
+                                base[0], base[1], base[2], o, lse, st, b, h,
+                                hkv, s, d, sd, w, cap, n_sm, sm)
+                          : dispatch_wgmma<true, false>(
+                                base[0], base[1], base[2], o, lse, st, b, h,
+                                hkv, s, d, sd, w, cap, n_sm, sm))
+             : (cap > 0.0 ? dispatch_wgmma<false, true>(
+                                base[0], base[1], base[2], o, lse, st, b, h,
+                                hkv, s, d, sd, w, cap, n_sm, sm)
+                          : dispatch_wgmma<false, false>(
+                                base[0], base[1], base[2], o, lse, st, b, h,
+                                hkv, s, d, sd, w, cap, n_sm, sm));
+  return static_cast<int>(err);
 }

@@ -63,6 +63,13 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// tanh(x) = 1 - 2 / (e^2x + 1) from one ex2 and a fast division: within
+// ~2e-7 of tanhf absolutely (what a soft cap c tanh(s / c) needs), about a
+// fifth of its instructions; +-1 past |x| ~ 44
+__device__ __forceinline__ float tanh_ex2(float x) {
+  return 1.f - __fdividef(2.f, ex2(x * 2.8853900817779268f) + 1.f);
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));

@@ -2,12 +2,13 @@
 // kernels (sq8_limb.cuh) and ivf_topk.cu: mbarriers, named barriers, TMA
 // tile loads through a tensor map (and the host-side encoder of the map),
 // 1-d bulk copies, warpgroup register moves and wgmma with shared-memory
-// descriptors in the 128-byte swizzle.
+// descriptors in the 128-byte swizzle; and flash_attention_bwd.cu's.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap (the type only; nothing links libcuda)
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace sm90 {
 
@@ -108,6 +109,46 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// Bulk copies from shared memory to device memory (both addresses 16-byte
+// aligned, bytes a multiple of 16) in this thread's bulk group: a store,
+// and an fp32 add into what is there (a reduction done by the memory
+// system, element by element).
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_add_f32(void* dst, const void* src,
+                                             uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], "
+      "%2;\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until this thread's bulk groups have read their sources (the shared
+// memory may be written again) ...
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// ... or have completed their writes.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Order this thread's device-memory accesses in the generic proxy (loads,
+// stores, acquires) with its accesses in the async proxy (bulk copies),
+// both ways.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // Order this thread's earlier writes to shared memory (st.shared,
 // cp.async) before later reads by the async proxy (wgmma, TMA).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -185,6 +226,15 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
          (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
 }
 
+// The same for an MN-major operand wider than 64 columns: its 64-column
+// chunks (each a 128-byte-swizzled tile of its own) lie `lbo` bytes apart,
+// the leading byte offset; 8-row groups along K 1,024 bytes apart.
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p, uint32_t lbo) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t{(lbo >> 4) & 0x3FFF} << 16) |
+         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+
 // d[0..64) (+)= A B, A and B from shared memory (descriptors)
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
                                                  uint64_t db, int accumulate) {
@@ -215,6 +265,52 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d[0..32) (+)= A B, A [64 x 16] and B [16 x 64] bf16 from shared memory
+// (descriptors), fp32 sums. TA / TB say how each operand lies: 0 K-major
+// (A's 64 rows, B's 64 columns each 16 contiguous values along K, a k16
+// step 32 bytes into a 128-byte swizzled row), 1 MN-major (16 rows along K
+// of 64 contiguous values each, a k16 step 2,048 bytes on). d[4j + e] is
+// row g + 8 (e / 2) of the warp's 16 (warp w of the warpgroup holds rows
+// 16w .. 16w + 15), column 8j + 2 (lane % 4) + (e % 2), g = lane / 4.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// The same at n32: B [16 x 32]; d[4j + e] as above for j < 4. An MN-major
+// B of 32 columns may start 64 bytes into a 128-byte swizzled row.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da,
+                                                 uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
 // d[0..32) += A B, A from registers (bf16 pairs), B from shared memory
 // stored MN-major (transposed on the way in)
 __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
@@ -235,6 +331,41 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[0..64) += A B, A from registers (bf16 pairs, as the m64n64 form), B
+// [16 x 128] MN-major from shared memory in two 64-column chunks
+// (desc_sw128_mn). d[4j + e] is row g + 8 (e / 2) of the warp's 16,
+// column 8j + 2 (lane % 4) + (e % 2), j < 16: the two m64n64 fragments of
+// the chunks one after the other.
+__device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -291,6 +422,91 @@ inline EncodeTiled encode_tiled() {
                : nullptr;
   }();
   return fn;
+}
+
+// A [B, heads, S, dh] bf16 tensor with element strides (sb, sh, ss, 1) as a
+// 4-d map (dh, S, heads, B) read in boxes of 64 columns x `rows` rows, in
+// the 128-byte swizzle; rows past S read as zeros. The last few maps are
+// kept per thread: a caller whose buffers come back at the same addresses
+// and shapes (a model's layers, a benchmark's loop) skips the encoding.
+inline bool encode_heads(CUtensorMap* map, const void* base, int dh, int S,
+                         int heads, int B, long long sb, long long sh,
+                         long long ss, int rows) {
+  struct Entry {
+    const void* base;
+    long long key[8];
+    CUtensorMap map;
+  };
+  constexpr int CACHED = 8;
+  thread_local Entry cache[CACHED] = {};
+  thread_local int next = 0;
+  const long long key[8] = {dh, S, heads, B, sb, sh, ss, rows};
+  for (const Entry& e : cache)
+    if (e.base == base && e.base != nullptr &&
+        memcmp(e.key, key, sizeof(key)) == 0) {
+      *map = e.map;
+      return true;
+    }
+  const sm90::EncodeTiled enc = sm90::encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  if (enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+          dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  Entry& e = cache[next];
+  next = (next + 1) % CACHED;
+  e.base = base;
+  memcpy(e.key, key, sizeof(key));
+  e.map = *map;
+  return true;
+}
+
+// The (b, h, s) element strides of a [B, heads, S, dh] bf16 tensor as a
+// tensor map takes them, from its strides in[0..4) (b, h, s, d): false
+// unless the stride in dh is 1, the base 16-byte aligned and every other
+// stride a positive multiple of 8 elements (a size-1 dim's stride, never
+// read, is set to 8).
+inline bool head_strides(long long* out, const void* base,
+                         const long long* in, long long B, long long heads,
+                         long long S) {
+  const long long size[3] = {B, heads, S};
+  if (in[3] != 1 || reinterpret_cast<uintptr_t>(base) % 16) return false;
+  for (int d = 0; d < 3; ++d) {
+    out[d] = size[d] > 1 ? in[d] : 8;
+    if (out[d] % 8 || out[d] <= 0) return false;
+  }
+  return true;
+}
+
+// The SM count of the current device if it is an sm_90 card (a library
+// holds sm_90a code only), else 0; the answer is kept per device.
+inline int sm90_count() {
+  static int known[64];   // 0 not asked yet, -1 another card, else SMs
+  int dev = 0, major = 0, minor = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (known[dev] == 0)
+    known[dev] =
+        cudaDeviceGetAttribute(&major, cudaDevAttrComputeCapabilityMajor,
+                               dev) == cudaSuccess &&
+                cudaDeviceGetAttribute(&minor,
+                                       cudaDevAttrComputeCapabilityMinor,
+                                       dev) == cudaSuccess &&
+                cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                       dev) == cudaSuccess &&
+                major == 9 && minor == 0 && sms > 0
+            ? sms
+            : -1;
+  return known[dev] > 0 ? known[dev] : 0;
 }
 
 }  // namespace sm90

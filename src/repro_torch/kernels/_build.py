@@ -94,15 +94,16 @@ def library(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def entry(name: str, n_ptr: int, n_int: int, dtype: str = "f32"):
+def entry(name: str, n_ptr: int, n_int: int, dtype: str = "f32",
+          n_double: int = 0):
     """``(library, C entry point <name>_<dtype>)`` of ``csrc/<name>.cu``
     (``dtype`` names the operands' type: "f32", "bf16", "s8" or "u8"),
-    typed as taking ``n_ptr`` pointers,
-    ``n_int`` ints and the stream and returning the CUDA error code."""
+    typed as taking ``n_ptr`` pointers, ``n_int`` ints, ``n_double``
+    doubles and the stream and returning the CUDA error code."""
     lib = library(name)
     fn = getattr(lib, f"{name}_{dtype}")
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [
-        ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + [ctypes.c_double] * n_double + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib, fn
 

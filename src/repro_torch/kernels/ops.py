@@ -86,9 +86,11 @@ def pq_topk(q, codebook, cent, packed_codes, packed_slot, packed_ok,
                        packed_ok, nprobe, k)
 
 
-def flash_attention(q, k, v, *, causal: bool, window: int = 0):
+def flash_attention(q, k, v, *, causal: bool, window: int = 0,
+                    softcap: float = 0.0):
     """Grouped-query attention, q:[B,H,S,dh], k/v:[B,Hkv,S,dh], keys
-    ``j <= i - window`` masked when ``window > 0``; see
+    ``j <= i - window`` masked when ``window > 0``, the scaled logits
+    capped to ``softcap * tanh(s / softcap)`` when ``softcap > 0``; see
     ``ref.flash_attention`` for the contract. On the card, where autograd
     records the call (an input that requires grad, grad mode on), it goes
     through ``flash_attention_op``: the forward kernel with its
@@ -98,13 +100,15 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0):
     ``roofline.op_cost`` counts)."""
     dev = _device(q, k, v)
     if dev == "cpu":
-        return ref.flash_attention(q, k, v, causal=causal, window=window)
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   softcap=softcap)
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                         or v.requires_grad)
     if dev == "cuda" and not grad:
-        return _fa.flash_attention_cuda(q, k, v, causal, window)
+        return _fa.flash_attention_cuda(q, k, v, causal, window,
+                                        softcap=softcap)
     return _fa.flash_attention_op(q, k, v, causal, max(int(window), 0),
-                                  grad)[0]
+                                  grad, float(softcap))[0]
 
 
 KERNELS = ("topk_search", "quant_score", "ivf_topk", "sq8_topk", "pq_topk",

@@ -195,23 +195,34 @@ def attention_mask(S: int, causal: bool, window: int, device):
     return ok
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+def softcap_logits(logits, softcap: float):
+    """``softcap * tanh(logits / softcap)`` where ``softcap > 0`` (the
+    reference model's ``attn_logit_softcap``), else ``logits``."""
+    if softcap > 0:
+        return softcap * torch.tanh(logits / softcap)
+    return logits
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0):
     """Attention with grouped-query heads, step by step as the reference
     ``repro.kernels.ref.flash_attention``: q:[B,H,S,dh], k/v:[B,Hkv,S,dh]
     (query head ``h`` reads KV head ``h // (H // Hkv)``) -> [B,H,S,dh].
 
     The logits are taken in the input dtype, cast to fp32 and scaled by
-    ``1/sqrt(dh)``; causal masks the keys above the diagonal with -inf, and
-    a ``window > 0`` the keys ``j <= i - window`` (the reference model's
-    sliding window, ``repro.models.layers.attention_scores_mask``); the
-    softmax is fp32 and its probabilities go back to ``q.dtype`` before the
-    product with ``v``."""
+    ``1/sqrt(dh)``; a ``softcap > 0`` caps them to ``softcap * tanh(s /
+    softcap)`` (``repro.models.layers.multihead_attention``); causal masks
+    the keys above the diagonal with -inf, and a ``window > 0`` the keys
+    ``j <= i - window`` (the reference model's sliding window,
+    ``repro.models.layers.attention_scores_mask``); the softmax is fp32 and
+    its probabilities go back to ``q.dtype`` before the product with
+    ``v``."""
     S, dh = q.shape[2], q.shape[3]
     rep = q.shape[1] // k.shape[1]
     k = k.repeat_interleave(rep, dim=1)
     v = v.repeat_interleave(rep, dim=1)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * (
-        1.0 / math.sqrt(dh))
+    logits = softcap_logits(torch.einsum("bhqd,bhkd->bhqk", q, k).float() * (
+        1.0 / math.sqrt(dh)), softcap)
     mask = attention_mask(S, causal, window, q.device)
     if mask is not None:
         logits = logits.masked_fill(~mask, float("-inf"))
@@ -219,14 +230,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
-def attention_lse(q, k, *, causal: bool = True, window: int = 0):
-    """Each row's natural log-sum-exp of its scaled logits over the keys it
-    sees, fp32 ``[B,H,S]``: what the forward kernel writes on request. The
-    logits are taken in fp32 from q and k."""
+def attention_lse(q, k, *, causal: bool = True, window: int = 0,
+                  softcap: float = 0.0):
+    """Each row's natural log-sum-exp of its scaled (and capped) logits
+    over the keys it sees, fp32 ``[B,H,S]``: what the forward kernel writes
+    on request. The logits are taken in fp32 from q and k."""
     S, dh = q.shape[2], q.shape[3]
     k = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (
-        1.0 / math.sqrt(dh))
+    logits = softcap_logits(torch.einsum(
+        "bhqd,bhkd->bhqk", q.float(), k.float()) * (1.0 / math.sqrt(dh)),
+        softcap)
     mask = attention_mask(S, causal, window, q.device)
     if mask is not None:
         logits = logits.masked_fill(~mask, float("-inf"))
@@ -234,14 +247,16 @@ def attention_lse(q, k, *, causal: bool = True, window: int = 0):
 
 
 def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True,
-                        window: int = 0):
+                        window: int = 0, softcap: float = 0.0):
     """The gradients of attention step by step, as the backward kernel
     computes them: ``(dq [B,H,S,dh], dk, dv [B,Hkv,S,dh])`` in q's dtype
     from q, k, v, the output ``o``, its gradient ``dout`` and the forward's
     log-sum-exp ``lse`` (fp32 ``[B,H,S]``).
 
-    In fp32 from the inputs: P = exp(q kᵀ / sqrt(dh) - lse) over the
-    visible pairs (0 elsewhere), D = rowsum(dO ⊙ o), dS = P ⊙ (dO vᵀ - D);
+    In fp32 from the inputs: with s = q kᵀ / sqrt(dh), P = exp(cap(s) -
+    lse) over the visible pairs (0 elsewhere; cap(s) = c tanh(s / c) for
+    ``softcap`` c > 0, else s), D = rowsum(dO ⊙ o), dS = P ⊙ (dO vᵀ - D) ⊙
+    cap'(s), cap'(s) = 1 - tanh²(s / c) (1 without a cap);
     P and dS are rounded to the input dtype before the products dv = Pᵀ dO,
     dq = dS k / sqrt(dh) and dk = dSᵀ q / sqrt(dh), as the kernel rounds its
     bf16 fragments; dk and dv are summed over each KV head's group of query
@@ -254,13 +269,15 @@ def flash_attention_bwd(q, k, v, o, dout, lse, *, causal: bool = True,
     qf, kf, vf, of, df = (t.float() for t in (q, k, v, o, dout))
     kr = kf.repeat_interleave(rep, dim=1)
     vr = vf.repeat_interleave(rep, dim=1)
-    p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", qf, kr) * scale
-                  - lse.float()[..., None])
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kr) * scale
+    p = torch.exp(softcap_logits(s, softcap) - lse.float()[..., None])
     mask = attention_mask(S, causal, window, q.device)
     if mask is not None:
         p = p.masked_fill(~mask, 0.0)
     d = (df * of).sum(-1, keepdim=True)
     ds = p * (torch.einsum("bhqd,bhkd->bhqk", df, vr) - d)
+    if softcap > 0:
+        ds = ds * (1 - torch.tanh(s / softcap) ** 2)
     p, ds = p.to(dt).float(), ds.to(dt).float()
     dv = torch.einsum("bhqk,bhqd->bhkd", p, df)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale

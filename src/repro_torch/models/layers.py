@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
@@ -151,15 +151,6 @@ def attn_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
             "wv": (d, cfg.n_kv_heads * hd), "wo": (cfg.n_heads * hd, d)}
 
 
-def require_full_attention(cfg: ModelConfig) -> None:
-    """Raise for soft-capped attention, which the kernel does not compute
-    (no config of the zoo sets it; ROADMAP.md queue 3 item 2)."""
-    if cfg.attn_logit_softcap > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: soft-capped attention logits are not ported: "
-            f"ROADMAP.md queue 3 item 2")
-
-
 def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int):
     return x.reshape(*x.shape[:-1], n_heads, head_dim)
 
@@ -199,13 +190,14 @@ def attention_out(params: Params, q, k, v, cfg: ModelConfig, causal: bool,
                   window: int = 0):
     """The attention core through the kernel (query head ``h`` reads KV head
     ``h // (H // Hkv)``, the reference's ``(n_kv, rep)`` grouping; keys
-    ``j <= i - window`` masked when ``window > 0``), then the output
+    ``j <= i - window`` masked when ``window > 0``; the logits soft-capped
+    by ``cfg.attn_logit_softcap`` where it is set), then the output
     projection. q:[B,S,H,hd], k/v:[B,S,Hkv,hd] -> [B,S,D]."""
-    require_full_attention(cfg)
     B, S = q.shape[:2]
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal,
-                              window=window)
+                              window=window,
+                              softcap=cfg.attn_logit_softcap)
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
     return out @ params["wo"]
 
@@ -220,13 +212,13 @@ def multihead_attention(params: Params, x: torch.Tensor,
     """Full-sequence attention, x:[B,S,D] -> [B,S,D]: self-attention
     through the kernel; with ``kv_x [B,T,D]`` cross attention over it,
     unrotated and unmasked, as the reference's einsums compute it (the
-    logits in the input dtype, scaled in fp32, an fp32 softmax cast back
-    before the product with v)."""
+    logits in the input dtype, scaled in fp32 and soft-capped where the
+    config sets it, an fp32 softmax cast back before the product with
+    v)."""
     if kv_x is None:
         q, k, v = attention_qkv(params, x, positions, cfg,
                                 use_rope=use_rope, positions_3d=positions_3d)
         return attention_out(params, q, k, v, cfg, causal, window)
-    require_full_attention(cfg)
     hd = cfg.resolved_head_dim
     B, S = x.shape[:2]
     n_rep = cfg.n_heads // cfg.n_kv_heads
@@ -235,6 +227,7 @@ def multihead_attention(params: Params, x: torch.Tensor,
     v = _split_heads(kv_x @ params["wv"], cfg.n_kv_heads, hd)
     q = q.reshape(B, S, cfg.n_kv_heads, n_rep, hd)
     scores = torch.einsum("bqkrd,bmkd->bkrqm", q, k).float() / math.sqrt(hd)
+    scores = ref.softcap_logits(scores, cfg.attn_logit_softcap)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bkrqm,bmkd->bqkrd", probs, v)
     return out.reshape(B, S, cfg.n_heads * hd) @ params["wo"]
@@ -255,7 +248,6 @@ def cached_attention_step(params: Params, x: torch.Tensor,
     (and, with ``window > 0``, those at or below ``pos - window``) masked,
     as the reference computes them. ``positions_3d [3, B, 1]`` rotates an
     M-RoPE config's q and k."""
-    require_full_attention(cfg)
     hd = cfg.resolved_head_dim
     B = x.shape[0]
     per_row = isinstance(index, torch.Tensor) and index.dim() == 1
@@ -277,7 +269,8 @@ def cached_attention_step(params: Params, x: torch.Tensor,
     n_rep = cfg.n_heads // cfg.n_kv_heads
     q = q.reshape(B, 1, cfg.n_kv_heads, n_rep, hd)
     scores = torch.einsum("bqkrd,bmkd->bkrqm", q, cache_k).float()
-    scores = scores / math.sqrt(hd)
+    scores = ref.softcap_logits(scores / math.sqrt(hd),
+                                cfg.attn_logit_softcap)
     kpos = torch.arange(cache_k.shape[1], device=x.device)
     ok = kpos[None, :] <= pos                                    # [B, M]
     if window > 0:
@@ -300,7 +293,6 @@ def cached_attention_chunk(params: Params, x: torch.Tensor,
     previous occupant is never attended; with ``window > 0`` so are keys
     at or below ``pos - window``. Returns the attention output ``[B,C,D]``,
     as the reference computes it."""
-    require_full_attention(cfg)
     hd = cfg.resolved_head_dim
     B, C = x.shape[:2]
     q = _split_heads(x @ params["wq"], cfg.n_heads, hd)          # [B,C,H,hd]
@@ -313,7 +305,8 @@ def cached_attention_chunk(params: Params, x: torch.Tensor,
     n_rep = cfg.n_heads // cfg.n_kv_heads
     q = q.reshape(B, C, cfg.n_kv_heads, n_rep, hd)
     scores = torch.einsum("bqkrd,bmkd->bkrqm", q, cache_k).float()
-    scores = scores / math.sqrt(hd)
+    scores = ref.softcap_logits(scores / math.sqrt(hd),
+                                cfg.attn_logit_softcap)
     kpos = torch.arange(cache_k.shape[1], device=x.device)
     ok = kpos[None, :] <= pos[:, None]                           # [C, M]
     if window > 0:

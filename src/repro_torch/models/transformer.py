@@ -140,7 +140,6 @@ class Transformer(ZooModel):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        L.require_full_attention(cfg)
         self.cfg = cfg
         device = resolve_device(device)
         dtype = torch_dtype(cfg)

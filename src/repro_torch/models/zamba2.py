@@ -49,7 +49,6 @@ class Zamba2(ZooModel):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        L.require_full_attention(cfg)
         _groups(cfg)
         self.cfg = cfg
         device = resolve_device(device)

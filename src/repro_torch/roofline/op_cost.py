@@ -64,14 +64,16 @@ BWD_FLOP_RATIO = 2.5   # dV, dP, dQ, dK (and S recomputed): 2.5x the forward
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention)
-def _fwd_flops(q_shape, k_shape, v_shape, causal, window, with_lse, *args,
-               out_shape=None, **kwargs) -> int:
+def _fwd_flops(q_shape, k_shape, v_shape, causal, window, with_lse,
+               softcap=0.0, *args, out_shape=None, **kwargs) -> int:
+    # the same with or without a soft cap: its tanh is elementwise work
     return attention_flops(q_shape, causal, window)
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
 def _bwd_flops(q_shape, k_shape, v_shape, o_shape, dout_shape, lse_shape,
-               causal, window, *args, out_shape=None, **kwargs) -> int:
+               causal, window, softcap=0.0, *args, out_shape=None,
+               **kwargs) -> int:
     return int(BWD_FLOP_RATIO * attention_flops(q_shape, causal, window))
 
 

@@ -501,3 +501,233 @@ def test_flash_autograd_on_card_runs_the_kernels(cuda_device, dtype):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     with torch.no_grad():
         assert not ops.flash_attention(*leaves, causal=True).requires_grad
+
+
+# -- the soft cap ---------------------------------------------------------------
+
+from repro import configs as jconfigs  # noqa: E402
+from repro.models import layers as jlayers  # noqa: E402
+
+# Gemma 2's attention logit cap (arXiv:2408.00118), and a tight one that
+# bends most of these logits
+SOFTCAPS = (50.0, 5.0)
+LOGIT_SCALE = 4.0   # q scaled so the logits reach a few tens: past 5, near 50
+
+
+def _jax_attention(q, k, v, causal, window, softcap):
+    """The reference's einsum attention, ``repro.models.layers.
+    multihead_attention`` (rope off), on q:[B,H,S,dh], k/v:[B,Hkv,S,dh]
+    -> [B,H,S,dh]: each token's input is [q | k | v], which wq, wk and wv
+    pick out exactly, and wo is the identity."""
+    B, H, S, dh = q.shape
+    hkv = k.shape[1]
+    cfg = jconfigs.get_smoke("llama3_8b").replace(
+        n_heads=H, n_kv_heads=hkv, head_dim=dh, attn_logit_softcap=softcap,
+        dtype="float32")
+    widths = (H * dh, hkv * dh, hkv * dh)
+    x = jnp.concatenate([t.transpose(0, 2, 1, 3).reshape(B, S, -1)
+                         for t in (q, k, v)], axis=-1)
+    eye = jnp.eye(sum(widths), dtype=jnp.float32)
+    cols = np.cumsum((0,) + widths)
+    params = {name: eye[:, cols[i]:cols[i + 1]]
+              for i, name in enumerate(("wq", "wk", "wv"))}
+    params["wo"] = jnp.eye(H * dh, dtype=jnp.float32)
+    out = jlayers.multihead_attention(params, x, jnp.zeros((B, S), jnp.int32),
+                                      cfg, causal=causal, use_rope=False,
+                                      window=window)
+    return out.reshape(B, S, H, dh).transpose(0, 2, 1, 3)
+
+
+@pytest.mark.parametrize("softcap", SOFTCAPS)
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 7),
+                                           (False, 9)])
+@pytest.mark.parametrize("H,Hkv,S,dh", [(4, 2, 33, 16), (3, 1, 20, 24)])
+def test_softcapped_plain_versions_match_jax(H, Hkv, S, dh, causal, window,
+                                             softcap):
+    """``ref.flash_attention``, ``ref.attention_lse`` and
+    ``ref.flash_attention_bwd`` with a soft cap against the reference's
+    einsum attention and ``jax.vjp`` of it, fp32, from the same inputs and
+    output gradient (q scaled so the logits reach the cap): the output
+    within 1e-5, the log-sum-exp within 1e-5 of the capped logits' (the
+    reference's formula on its own logits), the gradients within 1e-4 of
+    the largest (fp32 sums over the rows and the cap's tanh). The
+    uncapped output differs by more than the tolerance."""
+    rng = np.random.default_rng(S + dh + window + int(softcap))
+    q, k, v = _qkv(rng, 2, H, Hkv, S, dh)
+    q = q * LOGIT_SCALE
+    g = rng.standard_normal(q.shape).astype(np.float32)
+    want, vjp = jax.vjp(lambda a, b, c: _jax_attention(
+        a, b, c, causal, window, softcap), *(jnp.asarray(a) for a in (q, k, v)))
+    dwant = vjp(jnp.asarray(g))
+    tq, tk, tv = _torch((q, k, v), torch.float32)
+    out = ref.flash_attention(tq, tk, tv, causal=causal, window=window,
+                              softcap=softcap)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    assert float(np.abs(ref.flash_attention(
+        tq, tk, tv, causal=causal, window=window).numpy()
+        - np.asarray(want)).max()) > 1e-3
+    logits = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q), jnp.repeat(
+        jnp.asarray(k), H // Hkv, axis=1)) / np.sqrt(dh)
+    logits = softcap * jnp.tanh(logits / softcap) + jlayers.\
+        attention_scores_mask(S, S, window, causal)
+    lse = ref.attention_lse(tq, tk, causal=causal, window=window,
+                            softcap=softcap)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(
+        jax.nn.logsumexp(logits, axis=-1)), rtol=1e-5, atol=1e-5)
+    got = ref.flash_attention_bwd(tq, tk, tv, out, torch.from_numpy(g), lse,
+                                  causal=causal, window=window,
+                                  softcap=softcap)
+    scale = max(float(np.abs(np.asarray(d)).max()) for d in dwant)
+    for a, b in zip(got, dwant):
+        np.testing.assert_allclose(a.numpy() / scale, np.asarray(b) / scale,
+                                   rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("softcap", SOFTCAPS)
+def test_softcapped_attention_grad_on_cpu_matches_jax(softcap):
+    """``ops.flash_attention`` with a cap on the CPU under autograd (the
+    plain version) against ``jax.vjp`` of the reference's attention: the
+    gradients within 1e-4 of the largest; no backward kernel runs."""
+    rng = np.random.default_rng(int(softcap))
+    q, k, v = _qkv(rng, 1, 6, 2, 40, 16)
+    q = q * LOGIT_SCALE
+    g = rng.standard_normal(q.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: _jax_attention(a, b, c, True, 0, softcap),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    leaves = [t.requires_grad_() for t in _torch((q, k, v), torch.float32)]
+    ops.reset_launch_counts()
+    got = torch.autograd.grad(ops.flash_attention(*leaves, causal=True,
+                                                  softcap=softcap),
+                              leaves, torch.from_numpy(g))
+    assert ops.launch_counts()["flash_attention_bwd"] == 0
+    scale = max(float(np.abs(np.asarray(d)).max()) for d in want)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy() / scale, np.asarray(b) / scale,
+                                   rtol=0, atol=1e-4)
+
+
+def test_softcap_must_not_be_negative():
+    """A negative cap is refused before any launch (0 is none)."""
+    q = torch.zeros(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="softcap"):
+        tfa._softcap(-1.0)
+    with pytest.raises(ValueError, match="softcap"):
+        tfa.flash_attention_cuda(q, q, q, True, softcap=-1.0)
+
+
+# -- the Hopper backward on the card ---------------------------------------------
+
+TRAIN_SHAPE = (2, 24, 8, 4096, 128)   # Phi-4-mini-3.8B's attention, batch 2
+
+
+def _bwd_inputs(rng, B, H, Hkv, S, dh, device, scale=1.0):
+    q, k, v = _qkv(rng, B, H, Hkv, S, dh)
+    do = rng.standard_normal(q.shape).astype(np.float32)
+    return _torch((q * scale, k, v, do), torch.bfloat16, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("S", [65, 300])
+@pytest.mark.parametrize("window", [0, 1, 17, 4096])
+@pytest.mark.parametrize("group", [1, 3, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [64, 80, 128])
+def test_flash_bwd_hopper_matches_plain(cuda_device, dh, causal, group,
+                                        window, S, softcap):
+    """The Hopper backward (bf16 at dh 64 and 128; 80 padded to 128) from
+    the forward kernel's output and log-sum-exp, against
+    ``ref.flash_attention_bwd``: within BWD_TOL of the largest gradient,
+    one launch; q scaled so the capped logits bend."""
+    rng = np.random.default_rng(dh + 7 * group + window + S + int(softcap))
+    q, k, v, do = _bwd_inputs(rng, 1, 2 * group, 2, S, dh, cuda_device, 4.0)
+    o, lse = tfa.flash_attention_cuda(q, k, v, causal, window, with_lse=True,
+                                      softcap=softcap)
+    ops.reset_launch_counts()
+    got = tfa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal, window,
+                                       softcap)
+    assert ops.launch_counts()["flash_attention_bwd"] == 1
+    want = ref.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                   window=window, softcap=softcap)
+    assert all(bool(g.isfinite().all()) for g in got)
+    assert _grad_err(got, want) <= BWD_TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh,causal", [(64, False), (128, True)])
+def test_flash_bwd_hopper_strided_views(cuda_device, dh, causal):
+    """The model's call: q, k, v, o and dO as [B,S,H,dh] activations read
+    as [B,H,S,dh] views. The tensor maps read them as they are (no copy)
+    and the gradients come back in the same layouts, equal to the call on
+    contiguous copies."""
+    rng = np.random.default_rng(dh)
+    q, k, v, do = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in _bwd_inputs(rng, 2, 6, 2, 200, dh, cuda_device))
+    o, lse = tfa.flash_attention_cuda(q, k, v, causal, with_lse=True)
+    assert all(tfa._tma_view(t) is t for t in (q, k, v, o, do))
+    got = tfa.flash_attention_bwd_cuda(q, k, v, o, do, lse, causal)
+    assert [g.stride() for g in got] == [t.stride() for t in (q, k, v)]
+    assert not got[0].is_contiguous()
+    want = tfa.flash_attention_bwd_cuda(
+        *(t.contiguous() for t in (q, k, v, o, do)), lse, causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_hopper_bit_equal_at_the_training_shape(cuda_device):
+    """Two calls at Phi-4-mini's training shape give the same bits (dQ is
+    summed over key tiles in a fixed order), within BWD_TOL of the plain
+    version."""
+    B, H, Hkv, S, dh = TRAIN_SHAPE
+    q, k, v, do = _bwd_inputs(np.random.default_rng(0), B, H, Hkv, S, dh,
+                              cuda_device)
+    o, lse = tfa.flash_attention_cuda(q, k, v, True, with_lse=True)
+    a = tfa.flash_attention_bwd_cuda(q, k, v, o, do, lse, True)
+    b = tfa.flash_attention_bwd_cuda(q, k, v, o, do, lse, True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert _grad_err(a, ref.flash_attention_bwd(q, k, v, o, do, lse,
+                                                causal=True)) <= BWD_TOL[
+        "bfloat16"]
+
+
+@pytest.mark.cuda
+def test_flash_bwd_hopper_refuses_other_cards(cuda_device, monkeypatch):
+    """The Hopper backward raises on a card that is not sm_90; it never
+    runs another design instead."""
+    q, k, v, do = _bwd_inputs(np.random.default_rng(1), 1, 2, 2, 64, 64,
+                              cuda_device)
+    o, lse = tfa.flash_attention_cuda(q, k, v, True, with_lse=True)
+    monkeypatch.setattr(tfa, "_card", lambda index: ((8, 0), "A100"))
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="sm_90"):
+        tfa.flash_attention_bwd_cuda(q, k, v, o, do, lse, True)
+    assert ops.launch_counts()["flash_attention_bwd"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dh", [("float32", 64), ("bfloat16", 32),
+                                      ("float32", 128)])
+def test_flash_kernels_softcap_match_plain_on_card(cuda_device, dtype, dh):
+    """The forward's mma.sync and fp32 designs and the backward's fp32 and
+    mma.sync ones with a cap of 5 (unit-normal inputs: logits of a few
+    units, which the cap bends by up to about a fifth, the softmax kept
+    smooth)
+    against the plain versions: the output within the dtype's tolerance,
+    the log-sum-exp within 1e-3, the gradients within BWD_TOL."""
+    _, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(dh)
+    q, k, v = _torch(_qkv(rng, 1, 6, 2, 130, dh), tdt, cuda_device)
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(
+        np.float32)).to(device=cuda_device, dtype=tdt)
+    o, lse = tfa.flash_attention_cuda(q, k, v, True, with_lse=True,
+                                      softcap=5.0)
+    np.testing.assert_allclose(_f32(o), _f32(ref.flash_attention(
+        q, k, v, causal=True, softcap=5.0)), rtol=tol, atol=tol)
+    assert float((lse - ref.attention_lse(q, k, causal=True,
+                                          softcap=5.0)).abs().max()) < 1e-3
+    got = tfa.flash_attention_bwd_cuda(q, k, v, o, do, lse, True, 0, 5.0)
+    want = ref.flash_attention_bwd(q, k, v, o, do, lse, causal=True,
+                                   softcap=5.0)
+    assert _grad_err(got, want) <= BWD_TOL[dtype]

@@ -227,6 +227,26 @@ def test_engine_from_jax_gives_the_jax_engines_tokens(jllm, jref, slots,
         jeng.n_steps, jeng.n_prefill_chunks, jeng.n_decode_steps)
 
 
+def test_softcapped_engine_gives_the_jax_engines_tokens():
+    """A config with ``attn_logit_softcap = 50`` (Gemma 2's,
+    arXiv:2408.00118): the engine carried across by
+    ``convert.engine_from_jax`` prefills in chunks (``cached_attention_chunk``
+    with the capped scores) and decodes to the JAX engine's tokens, by the
+    near-tie rule."""
+    jllm = JModelLLM(JCFG.replace(attn_logit_softcap=50.0), max_prompt=48,
+                     max_new=5, batch_size=2, seed=0)
+    jeng = jengine_from_model_llm(jllm, slots=2, chunk_tokens=8,
+                                  prefill_chunks_per_step=1, admission="fcfs")
+    teng = convert.engine_from_jax(jeng, device="cpu")
+    assert teng.cfg.attn_logit_softcap == 50.0
+    texts = [build_prompt(p, []) for p in PROMPTS]
+    want = _ids(jeng.run(texts))
+    got = _ids(teng.run(texts))
+    cmp = compare_tokens(want, got, _jax_gaps(jllm, want), TOKEN_TOL)
+    assert cmp["violations"] == 0, (cmp, want, got)
+    assert teng.n_prefill_chunks == jeng.n_prefill_chunks > len(PROMPTS)
+
+
 @pytest.mark.parametrize("slots,chunk,budget,admission", SETTINGS)
 def test_engine_gives_the_lockstep_tokens(tllm, slots, chunk, budget,
                                           admission):

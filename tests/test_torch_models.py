@@ -62,9 +62,9 @@ def _close(got, want, tol):
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
 
 
-def _pair(arch, dtype):
-    jcfg = jconfigs.get_smoke(arch).replace(dtype=dtype)
-    tcfg = tconfigs.get_smoke(arch).replace(dtype=dtype)
+def _pair(arch, dtype, **kw):
+    jcfg = jconfigs.get_smoke(arch).replace(dtype=dtype, **kw)
+    tcfg = tconfigs.get_smoke(arch).replace(dtype=dtype, **kw)
     params = JT.init(jax.random.PRNGKey(0), jcfg)
     return jcfg, params, convert.transformer_from_jax(_np_tree(params), tcfg,
                                                       "cpu")
@@ -289,15 +289,69 @@ def test_every_family_is_ported(arch):
         api.get_model(cfg.replace(family="retnet"))
 
 
-@pytest.mark.parametrize("field,value", [("attn_logit_softcap", 30.0)])
-def test_windowed_or_softcapped_attention_raises(field, value):
-    """Soft-capped logits raise (no config of the zoo sets them); a window
-    runs, through the kernel (tests/test_torch_zoo.py)."""
-    cfg = tconfigs.get_smoke("llama3_8b").replace(**{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        transformer.Transformer(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        layers.require_full_attention(cfg)
+SOFTCAP = 50.0   # Gemma 2's attention logit cap (arXiv:2408.00118)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_softcapped_transformer_matches_jax(dtype):
+    """A dense SMOKE config with ``attn_logit_softcap = 50`` serves as the
+    reference does: forward, prefill with per-row lengths and 8 decode
+    steps (the cached step's capped scores) within TOL, every step fed the
+    reference's greedy token; the same config without the cap differs
+    from it by more than fp32's tolerance."""
+    jcfg, params, model = _pair("llama3_8b", dtype,
+                                attn_logit_softcap=SOFTCAP)
+    tol = TOL[dtype]
+    lengths = np.array([24, 17, 9], np.int32)
+    tok = _tokens(np.random.default_rng(5), lengths, 24, jcfg.vocab_size)
+    jlog, _ = JT.forward(params, jcfg, {"tokens": jnp.asarray(tok)})
+    with torch.no_grad():
+        _close(model(torch.from_numpy(tok)), jlog, tol)
+        if dtype == "float32":
+            plain = convert.transformer_from_jax(
+                _np_tree(params), model.cfg.replace(attn_logit_softcap=0.0),
+                "cpu")
+            assert float(np.abs(_f32(plain(torch.from_numpy(tok)))
+                                - _f32(jlog)).max()) > tol
+        jcache = JT.init_cache(jcfg, 3, 40)
+        jl, jcache = JT.prefill(params, jcfg, {"tokens": jnp.asarray(tok)},
+                                jcache, lengths=jnp.asarray(lengths))
+        cache = model.init_cache(3, 40)
+        tl, cache = model.prefill(torch.from_numpy(tok), cache,
+                                  lengths=torch.from_numpy(lengths))
+        _close(tl, jl, tol)
+        for _ in range(8):
+            nxt = np.array(jnp.argmax(jl, -1), np.int32)[:, None]
+            jl, jcache = JT.decode_step(params, jcfg,
+                                        {"tokens": jnp.asarray(nxt)}, jcache)
+            tl, cache = model.decode_step(torch.from_numpy(nxt), cache)
+            _close(tl, jl, tol)
+        _close(cache["k"], jcache["k"], tol)
+        assert cache["pos"].tolist() == (lengths + 8).tolist()
+
+
+def test_softcapped_cross_attention_matches_jax():
+    """Cross attention (``multihead_attention`` with ``kv_x``, unmasked as
+    Whisper's decoder calls it) caps its scores as the reference's does,
+    fp32, within TOL."""
+    from repro.models import layers as JL
+    jcfg = jconfigs.get_smoke("llama3_8b").replace(
+        dtype="float32", attn_logit_softcap=5.0)
+    cfg = tconfigs.get_smoke("llama3_8b").replace(
+        dtype="float32", attn_logit_softcap=5.0)
+    rng = np.random.default_rng(11)
+    params = {k: rng.standard_normal(s).astype(np.float32) * 0.5
+              for k, s in layers.attn_shapes(cfg).items()}
+    x = rng.standard_normal((2, 7, cfg.d_model)).astype(np.float32)
+    kv = rng.standard_normal((2, 12, cfg.d_model)).astype(np.float32)
+    want = JL.multihead_attention({k: jnp.asarray(v) for k, v in
+                                   params.items()}, jnp.asarray(x), None,
+                                  jcfg, causal=False, kv_x=jnp.asarray(kv))
+    got = layers.multihead_attention(
+        {k: torch.from_numpy(v) for k, v in params.items()},
+        torch.from_numpy(x), None, cfg, causal=False,
+        kv_x=torch.from_numpy(kv))
+    _close(got, want, TOL["float32"])
 
 
 def test_model_llm_factory_takes_device():

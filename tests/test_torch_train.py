@@ -76,7 +76,18 @@ def test_loss_and_grads_match_jax(arch):
     """Per family: the port's loss and every parameter's gradient equal
     ``jax.value_and_grad`` of the reference's ``loss_fn`` from the same
     parameters and batch."""
-    jcfg, cfg = _smoke(arch)
+    _check_loss_and_grads(*_smoke(arch))
+
+
+def test_softcapped_loss_and_grads_match_jax():
+    """A dense SMOKE config with ``attn_logit_softcap = 50`` (Gemma 2's,
+    arXiv:2408.00118) trains as the reference does: the loss and every
+    gradient of ``loss_fn`` against ``jax.value_and_grad`` (LOSS_REL,
+    GRAD_TOL), the attention's gradient through the cap's derivative."""
+    _check_loss_and_grads(*_smoke("llama3_8b", attn_logit_softcap=50.0))
+
+
+def _check_loss_and_grads(jcfg, cfg):
     jm = japi.get_model(jcfg)
     params = jm.init(jax.random.PRNGKey(0), jcfg)
     batch = _batch(jcfg)

@@ -375,9 +375,9 @@ def _spy(monkeypatch):
     calls = []
     real = ops.flash_attention
 
-    def spy(q, k, v, *, causal, window=0):
+    def spy(q, k, v, *, causal, window=0, softcap=0.0):
         calls.append((tuple(q.shape), tuple(k.shape), causal, window))
-        return real(q, k, v, causal=causal, window=window)
+        return real(q, k, v, causal=causal, window=window, softcap=softcap)
 
     monkeypatch.setattr(ops, "flash_attention", spy)
     return calls
