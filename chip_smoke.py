@@ -158,7 +158,26 @@ Phases, each of which raises on failure and prints its wall seconds:
    of its entries that changed, and the parameters' relative change,
    printed); then ``repro_torch.launch.train`` at SMOKE killed after
    its first checkpoint and relaunched, ending bit for bit where an
-   uninterrupted run ends.
+   uninterrupted run ends;
+17. mesh (after phase 16): four processes on the one card, one rank each
+   of a gloo process group (``distributed.spawn``; NCCL refuses two ranks
+   on one card). First each gloo collective once on CUDA tensors, printed
+   as found. (a) The deployment rows (1,048,576 x 384 fp32, capacity
+   1,114,112, 32,768 fresh rows, 1 % of documents removed) in a flat
+   4-shard DB on mesh (data 4, model 1), held by every rank (host-side
+   stores; rank r's card holds shard r for the scan): 20 batches of 64
+   queries at k 16 through ``search()`` on the mesh path, equal to the
+   host-side merge of the same DB on the card and to the exact top-k,
+   ``mesh_searches`` 20 and ``topk_search`` launched on every rank, both
+   paths' ``search()`` ms. (b) The llama3 SMOKE train step on (data 2,
+   model 2) in fp32 and bf16 against the unsharded step on one rank
+   (MESH_TOL), the attention kernels launched on every rank. (c)
+   Phi-4-mini-3.8B at full width on (data 1, model 4), bf16, batch 2 x
+   4,096 (halved if four ranks do not fit): one warm and 2 timed steps,
+   each rank's peak memory and parameter bytes (against the specs' shard
+   sizes), the step-1 loss against phase 16's unsharded one, each rank's
+   attention kernel launches. (d) ``launch.train --arch llama3_8b --smoke
+   --steps 3`` under the host mesh (NCCL, a group of one).
 
 The last lines are one JSON object on the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a card, or run
@@ -3821,6 +3840,477 @@ def phase_train(torch, ops):
     return rec
 
 
+# -- phase 17: the mesh ---------------------------------------------------------
+
+MESH_RANKS = 4             # processes on the one card, joined over gloo
+MESH_STEP_B, MESH_STEP_S = 4, 64     # the SMOKE step's global batch
+# the sharded step against the unsharded one on the same card: relative
+# loss and grad_norm, and the parameters after the step as max|d| over
+# every leaf / max|p|. fp32 sums in another order (TF32 off); bf16 rounds
+# each partial sum
+MESH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+MESH_TRAIN_STEPS = 2       # timed full-width sharded steps, after one warm
+# the gloo collectives probed on CUDA tensors (4 ranks on the one card)
+GLOO_PROBE = ("all_reduce", "broadcast", "all_gather",
+              "all_gather_into_tensor", "reduce_scatter_tensor",
+              "all_to_all_single", "funcol all_gather", "funcol all_reduce",
+              "funcol reduce_scatter")
+
+
+def gloo_probe(torch):
+    """Each gloo collective once on CUDA tensors of this rank, its result
+    checked: ``{name: "ok" | the error's first line}``. Every rank raises
+    at the same call when the backend lacks it, so none is left waiting."""
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    dev = torch.device(DEVICE)
+    x = torch.arange(8 * n, dtype=torch.float32, device=dev).view(
+        2 * n, 4) + 100 * r
+    total = sum(torch.arange(8 * n, dtype=torch.float32, device=dev).view(
+        2 * n, 4) + 100 * i for i in range(n))
+
+    def run(name):
+        import torch.distributed._functional_collectives as funcol
+
+        group = dist.group.WORLD
+        if name == "funcol all_gather":
+            gather = getattr(funcol, "all_gather_single", None) or \
+                funcol.all_gather_tensor
+            out = funcol.wait_tensor(gather(x, 0, group))
+            return torch.equal(out.view(n, 2 * n, 4)[n - 1],
+                               x - 100 * r + 100 * (n - 1))
+        if name == "funcol all_reduce":
+            return torch.equal(funcol.wait_tensor(
+                funcol.all_reduce(x, "sum", group)), total)
+        if name == "funcol reduce_scatter":
+            out = funcol.wait_tensor(funcol.reduce_scatter_tensor(
+                x, "sum", 0, group))
+            return torch.equal(out, total[2 * r:2 * r + 2])
+        if name == "all_reduce":
+            t = x.clone()
+            dist.all_reduce(t)
+            return torch.equal(t, total)
+        if name == "broadcast":
+            t = x.clone()
+            dist.broadcast(t, 0)
+            return torch.equal(t, x - 100 * r)
+        if name == "all_gather":
+            out = [torch.empty_like(x) for _ in range(n)]
+            dist.all_gather(out, x)
+            return all(torch.equal(o, x - 100 * r + 100 * i)
+                       for i, o in enumerate(out))
+        if name == "all_gather_into_tensor":
+            out = torch.empty((n * 2 * n, 4), device=dev)
+            dist.all_gather_into_tensor(out, x)
+            return torch.equal(out.view(n, 2 * n, 4)[n - 1],
+                               x - 100 * r + 100 * (n - 1))
+        if name == "reduce_scatter_tensor":
+            out = torch.empty((2, 4), device=dev)
+            dist.reduce_scatter_tensor(out, x)
+            return torch.equal(out, total[2 * r:2 * r + 2])
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)
+        return torch.equal(out[2 * (n - 1):], (x - 100 * r + 100 * (n - 1))[
+            2 * r:2 * r + 2])
+
+    found = {}
+    for name in GLOO_PROBE:
+        try:
+            ok = run(name)
+            torch.cuda.synchronize()
+            found[name] = "ok" if ok else "wrong result"
+        except (RuntimeError, ValueError, NotImplementedError) as exc:
+            found[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0]}"
+        dist.barrier()
+    return found
+
+
+def mesh_db(torch, rank):
+    """(a): the deployment rows in a flat 4-shard DB held by every rank
+    (host-side stores; rank r's card holds shard r's rows for the mesh
+    scan) on mesh (data 4, model 1): 20 batches through ``search()`` on
+    the mesh path; rank 0 also fills the same DB on the card (the
+    ``fused`` rung: each shard's ``topk_search``) and searches it by the
+    host-side merge, and holds both against the exact top-k."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import sharding_rules
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.parity import compare_topk
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharded import ShardedDBConfig, ShardedVectorDB
+
+    mesh = make_mesh((MESH_RANKS, 1), ("data", "model"), "cuda", "gloo")
+    data = make_rows(torch)
+    cfg = ShardedDBConfig(
+        n_shards=MESH_RANKS, index_type="flat", quant="none", dim=DIM,
+        capacity=DB_CAPACITY, flat_capacity=FLAT_CAPACITY,
+        corpus_axes=("data",))
+    db = ShardedVectorDB(cfg, device="cpu")
+    ids, fill = fill_db(torch, db, data)
+    if rank == 0:
+        say(f"mesh DB (a): filled in {fill['insert_s'] + fill['build_s']:.1f}"
+            f" s; searching")
+    ops.reset_launch_counts()
+    times, mesh_res = [], []
+    with sharding_rules(mesh):
+        for q in data["batches"]:
+            t0 = time.perf_counter()
+            res = db.search(q.cpu().numpy(), K)
+            times.append(1e3 * (time.perf_counter() - t0))
+            mesh_res.append(res)
+    launches = ops.launch_counts()["topk_search"]
+    if rank == 0:
+        say("mesh DB (a): 20 batches searched; the host-side merge next")
+    out = dict(launches=launches, mesh_searches=db.counters["mesh_searches"],
+               mesh_ms=times, insert_s=fill["insert_s"],
+               removed=fill["removed"],
+               card_mib=torch.cuda.memory_allocated() / 2**20)
+    if rank == 0:
+        dev = torch.device(DEVICE)
+        # the same DB on the card, its shards scanned by the same kernel
+        host = ShardedVectorDB(dataclasses.replace(cfg, use_kernel="fused"),
+                               device=DEVICE)
+        fill_db(torch, host, data)
+        host_res, host_ms = search_all(torch, host, data["batches"])
+        live = live_rows(torch, data)
+        worst = 0.0
+        for (hs, hi), res, q in zip(host_res, mesh_res, data["batches"]):
+            ms_ = torch.from_numpy(np.stack([r.scores for r in res])).to(dev)
+            mi = torch.from_numpy(np.stack([r.chunk_ids for r in res])).to(dev)
+            got = check("mesh DB", compare_topk(hs, hi, ms_, mi),
+                        "the host-side merge")
+            worst = max(worst, got["max_abs_diff"])
+            es, ei = exact_topk(torch, ref, data, live, ids, q)
+            check("mesh DB", compare_topk(es, ei, ms_, mi), "exact top-k")
+        out.update(host_ms=host_ms, max_abs_diff=worst)
+        del host
+    dist.barrier()
+    return out
+
+
+def mesh_step(torch, rank):
+    """(b): the llama3 SMOKE train step on mesh (data 2, model 2) in fp32
+    and bf16, against the unsharded step on rank 0, same weights (seed
+    0) and batch; each rank's attention kernels counted."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.distributed import partition as pt
+    from repro_torch.distributed.sharding import sharding_rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step)
+
+    mesh = make_mesh((2, 2), ("data", "model"), "cuda", "gloo")
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = configs.get_smoke("llama3_8b").replace(dtype=dtype)
+        tcfg = TrainConfig()
+        b = synthetic_batch(DataConfig(seq_len=MESH_STEP_S,
+                                       global_batch=MESH_STEP_B),
+                            cfg.vocab_size, 0)
+        batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}
+        step = make_train_step(cfg, tcfg)
+        with sharding_rules(mesh):
+            state = init_train_state(0, cfg, tcfg, DEVICE, mesh)
+            placed = pt.distribute(batch, pt.batch_specs(
+                batch, mesh, MESH_STEP_B), mesh)
+            ops.reset_launch_counts()
+            state, m = step(state, placed)
+            launches = ops.launch_counts()
+            full = {n: p.full_tensor().detach()
+                    for n, p in state["params"].items()}
+        rec = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   launches={k: launches[k] for k in
+                             ("flash_attention", "flash_attention_bwd")})
+        if rank == 0:
+            plain = init_train_state(0, cfg, tcfg, DEVICE)
+            plain, pm = step(plain, batch)
+            rec["plain_loss"] = float(pm["loss"])
+            rec["plain_grad_norm"] = float(pm["grad_norm"])
+            diffs = [(full[n].float() - p.detach().float()).abs()
+                     for n, p in plain["params"].items()]
+            # max|d| over every leaf against the largest parameter (a
+            # zero-initialised norm moves by about the lr in its first
+            # step, so a leaf's own scale would be the lr)
+            rec["param_rel"] = max(float(d.max()) for d in diffs) / max(
+                float(p.detach().float().abs().max())
+                for p in plain["params"].values())
+            rec["share_differing"] = sum(int((d > 0).sum()) for d in diffs
+                                         ) / sum(d.numel() for d in diffs)
+            tol = MESH_TOL[dtype]
+            for key in ("loss", "grad_norm"):
+                want = rec[f"plain_{key}"]
+                if abs(rec[key] - want) > tol * abs(want):
+                    raise AssertionError(f"mesh step {dtype}: {key} "
+                                         f"{rec[key]} sharded, {want} not")
+            if rec["param_rel"] > tol:
+                raise AssertionError(f"mesh step {dtype}: parameters after "
+                                     f"the step differ by {rec['param_rel']}")
+        out[dtype] = rec
+        dist.barrier()
+    return out
+
+
+def mesh_probe_db_step(rank):
+    """One rank of the first mesh run: the gloo probe, (a) and (b)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"probe": gloo_probe(torch)}
+    if rank == 0:   # printed now: later parts may depend on it
+        say("mesh: gloo on CUDA tensors, 4 ranks on one card: " + ", ".join(
+            f"{k} {v}" for k, v in out["probe"].items())
+            + " (the functional all-gather through distributed.spawn's "
+              "route: gloo's coalesced all-gather reads CUDA memory from "
+              "the host and crashed the ranks, PERF.md §6, PR 23)")
+    out["db"] = mesh_db(torch, rank)
+    out["step"] = mesh_step(torch, rank)
+    return out
+
+
+def mesh_full(rank, batch_size):
+    """(c): Phi-4-mini-3.8B at full width on mesh (data 1, model 4), bf16,
+    remat full, batch ``batch_size`` x TRAIN_SEQ (phase 16's seed, data
+    and lr): one warm step and MESH_TRAIN_STEPS timed (CUDA events), this
+    rank's peak memory, its parameter bytes against the specs' shard
+    sizes, and its attention kernels' launches."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.distributed import partition as pt
+    from repro_torch.distributed.sharding import sharding_rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((1, MESH_RANKS), ("data", "model"), "cuda", "gloo")
+    cfg = configs.get_config(TRAIN_ARCH)
+    tcfg = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                       total_steps=1000))
+    B, S = batch_size, TRAIN_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    with sharding_rules(mesh):
+        t0 = time.perf_counter()
+        # one rank at a time: each draws the whole model (8.9 GB) before it
+        # keeps its shards, and four whole copies at once would crowd the
+        # card the four ranks share
+        for r in range(MESH_RANKS):
+            if rank == r:
+                state = init_train_state(0, cfg, tcfg, DEVICE, mesh)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        init_s = time.perf_counter() - t0
+        specs = pt.param_specs(state["params"], mesh, cfg)
+        shard_bytes = 0
+        for n, p in state["params"].items():
+            shape = list(p.shape)
+            for d, entry in enumerate(specs[n]):
+                if entry is not None:
+                    shape[d] //= MESH_RANKS
+            numel = 1
+            for s in shape:
+                numel *= s
+            shard_bytes += numel * p.element_size()
+        param_bytes = sum(p.to_local().numel() * p.to_local().element_size()
+                          for p in state["params"].values())
+        data = synthetic_batch(DataConfig(seq_len=S, global_batch=B),
+                               cfg.vocab_size, 0)
+        batch = pt.distribute(
+            {k: torch.from_numpy(v).to(DEVICE) for k, v in data.items()},
+            pt.batch_specs(data, mesh, B), mesh)
+        step = make_train_step(cfg, tcfg)
+        ops.reset_launch_counts()
+        state, m = step(state, batch)                  # warm-up
+        losses = [float(m["loss"])]
+        times = []
+        for _ in range(MESH_TRAIN_STEPS):
+            dist.barrier()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            state, m = step(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            times.append((start.elapsed_time(end),
+                          1e3 * (time.perf_counter() - t0)))
+            losses.append(float(m["loss"]))
+        launches = ops.launch_counts()
+    return dict(batch=B, seq=S, init_s=init_s, step_ms=times, losses=losses,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                param_bytes=param_bytes, spec_bytes=shard_bytes,
+                launches={k: launches[k] for k in
+                          ("flash_attention", "flash_attention_bwd")})
+
+
+def unsharded_step_loss(torch, batch_size):
+    """Phase 16's first step of Phi-4-mini (seed 0, its data and lr) at
+    ``batch_size`` x TRAIN_SEQ on the card, unsharded: its loss."""
+    import gc
+
+    from repro_torch import configs
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step)
+
+    cfg = configs.get_config(TRAIN_ARCH)
+    tcfg = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                       total_steps=1000))
+    state = init_train_state(0, cfg, tcfg, DEVICE)
+    data = synthetic_batch(DataConfig(seq_len=TRAIN_SEQ,
+                                      global_batch=batch_size),
+                           cfg.vocab_size, 0)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.items()}
+    loss = float(make_train_step(cfg, tcfg)(state, batch)[1]["loss"])
+    del state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss
+
+
+def mesh_host_train(torch):
+    """(d): ``launch.train`` at SMOKE under ``make_host_mesh()`` (NCCL, a
+    group of one), 3 steps on the card."""
+    import os
+    import shutil
+
+    ckpt = ROOT / "build" / "mesh_host_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "llama3_8b", "--smoke", "--steps", "3", "--log-every", "1",
+         "--ckpt-dir", str(ckpt)], env=env, capture_output=True, text=True,
+        check=True, timeout=300).stdout
+    lines = out.strip().splitlines()
+    if not lines[-1].startswith("trained 3 steps in "):
+        raise AssertionError(f"mesh host train: {out}")
+    return lines[-1]
+
+
+def phase_mesh(torch, ops, unsharded_loss):
+    """Phase 17 (module docstring): four ranks on the one card over gloo;
+    returns each kernel's launches on the mesh paths (summed over the
+    ranks). ``unsharded_loss`` is ``{batch: phase 16's step-1 loss}``
+    (``None`` runs the phase alone, printing (c)'s loss unchecked)."""
+    from repro_torch.distributed.spawn import run_ranks
+
+    store = ROOT / "build" / "mesh_store"
+    t0 = time.perf_counter()
+    first = run_ranks(mesh_probe_db_step, MESH_RANKS, store_dir=str(store),
+                      cuda_device=0, timeout=900)
+    db = [r["db"] for r in first]
+    if any(d["mesh_searches"] != 20 or d["launches"] < 20 for d in db):
+        raise AssertionError(f"mesh DB: searches and launches "
+                             f"{[(d['mesh_searches'], d['launches']) for d in db]}")
+    med = sorted(sorted(d["mesh_ms"])[10] for d in db)
+    say(f"mesh DB (a): {N} + {N_FRESH} rows x {DIM} fp32, flat, 4 shards on "
+        f"mesh (data 4, model 1), {db[0]['removed']} rows removed; 20 "
+        f"batches of {NQ} queries at k {K} through the mesh path equal the "
+        f"host-side merge and the exact top-k (max|d| "
+        f"{db[0]['max_abs_diff']:.3g}); mesh_searches "
+        f"{[d['mesh_searches'] for d in db]}, topk_search launches by rank "
+        f"{[d['launches'] for d in db]}; search() ms, gloo on one card "
+        f"(4 processes): median by rank {[round(m, 3) for m in med]}, first "
+        f"{[round(d['mesh_ms'][0], 1) for d in db]}; host-side merge on the "
+        f"card (one process) {db[0]['host_ms']:.3f} ms; each rank's card "
+        f"memory {[round(d['card_mib']) for d in db]} MiB")
+    step = [r["step"] for r in first]
+    for dtype, rec in step[0].items():
+        say(f"mesh step (b) {dtype}: llama3 SMOKE on (data 2, model 2), "
+            f"batch {MESH_STEP_B} x {MESH_STEP_S}: loss {rec['loss']:.6f} "
+            f"against {rec['plain_loss']:.6f} unsharded, grad_norm "
+            f"{rec['grad_norm']:.6f} against {rec['plain_grad_norm']:.6f}, "
+            f"parameters max|d|/max|p| {rec['param_rel']:.3g} (limit "
+            f"{MESH_TOL[dtype]}), {100 * rec['share_differing']:.3g} % of "
+            f"their entries differing; launches by rank "
+            f"{[r[dtype]['launches'] for r in step]}")
+        for r in step:
+            if min(r[dtype]["launches"].values()) == 0:
+                raise AssertionError(f"mesh step: launches {r[dtype]}")
+    t_first = time.perf_counter() - t0
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    say(f"mesh full (c): before it, this process holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved); the card "
+        f"has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
+    # the four ranks' caching allocators share one card: segments that
+    # grow in place keep each one's reserve near what it holds (read by
+    # each rank as its CUDA starts; this process's allocator is set)
+    import os
+
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        full = run_ranks(mesh_full, MESH_RANKS, TRAIN_BATCH,
+                         store_dir=str(store), cuda_device=0, timeout=600)
+    except RuntimeError as exc:
+        if "OutOfMemoryError" not in str(exc):
+            raise
+        say(f"mesh full (c): batch {TRAIN_BATCH} does not fit four ranks "
+            f"on one card; halving it")
+        full = run_ranks(mesh_full, MESH_RANKS, TRAIN_BATCH // 2,
+                         store_dir=str(store), cuda_device=0, timeout=600)
+    finally:
+        del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+    rec = full[0]
+    if unsharded_loss is not None and rec["batch"] not in unsharded_loss:
+        # phase 16 ran another batch: the unsharded step here, alone
+        unsharded_loss[rec["batch"]] = unsharded_step_loss(torch,
+                                                           rec["batch"])
+    want = (unsharded_loss or {}).get(rec["batch"])
+    rel = (abs(rec["losses"][0] - want) / abs(want) if want is not None
+           else float("nan"))
+    step_ms = [max(r["step_ms"][i][0] for r in full)
+               for i in range(MESH_TRAIN_STEPS)]
+    say(f"mesh full (c): {TRAIN_ARCH} bf16 on (data 1, model 4), batch "
+        f"{rec['batch']} x {rec['seq']}, gloo on one card: step ms (CUDA "
+        f"events, slowest rank) {[round(t, 1) for t in step_ms]}, host "
+        f"{[round(max(r['step_ms'][i][1] for r in full), 1) for i in range(MESH_TRAIN_STEPS)]}; "
+        f"init {rec['init_s']:.1f} s; peak GiB by rank "
+        f"{[round(r['peak_gib'], 2) for r in full]}; parameter bytes by rank "
+        f"{[r['param_bytes'] for r in full]} against the specs' "
+        f"{rec['spec_bytes']}; losses {[round(x, 4) for x in rec['losses']]}"
+        f", step 1 against phase 16's unsharded {want} (relative "
+        f"{rel:.3g}, limit {MESH_TOL['bfloat16']}); launches by rank "
+        f"{[r['launches'] for r in full]}")
+    if any(r["param_bytes"] != r["spec_bytes"] for r in full):
+        raise AssertionError("mesh full: parameter bytes off the specs")
+    if want is not None and not rel <= MESH_TOL["bfloat16"]:
+        raise AssertionError(f"mesh full: step-1 loss {rec['losses'][0]} "
+                             f"against {want}")
+    if any(min(r["launches"].values()) == 0 for r in full):
+        raise AssertionError("mesh full: an attention kernel not launched")
+    t_host = time.perf_counter()
+    say(f"mesh host (d): {mesh_host_train(torch)}")
+    say(f"mesh: wall s: probe + (a) + (b) {t_first:.1f}, (c) "
+        f"{t_host - t0 - t_first:.1f}, (d) {time.perf_counter() - t_host:.1f}")
+    launches = {"topk_search": sum(d["launches"] for d in db)}
+    for k in ("flash_attention", "flash_attention_bwd"):
+        launches[k] = (sum(r[dt]["launches"][k] for r in step for dt in r)
+                       + sum(r["launches"][k] for r in full))
+    return launches, dict(probe=first[0]["probe"], db=db, step=step,
+                          full=full, step_ms=step_ms, loss_rel=rel)
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "csrc").is_dir() or H100 is None:
         raise SystemExit("chip_smoke.py runs from the root of a checkout "
@@ -3915,6 +4405,11 @@ def main() -> int:
     t0 = time.perf_counter()
     train = phase_train(torch, ops)
     timings["train"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_launches, _ = phase_mesh(torch, ops,
+                                  {train["batch"]: train["losses"][0]})
+    timings["mesh"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     moe_flash_launches = phase_moe(torch, ops)
     timings["moe"] = time.perf_counter() - t0
@@ -3944,16 +4439,19 @@ def main() -> int:
                                            moe_flash_launches,
                                        **zoo_flash_launches,
                                        f"train_{TRAIN_ARCH}":
-                                           train["launches"][name]}
+                                           train["launches"][name],
+                                       "mesh": mesh_launches[name]}
         elif name == "flash_attention_bwd":
             rec["launches_by_path"] = {
-                f"train_{TRAIN_ARCH}": train["launches"][name]}
+                f"train_{TRAIN_ARCH}": train["launches"][name],
+                "mesh": mesh_launches[name]}
             rec["train"] = {k: v for k, v in train.items()
                             if k not in ("launches", "roofline")}
         else:
             rec["launches_by_path"] = {
                 "dbs": db_launches[name],
-                "sharded": sharded_launches.get(name, 0)}
+                "sharded": sharded_launches.get(name, 0),
+                "mesh": mesh_launches.get(name, 0)}
         rec["launches"] = sum(rec["launches_by_path"].values())
         kernels.append(rec)
     say(json.dumps({"kernels": kernels}))

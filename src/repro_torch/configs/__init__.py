@@ -43,3 +43,15 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke(name: str) -> ModelConfig:
     return _module(name).SMOKE
+
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {n: get_config(n) for n in ARCH_IDS}
+
+
+def supports_shape(cfg: ModelConfig, shape_name: str) -> bool:
+    """long_500k needs a sub-quadratic token path: the recurrent (ssm) and
+    hybrid families, whose decode state does not grow with the history."""
+    if shape_name != "long_500k":
+        return True
+    return cfg.family in ("ssm", "hybrid")

@@ -27,6 +27,12 @@ fixed order) on the callers' strided views, with the gradients in q's, k's
 and v's layouts; the other paths run three passes (D, dK/dV, dQ) on
 contiguous copies. Padded head dims as the forward pads them. Its plain
 version is ``ref.flash_attention_bwd``.
+
+On DTensors (a sharded model, ``distributed``) both operations carry
+DTensor sharding rules (``_register_sharding``): batch rows or heads
+sharded in give the same sharded out, so each rank runs the kernel on its
+local rows or heads; on the CPU the same operations run the plain
+versions.
 """
 from __future__ import annotations
 
@@ -357,3 +363,74 @@ def _backward(ctx, dout, _dlse):
 
 
 flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+# -- the CPU: the plain versions inside the same operations ------------------
+
+
+@flash_attention_op.register_kernel("cpu")
+def _(q, k, v, causal, window, with_lse, softcap=0.0):
+    from repro_torch.kernels import ref
+
+    out = ref.flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap)
+    lse = (ref.attention_lse(q, k, causal=causal, window=window,
+                             softcap=softcap) if with_lse
+           else q.new_empty(0, dtype=torch.float32))
+    return out, lse
+
+
+@flash_attention_bwd_op.register_kernel("cpu")
+def _(q, k, v, o, dout, lse, causal, window, softcap=0.0):
+    from repro_torch.kernels import ref
+
+    return ref.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal,
+                                   window=window, softcap=softcap)
+
+
+# -- DTensor: each rank's kernel on its local batch rows or heads ------------
+
+
+def _heads_split(q, k) -> bool:
+    """Whether every mesh dim that may shard the heads divides both the
+    query and the KV heads: then rank r's query heads read exactly rank
+    r's KV heads (the kernel's ``h // (H // Hkv)``, locally)."""
+    sizes = [s for s in q.mesh.shape if s > 1]
+    H, hkv = q.shape[1], k.shape[1]
+    return all(H % s == 0 and hkv % s == 0 for s in sizes)
+
+
+def _register_sharding() -> None:
+    """DTensor sharding rules of the two operations, one mesh dim at a
+    time: everything replicated; batch rows sharded (dim 0) in and out;
+    heads sharded (dim 1) in and out where the mesh divides both head
+    counts (``ops.flash_attention`` repeats KV heads that the model axis
+    does not divide, so that it does). No rule shards the sequence: the
+    kernels need every key of a row's query."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    R = Replicate()
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _fwd(q, k, v, causal, window, with_lse, softcap=0.0):
+        rules = [([R, R], [R, R, R, None, None, None, None])]
+        lse_b = Shard(0) if with_lse else R
+        rules.append(([Shard(0), lse_b],
+                      [Shard(0)] * 3 + [None] * 4))
+        if _heads_split(q, k):
+            lse_h = Shard(1) if with_lse else R
+            rules.append(([Shard(1), lse_h],
+                          [Shard(1)] * 3 + [None] * 4))
+        return rules
+
+    @register_sharding(torch.ops.repro_torch.flash_attention_bwd.default)
+    def _bwd(q, k, v, o, dout, lse, causal, window, softcap=0.0):
+        rules = [([R] * 3, [R] * 6 + [None] * 3),
+                 ([Shard(0)] * 3, [Shard(0)] * 6 + [None] * 3)]
+        if _heads_split(q, k):
+            rules.append(([Shard(1)] * 3, [Shard(1)] * 6 + [None] * 3))
+        return rules
+
+
+_register_sharding()

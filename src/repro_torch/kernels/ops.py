@@ -12,6 +12,7 @@ and ``reset_launch_counts`` let a caller show that a run went through them.
 """
 from __future__ import annotations
 
+import math
 import threading
 from typing import Dict
 
@@ -97,8 +98,21 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
     log-sum-exp, and the backward kernel for the gradients; otherwise
     (serving) the forward kernel alone. On the CPU the plain version, under
     plain autograd. On ``meta`` tensors the operation's shapes (what
-    ``roofline.op_cost`` counts)."""
+    ``roofline.op_cost`` counts). DTensors (a sharded model) always take
+    the operation, whose sharding rules run it on each rank's local rows
+    or heads (``_kv_for_heads`` repeats KV heads that the model dim does
+    not divide)."""
     dev = _device(q, k, v)
+    from repro_torch.distributed.sharding import is_dtensor
+
+    if is_dtensor(q):
+        # each rank runs the kernel (its plain version on the CPU) on its
+        # local rows or heads, by the operations' sharding rules
+        k, v = _kv_for_heads(q, k, v)
+        grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                            or v.requires_grad)
+        return _fa.flash_attention_op(q, k, v, causal, max(int(window), 0),
+                                      grad, float(softcap))[0]
     if dev == "cpu":
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
@@ -109,6 +123,33 @@ def flash_attention(q, k, v, *, causal: bool, window: int = 0,
                                         softcap=softcap)
     return _fa.flash_attention_op(q, k, v, causal, max(int(window), 0),
                                   grad, float(softcap))[0]
+
+
+def _kv_for_heads(q, k, v):
+    """KV DTensors whose heads split like q's: where q's heads are
+    sharded over mesh dims of total size m that do not divide the KV heads
+    (Llama-3-8B's 8 on a 16-way model dim), KV heads are repeated to
+    ``lcm(Hkv, m)`` (if that divides the query heads), so that each rank's
+    query heads read the KV heads they read unsharded: head ``h`` reads
+    ``h // (H // Hkv)`` either way. The repeat's gradient sums the copies
+    back."""
+    from torch.distributed.tensor import Shard
+
+    m = 1
+    for size, pl in zip(q.device_mesh.shape, q.placements):
+        if pl == Shard(1):
+            m *= size
+    H, hkv = q.shape[1], k.shape[1]
+    if m == 1 or hkv % m == 0:
+        return k, v
+    want = math.lcm(hkv, m)
+    if H % want:
+        return k, v
+    from repro_torch.distributed.sharding import like
+
+    # KV head j of the repeated heads is KV head j // rep: copies adjacent
+    idx = like(torch.arange(want, device=k.device) // (want // hkv), k)
+    return k.index_select(1, idx), v.index_select(1, idx)
 
 
 KERNELS = ("topk_search", "quant_score", "ivf_topk", "sq8_topk", "pq_topk",

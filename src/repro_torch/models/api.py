@@ -41,6 +41,12 @@ def build(cfg: ModelConfig, device=None) -> nn.Module:
     return get_model(cfg).Model(cfg, device=device)
 
 
+def init_cache_shape(cfg: ModelConfig, batch: int, max_len: int):
+    """The family's serving cache for ``batch`` rows of ``max_len`` on
+    ``meta``: the reference's ``init_cache_shape``, leaf for leaf."""
+    return get_model(cfg).init_cache_shape(cfg, batch, max_len)
+
+
 def count_params(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
 

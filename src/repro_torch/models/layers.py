@@ -12,9 +12,13 @@ with or without a sliding window, goes through
 card, its plain version on the CPU); cross attention, the decode step and
 the prefill chunk against the cache are plain torch einsums, as the
 reference computes them outside any Pallas kernel (their queries and keys
-differ in length, which the kernel's contract does not take). The
-reference's ``constrain`` (a sharding hint, a no-op on one device) is
-dropped.
+differ in length, which the kernel's contract does not take).
+
+Under a device mesh the layers take DTensor activations and parameters
+(``distributed.sharding``): the tables they build from positions (RoPE's
+angles, M-RoPE's band selection) become replicated DTensors beside them,
+and the attention kernel runs on each rank's local rows or heads. The
+callers place the reference's ``constrain`` sharding hints.
 
 Training: ``token_cross_entropy`` is the reference's loss; ``lm_loss``
 computes the same mean from the hidden states and the head in row chunks
@@ -23,7 +27,8 @@ never holds a whole ``[B, S, V]`` logits tensor and its gradient);
 ``remat`` maps ``cfg.remat`` (``none | dots | full``) onto
 ``torch.utils.checkpoint`` (non-reentrant; ``dots`` keeps the weight
 matrix products' outputs, the reference's
-``checkpoint_dots_with_no_batch_dims``).
+``checkpoint_dots_with_no_batch_dims``; the recomputation runs under the
+forward's sharding rules).
 """
 from __future__ import annotations
 
@@ -35,10 +40,25 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.distributed.sharding import (active_rules, is_dtensor,
+                                              like, sharding_rules)
 from repro_torch.kernels import ops, ref
 from repro_torch.models.config import ModelConfig
 
 Params = Dict[str, torch.Tensor]
+
+
+def cache_shapes(cache):
+    """A cache of ``meta`` tensors with its host ints (``pos``) as 0-d
+    int32 ``meta`` tensors: the shapes the reference's ``init_cache_shape``
+    gives, leaf for leaf."""
+    if isinstance(cache, dict):
+        return {k: cache_shapes(v) for k, v in cache.items()}
+    if isinstance(cache, (list, tuple)):
+        return type(cache)(cache_shapes(v) for v in cache)
+    if isinstance(cache, int):
+        return torch.empty((), dtype=torch.int32, device="meta")
+    return cache
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5):
@@ -75,7 +95,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     Half-split rotation (not interleaved), angles in fp32, the result cast
     back to ``x.dtype``."""
     half = x.shape[-1] // 2
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    freqs = like(rope_freqs(x.shape[-1], theta, x.device), positions)
     ang = positions[..., None].float() * freqs           # [..., S, half]
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -95,11 +115,11 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
     if sum(sections) != half:
         raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
                          f"half the head dim {half}")
-    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    freqs = like(rope_freqs(x.shape[-1], theta, x.device), positions_3d)
     ang = positions_3d[..., None].float() * freqs        # [3, B, S, half]
     idx = torch.cat([torch.full((n,), i, dtype=torch.long, device=x.device)
                      for i, n in enumerate(sections)])
-    onehot = F.one_hot(idx, 3).float().T                 # [3, half]
+    onehot = like(F.one_hot(idx, 3).float().T, ang)      # [3, half]
     ang = (ang * onehot[:, None, None, :]).sum(0)        # [B, S, half]
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -152,7 +172,53 @@ def attn_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
 
 
 def _split_heads(x: torch.Tensor, n_heads: int, head_dim: int):
+    if is_dtensor(x):
+        x = _whole_heads(x, n_heads)
     return x.reshape(*x.shape[:-1], n_heads, head_dim)
+
+
+class _MergeHeads(torch.autograd.Function):
+    """``[B, S, H, hd] -> [B, S, H * hd]``, whose backward first gathers a
+    DTensor gradient sharded into partial heads (a row-parallel product's
+    input gradient: Phi-4-mini's 24 heads on a 16-way model dim)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.shape = x.shape
+        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g):
+            g = _whole_heads(g, ctx.shape[-2])
+        return g.reshape(ctx.shape)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(x):
+        return _MergeHeads.apply(x)
+    return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+
+
+def _whole_heads(x, n_heads: int, dim: int = -1):
+    """A DTensor whose dim ``dim`` (heads, or heads x head dim) is sharded
+    only over mesh dims that split it into whole groups of ``n_heads``: a
+    column-parallel projection of 8 KV heads on a 16-way model dim leaves
+    half a head a rank, which is gathered here first (the reference's
+    GSPMD does the same)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    last = Shard(dim % x.ndim)
+    want, m = [], 1
+    for size, pl in zip(x.device_mesh.shape, x.placements):
+        if pl == last and n_heads % (m * size) == 0:
+            m *= size
+            want.append(pl)
+        else:
+            want.append(Replicate() if pl == last else pl)
+    if want == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
 
 
 def rotate(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
@@ -198,7 +264,7 @@ def attention_out(params: Params, q, k, v, cfg: ModelConfig, causal: bool,
                               v.transpose(1, 2), causal=causal,
                               window=window,
                               softcap=cfg.attn_logit_softcap)
-    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.resolved_head_dim)
+    out = _merge_heads(out.transpose(1, 2))
     return out @ params["wo"]
 
 
@@ -258,8 +324,12 @@ def cached_attention_step(params: Params, x: torch.Tensor,
         pos = index.to(device=x.device, dtype=torch.long).reshape(B, 1)
     else:
         pos = torch.full((B, 1), int(index), dtype=torch.long, device=x.device)
+    pos = like(pos, x)
     q, k = rotate(q, k, pos, cfg, positions_3d)
-    if per_row:
+    if is_dtensor(cache_k):
+        _write_at(cache_k, k, pos)
+        _write_at(cache_v, v, pos)
+    elif per_row:
         rows = torch.arange(B, device=x.device)
         cache_k[rows, pos[:, 0]] = k[:, 0].to(cache_k.dtype)
         cache_v[rows, pos[:, 0]] = v[:, 0].to(cache_v.dtype)
@@ -267,11 +337,13 @@ def cached_attention_step(params: Params, x: torch.Tensor,
         cache_k[:, int(index)] = k[:, 0].to(cache_k.dtype)
         cache_v[:, int(index)] = v[:, 0].to(cache_v.dtype)
     n_rep = cfg.n_heads // cfg.n_kv_heads
+    if is_dtensor(q):
+        q = _whole_heads(q, cfg.n_kv_heads, dim=2)
     q = q.reshape(B, 1, cfg.n_kv_heads, n_rep, hd)
     scores = torch.einsum("bqkrd,bmkd->bkrqm", q, cache_k).float()
     scores = ref.softcap_logits(scores / math.sqrt(hd),
                                 cfg.attn_logit_softcap)
-    kpos = torch.arange(cache_k.shape[1], device=x.device)
+    kpos = like(torch.arange(cache_k.shape[1], device=x.device), x)
     ok = kpos[None, :] <= pos                                    # [B, M]
     if window > 0:
         ok &= kpos[None, :] > pos - window
@@ -279,6 +351,16 @@ def cached_attention_step(params: Params, x: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bkrqm,bmkd->bqkrd", probs, cache_v)
     return out.reshape(B, 1, cfg.n_heads * hd) @ params["wo"]
+
+
+def _write_at(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
+    """``cache[b, pos[b]] = new[b, 0]`` for a DTensor cache ``[B, M, Hkv,
+    hd]`` whose sequence dim may be sharded: a select over the positions,
+    so every rank writes its own shard in place (an indexed write would
+    gather the sequence dim)."""
+    kpos = like(torch.arange(cache.shape[1], device=pos.device), pos)
+    hit = (kpos[None, :] == pos)[:, :, None, None]               # [B,M,1,1]
+    cache.copy_(torch.where(hit, new.to(cache.dtype), cache))
 
 
 def cached_attention_chunk(params: Params, x: torch.Tensor,
@@ -374,6 +456,9 @@ def lm_loss(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     more than one chunk each is checkpointed, so only one chunk's logits
     exist at a time, forward or backward."""
     D, V = head.shape
+    if is_dtensor(head):
+        xf, lf = _batch_rows(x).reshape(-1, D), _batch_rows(labels).reshape(-1)
+        return _sharded_lm_loss(xf, head, lf) / _n_labels(labels)
     xf, lf = x.reshape(-1, D), labels.reshape(-1)
     rows = max(1, chunk_elems // V)
     if rows >= xf.shape[0]:
@@ -385,6 +470,73 @@ def lm_loss(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
             _head_nll_sum, *part, use_reentrant=False)
             if torch.is_grad_enabled() else _head_nll_sum(*part))
     return total / _n_labels(labels)
+
+
+def _batch_rows(t):
+    """A DTensor sharded along its batch dim alone (the sequence-parallel
+    residual gathered), so that flattening batch and sequence keeps whole
+    rows on each rank."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    want = [pl if pl == Shard(0) or not isinstance(pl, Shard)
+            else Replicate() for pl in t.placements]
+    if want == list(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, want)
+
+
+def _sharded_nll_sum(xf, head, lf):
+    """``_nll_sum`` of DTensor rows against a vocab-sharded head, the
+    logits kept sharded over the vocab: the log-sum-exp from each shard's
+    max and sum (reduced across the shards), and the target logit from the
+    shard that holds it (``_local_target``), summed across the shards."""
+    from torch.distributed.tensor import Replicate
+
+    logits = (xf @ head).float()
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    lse = m[:, 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+    mask = (lf >= 0).float()
+    nll = ((lse - _target_logits(logits, lf)) * mask).sum()
+    return nll.redistribute(nll.device_mesh, [Replicate()] * nll.device_mesh.ndim)
+
+
+def _target_logits(logits, labels):
+    """``logits[r, labels[r]]`` of vocab-sharded DTensor logits: each rank
+    picks the targets inside its vocab range (0 elsewhere), and the sum
+    over the shards (a ``Partial`` placement) is the target logit; no rank
+    gathers the vocab."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    _, offset = compute_local_shape_and_global_offset(
+        logits.shape, mesh, logits.placements)
+    out_pl = [Partial() if pl == Shard(1) else pl for pl in logits.placements]
+    lab_pl = [Shard(0) if pl == Shard(0) else Replicate()
+              for pl in logits.placements]
+
+    def pick(local, lab):
+        idx = lab.long() - offset[1]
+        ok = (idx >= 0) & (idx < local.shape[1])
+        got = local.gather(1, idx.clamp(0, local.shape[1] - 1)[:, None])[:, 0]
+        return torch.where(ok, got, torch.zeros_like(got))
+
+    labels = labels.redistribute(mesh, lab_pl)
+    return local_map(pick, out_placements=out_pl,
+                     in_placements=(logits.placements, lab_pl),
+                     device_mesh=mesh)(logits, labels)
+
+
+def _sharded_lm_loss(xf, head, lf):
+    """The DTensor case of ``lm_loss``'s sum: one chunk of rows (each rank
+    holds its own rows and vocab shard), checkpointed, so its logits are
+    recomputed in the backward rather than kept."""
+    if torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            _sharded_nll_sum, xf, head, lf, use_reentrant=False)
+    return _sharded_nll_sum(xf, head, lf)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -413,5 +565,15 @@ def remat(fn: Callable, mode: str, *args):
     if mode == "none" or not torch.is_grad_enabled():
         return fn(*args)
     kw = {"context_fn": _dots_context} if mode == "dots" else {}
-    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
-                                             **kw)
+    return torch.utils.checkpoint.checkpoint(_under(fn, active_rules()),
+                                             *args, use_reentrant=False, **kw)
+
+
+def _under(fn: Callable, rules) -> Callable:
+    """``fn`` under the sharding rules of the forward that first ran it:
+    its recomputation runs in the backward, on autograd's thread for a
+    CUDA tensor, where this thread's rules are not active."""
+    def run(*args):
+        with sharding_rules(*rules):
+            return fn(*args)
+    return run

@@ -31,9 +31,11 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import constrain, is_dtensor, like
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
@@ -120,14 +122,24 @@ class Block(nn.Module):
         ``k`` and ``v`` ``[B,S,Hkv,hd]`` (what a prefill writes to the
         cache) and ``ffn``'s ``aux``."""
         cfg = self.cfg
-        h = L.rmsnorm(x, self.attn_norm, cfg.norm_eps)
+        # the sequence-parallel residual is gathered once for the
+        # column-parallel projections that read it (a no-op unsharded)
+        h = constrain(L.rmsnorm(x, self.attn_norm, cfg.norm_eps),
+                      "batch", None, "embed")
         q, k, v = L.attention_qkv(self.attn, h, positions, cfg,
                                   positions_3d=positions_3d)
-        x = x + L.attention_out(self.attn, q, k, v, cfg, causal,
-                                cfg.attn_window)
-        h = L.rmsnorm(x, self.mlp_norm, cfg.norm_eps)
+        # each row-parallel output (a partial sum over "model") is
+        # reduce-scattered to the residual's layout before the add, by a
+        # redistribute that autograd records: its gradient then reaches
+        # the product unsharded in the sequence
+        a = constrain(L.attention_out(self.attn, q, k, v, cfg, causal,
+                                      cfg.attn_window), "batch", "seq", "embed")
+        x = constrain(x + a, "batch", "seq", "embed")
+        h = constrain(L.rmsnorm(x, self.mlp_norm, cfg.norm_eps),
+                      "batch", None, "embed")
         y, aux = self.ffn(h, moe_impl=moe_impl, with_aux=with_aux)
-        return x + y, k, v, aux
+        y = constrain(y, "batch", "seq", "embed")
+        return constrain(x + y, "batch", "seq", "embed"), k, v, aux
 
 
 class Transformer(ZooModel):
@@ -162,14 +174,22 @@ class Transformer(ZooModel):
         """Token ids -> their embeddings; a vlm's embeddings in the model's
         dtype (the reference's ``embed_inputs``)."""
         if self.cfg.uses_tokens:
-            return self.embed[self._on_device("tokens", inputs).long()]
-        return self._on_device("embeds", inputs).to(self.final_norm.dtype)
+            tokens = self._on_device("tokens", inputs).long()
+            if is_dtensor(self.embed):   # vocab-parallel lookup
+                x = F.embedding(tokens, self.embed)
+            else:
+                x = self.embed[tokens]
+        else:
+            x = self._on_device("embeds", inputs).to(self.final_norm.dtype)
+        return constrain(x, "batch", "seq", "embed")
 
     def _positions(self, B: int, S: int, positions_3d=None):
         """Positions ``[B,S]`` and, for an M-RoPE config, ``positions_3d
         [3,B,S]`` (the token positions in all three streams unless
         given)."""
-        positions = torch.arange(S, device=self.device).expand(B, S)
+        positions = like(torch.arange(S, device=self.device).expand(B, S),
+                         positions_3d if positions_3d is not None
+                         else self.final_norm)
         if self.cfg.rope_type != "mrope":
             return positions, None
         if positions_3d is None:
@@ -196,8 +216,8 @@ class Transformer(ZooModel):
     def forward(self, inputs: torch.Tensor,
                 positions_3d: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Full-sequence causal forward -> logits ``[B,S,V]``."""
-        return (self.hidden(inputs, positions_3d=positions_3d)[0]
-                @ self.head())
+        return constrain(self.hidden(inputs, positions_3d=positions_3d)[0]
+                         @ self.head(), "batch", None, "vocab")
 
     def init_cache(self, batch: int, max_len: int) -> Dict:
         """Zeroed ``k``/``v`` ``[L, B, max_len, Hkv, hd]`` and ``pos`` 0."""
@@ -225,10 +245,24 @@ class Transformer(ZooModel):
         x = self._embed(inputs)
         B, S = x.shape[:2]
         positions, p3 = self._positions(B, S, positions_3d)
+        sharded = is_dtensor(cache["k"])
+        ks, vs = [], []
         for i, blk in enumerate(self.layers):
             x, k, v, _ = blk(x, positions, True, p3)
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
+            if sharded:   # written at once, as the reference's scan does
+                ks.append(k)
+                vs.append(v)
+            else:
+                cache["k"][i, :, :S] = k
+                cache["v"][i, :, :S] = v
+        if sharded:
+            # a per-layer write would gather a cache whose layer dim is
+            # sharded (cache_specs shards the first dim equal to the batch)
+            for key, new in (("k", ks), ("v", vs)):
+                dst = cache[key]
+                if S != dst.shape[2]:
+                    dst = dst[:, :, :S]
+                dst.copy_(torch.stack(new).to(dst.dtype))
         if lengths is None:
             cache["pos"] = S
             x = x[:, -1:]
@@ -271,9 +305,11 @@ class Transformer(ZooModel):
         index = cache["pos"]
         p3 = None
         if cfg.rope_type == "mrope":   # the position in all three streams
-            p3 = (index.reshape(1, B, 1) if isinstance(index, torch.Tensor)
-                  else torch.full((1, B, 1), int(index),
-                                  device=self.device)).expand(3, B, 1)
+            p3 = like((index.reshape(1, B, 1)
+                       if isinstance(index, torch.Tensor)
+                       else torch.full((1, B, 1), int(index),
+                                       device=self.device)).expand(3, B, 1),
+                      x)
         for i, blk in enumerate(self.layers):
             h = L.rmsnorm(x, blk.attn_norm, cfg.norm_eps)
             x = x + L.cached_attention_step(blk.attn, h, cache["k"][i],
@@ -345,6 +381,12 @@ def logits(model: Transformer, batch: Dict) -> torch.Tensor:
     """The full-sequence logits ``[B,S,V]`` of a batch (``loss_fn``'s
     inputs)."""
     return model(_inputs(model, batch), batch.get("positions_3d"))
+
+
+def init_cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> Dict:
+    """The cache ``init_cache`` makes, on ``meta`` (shapes only)."""
+    model = Transformer(cfg, device="meta")
+    return L.cache_shapes(model.init_cache(batch, max_len))
 
 
 Model = Transformer

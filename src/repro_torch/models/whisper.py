@@ -226,6 +226,12 @@ def logits(model: Whisper, batch: Dict) -> torch.Tensor:
     return model(batch["tokens"], batch["frames"])
 
 
+def init_cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> Dict:
+    """The cache ``init_cache`` makes, on ``meta`` (shapes only)."""
+    model = Whisper(cfg, device="meta")
+    return L.cache_shapes(model.init_cache(batch, max_len))
+
+
 Model = Whisper
 
 

@@ -210,6 +210,12 @@ def logits(model: Zamba2, batch: Dict) -> torch.Tensor:
     return model(batch["tokens"])
 
 
+def init_cache_shape(cfg: ModelConfig, batch: int, max_len: int) -> Dict:
+    """The cache ``init_cache`` makes, on ``meta`` (shapes only)."""
+    model = Zamba2(cfg, device="meta")
+    return L.cache_shapes(model.init_cache(batch, max_len))
+
+
 Model = Zamba2
 
 

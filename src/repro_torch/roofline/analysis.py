@@ -14,17 +14,24 @@ over the memory rate and its operations over their type's peak.
 ``roofline_report`` returns the reference's record for one (arch, shape)
 cell, its FLOPs and bytes counted by ``roofline.op_cost`` on ``meta``
 tensors (the counterpart of ``roofline.hlo_cost``, which parses XLA's HLO
-text). Fields that only XLA or a mesh can fill hold ``None``:
+text). On ``n_chips > 1`` the cost is one rank's in the step lowered on a
+mesh (``launch.specs.lower_cell``): its local FLOPs and bytes, and the
+link bytes of its collectives by kind (the functional collectives DTensor
+issued, with the reference's ring factors), over ``link_bw`` the third
+term:
+
+    collective term = the step's link bytes a chip / the card's link rate
+
+Fields that only XLA can fill hold ``None``:
 
 * ``xla_flops_per_chip`` / ``xla_bytes_per_chip``: XLA's own
   ``cost_analysis()`` of a compiled artifact, which torch does not make;
-* ``per_device_bytes``: XLA's ``memory_analysis()`` of the compiled step.
-  Its torch counterpart exists on the card only
-  (``torch.cuda.max_memory_allocated`` after a real step);
-* ``collective_bytes_per_chip``, ``collectives``, ``collective_s``: the
-  link bytes of a sharded step's collectives, which land with the port's
-  distribution (ROADMAP.md queue 1); this package runs one device, so
-  ``n_chips`` must be 1.
+* ``per_device_bytes``: XLA's ``memory_analysis()`` of the compiled step;
+  the dry-run (``launch.dryrun``) fills its arguments and outputs from the
+  local shard sizes. Its temporaries exist on the card only
+  (``torch.cuda.max_memory_allocated`` after a real step).
+
+A one-device step has no collective term: those fields are ``None``.
 """
 from __future__ import annotations
 
@@ -77,30 +84,37 @@ def feature_dims(cfg: ModelConfig) -> frozenset:
 
 def roofline_report(cfg: ModelConfig, shape: ShapeConfig, n_chips: int = 1,
                     hw: HW = H100, cost=None) -> Dict[str, object]:
-    """The roofline record of one (arch x shape) cell on one card, with
-    the reference's keys. ``cost`` is an ``op_cost.OpCost`` of the step;
-    by default ``op_cost.step_cost(cfg, shape)`` counts it on ``meta``
-    tensors (no card, no allocation). ``memory_flash_s`` drops the traffic
-    of ``[S, S]``-shaped tensors (``sq_bytes``), which the port's attention
-    kernels keep on chip."""
-    if n_chips != 1:
-        raise NotImplementedError(
-            "the port runs one device: the sharded step and its collective "
-            "term land with distribution (ROADMAP.md queue 1)")
+    """The roofline record of one (arch x shape) cell, with the
+    reference's keys, per chip. ``cost`` is an ``op_cost.OpCost`` of the
+    step; on one card ``op_cost.step_cost(cfg, shape)`` counts it on
+    ``meta`` tensors by default (no card, no allocation); on ``n_chips >
+    1`` it must be the lowered sharded step's (``launch.specs.lower_cell``,
+    ``launch.dryrun.run_cell``), whose collectives give the third term.
+    ``memory_flash_s`` drops the traffic of ``[S, S]``-shaped tensors
+    (``sq_bytes``), which the port's attention kernels keep on chip."""
     if cost is None:
+        if n_chips != 1:
+            raise ValueError("a sharded cell's cost comes from its lowered "
+                             "step: launch.dryrun.run_cell")
         from repro_torch.roofline import op_cost
         cost = op_cost.step_cost(cfg, shape)
     compute_s = cost.flops / hw.peak_flops
     memory_s = cost.hbm_bytes / hw.hbm_bw
     memory_flash_s = max(cost.hbm_bytes - cost.sq_bytes, 0.0) / hw.hbm_bw
     terms = {"compute": compute_s, "memory": memory_s}
+    sharded = cost.collectives is not None
+    coll_bytes = cost.link_bytes if sharded else None
+    collective_s = coll_bytes / hw.link_bw if sharded else None
+    if sharded:
+        terms["collective"] = collective_s
     bottleneck = max(terms, key=terms.get)
     model_fl = api.model_flops(cfg, shape.global_batch, shape.seq_len,
                                shape.kind)
-    useful = model_fl / cost.flops if cost.flops else 0.0
+    useful = model_fl / (cost.flops * n_chips) if cost.flops else 0.0
     step_s = max(terms.values())
     # achievable fraction of the compute roofline given the dominant term
-    mfu_bound = (model_fl / hw.peak_flops) / step_s if step_s else 0.0
+    mfu_bound = ((model_fl / n_chips / hw.peak_flops) / step_s if step_s
+                 else 0.0)
     return {
         "arch": cfg.name,
         "shape": shape.name,
@@ -108,13 +122,13 @@ def roofline_report(cfg: ModelConfig, shape: ShapeConfig, n_chips: int = 1,
         "n_chips": n_chips,
         "flops_per_chip": cost.flops,
         "bytes_per_chip": cost.hbm_bytes,
-        "collective_bytes_per_chip": None,   # distribution not ported
-        "collectives": None,
+        "collective_bytes_per_chip": coll_bytes,
+        "collectives": dict(cost.collectives) if sharded else None,
         "compute_s": compute_s,
         "memory_s": memory_s,
         "memory_flash_s": memory_flash_s,
         "sq_bytes_per_chip": cost.sq_bytes,
-        "collective_s": None,
+        "collective_s": collective_s,
         "bottleneck": bottleneck,
         "model_flops": model_fl,
         "useful_flop_ratio": useful,

@@ -34,7 +34,7 @@ lse; and q, k, v, o, dO, lse, dq, dk, dv), as the kernels keep the
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -156,6 +156,86 @@ class ByteCounter(TorchDispatchMode):
         return out
 
 
+# -- a sharded step: each rank's local operations and its collectives -------
+
+# the functional collectives DTensor issues -> the reference's kinds
+COLLECTIVE_KINDS = {
+    "all_gather_into_tensor": "all-gather",
+    "all_reduce": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "broadcast": "collective-permute",
+}
+
+
+def link_factor(kind: str, n: int) -> float:
+    """A rank's link bytes as a multiple of a collective's result bytes,
+    for ring algorithms (the reference's ``_link_factor``): all-gather
+    (n-1)/n of the gathered result; all-reduce 2(n-1)/n; reduce-scatter
+    n-1 times the scattered shard; all-to-all (n-1)/n; a permute or a
+    broadcast the whole result once."""
+    if kind == "all-gather":
+        return (n - 1) / n
+    if kind == "all-reduce":
+        return 2 * (n - 1) / n
+    if kind == "reduce-scatter":
+        return float(n - 1)
+    if kind == "all-to-all":
+        return (n - 1) / n
+    return 1.0
+
+
+class ShardedCounter(ByteCounter):
+    """``ByteCounter`` of one rank's work in a step on DTensors: it steps
+    aside for every DTensor-level operation (returns ``NotImplemented``,
+    so DTensor runs it) and counts the local operations that DTensor
+    dispatches, with their FLOPs by ``torch.utils.flop_counter``'s
+    formulas, and the link bytes of each functional collective (its
+    result's bytes times ``link_factor`` for its group's size). DTensor's
+    shape propagation (the operation on ``FakeTensor`` global shapes) is
+    not counted."""
+
+    def __init__(self, seq_len: int = 0,
+                 feature_dims: frozenset = frozenset()):
+        super().__init__(seq_len, feature_dims)
+        self.flops = 0.0
+        self.per_op_flops: Dict[str, float] = {}
+        self.collectives: Dict[str, float] = dict.fromkeys(
+            ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+             "collective-permute"), 0.0)
+        self.n_collectives: Dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch._subclasses.fake_tensor import FakeTensor
+        from torch.distributed.tensor import DTensor
+        from torch.utils.flop_counter import flop_registry
+
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        if any(isinstance(t, FakeTensor) for t in _tensors(args)):
+            # DTensor's shape propagation on the global shapes: no work
+            return func(*args, **(kwargs or {}))
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        packet = func._overloadpacket
+        name = packet.__name__
+        if packet in flop_registry:
+            n = float(flop_registry[packet](*args, **(kwargs or {}),
+                                            out_val=out))
+            self.flops += n
+            self.per_op_flops[name] = self.per_op_flops.get(name, 0.0) + n
+        kind = COLLECTIVE_KINDS.get(name)
+        if kind is not None and "c10d_functional" in str(func.namespace):
+            from torch.distributed.distributed_c10d import \
+                _resolve_process_group
+
+            group = _resolve_process_group(args[-1] if isinstance(
+                args[-1], str) else kwargs["group_name"])
+            b = sum(stored_bytes(t) for t in _tensors(out))
+            self.collectives[kind] += b * link_factor(kind, group.size())
+            self.n_collectives[kind] = self.n_collectives.get(kind, 0) + 1
+        return out
+
+
 @dataclass
 class OpCost:
     flops: float = 0.0
@@ -163,12 +243,32 @@ class OpCost:
     sq_bytes: float = 0.0        # traffic of [S, S]-shaped tensors
     per_op_flops: Dict[str, float] = field(default_factory=dict)
     per_op_bytes: Dict[str, float] = field(default_factory=dict)
+    # a sharded step's link bytes per rank by kind, and the counts of its
+    # collectives (None for a one-device step)
+    collectives: Optional[Dict[str, float]] = None
+    n_collectives: Optional[Dict[str, int]] = None
+
+    @property
+    def link_bytes(self) -> float:
+        return sum((self.collectives or {}).values())
 
 
 def analyze(step: Callable[[], object], seq_len: int = 0,
-            feature_dims: frozenset = frozenset()) -> OpCost:
+            feature_dims: frozenset = frozenset(),
+            sharded: bool = False) -> OpCost:
     """The cost of one call of ``step`` (which builds or takes its tensors
-    on ``meta``)."""
+    on ``meta``). ``sharded``: ``step`` runs on DTensors, and the cost is
+    one rank's (its local operations and its collectives)."""
+    if sharded:
+        counter = ShardedCounter(seq_len, feature_dims)
+        with counter:
+            step()
+        return OpCost(flops=counter.flops, hbm_bytes=counter.bytes,
+                      sq_bytes=counter.sq_bytes,
+                      per_op_flops=dict(counter.per_op_flops),
+                      per_op_bytes=dict(counter.per_op),
+                      collectives=dict(counter.collectives),
+                      n_collectives=dict(counter.n_collectives))
     counter = ByteCounter(seq_len, feature_dims)
     flops = FlopCounterMode(display=False)
     with flops, counter:

@@ -3,8 +3,9 @@ each) into a markdown table: the port of ``repro.roofline.report``.
 
     python -m repro_torch.roofline.report --dir <directory of .json records>
 
-The collective column reads "-" where a record has no collective term (the
-single-device port: distribution is not ported yet).
+The collective column reads "-" where a record has no collective term (a
+one-device step). The default directory is the dry-run's
+(``launch.dryrun``'s ``--out``).
 """
 from __future__ import annotations
 
@@ -47,7 +48,7 @@ def markdown_table(reports: List[Dict], multi_pod: bool = False) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dir", default="reports/dryrun")
+    ap.add_argument("--dir", default="build/dryrun")
     ap.add_argument("--multi-pod", action="store_true")
     args = ap.parse_args(argv)
     print(markdown_table(load_reports(args.dir), args.multi_pod))

@@ -35,11 +35,18 @@ Design (the reference's):
 - **Knobs**: ``set_nprobe`` updates every shard under the lock searches
   snapshot under, so one search never mixes nprobe levels.
 
-The reference also runs a fused ``shard_map`` scan over a device mesh when
-one is active (``use_mesh``, ``corpus_axes``, the ``mesh_searches``
-counter). The port has no mesh (ROADMAP.md queue 1 item 11), so that path
-never applies, as in the reference without an active mesh; the options and
-the counter stay so that specs and gauges read the same.
+- **Mesh search** (``_mesh_search``): when a ``DeviceMesh`` is active
+  (``distributed.sharding.sharding_rules``) whose ``corpus_axes`` dims
+  hold ``n_shards`` ranks, a plain flat DB (quant ``none``) searches
+  SPMD: every rank holds the same host-side bookkeeping and applies the
+  same mutations; rank r's device holds only shard r's rows and live mask
+  of the current epoch (rebuilt when a mutation moves the epoch), scans
+  them with the ``topk_search`` kernel (``collectives.make_sharded_topk``),
+  and the ranks all-gather their k winners and merge them. Every rank of
+  the corpus dims must call ``search`` together. The flat scan covers
+  exactly the live rows, so the freshness buffer folds in. Other indexes
+  and no mesh take the host-side merge; ``mesh_searches`` counts the mesh
+  path.
 """
 from __future__ import annotations
 
@@ -57,7 +64,10 @@ from repro_torch import resolve_device
 from repro_torch.core.interfaces import Chunk, DBInstance, SearchResult
 from repro_torch.core.registry import register
 from repro_torch.core.vectordb import DBConfig, TorchVectorDB, merge_topk
-from repro_torch.kernels.ref import NEG
+from repro_torch.distributed.collectives import (corpus_group,
+                                                 make_sharded_topk)
+from repro_torch.distributed.sharding import active_mesh, mesh_shape
+from repro_torch.kernels.ref import NEG, pad_cols
 
 
 def doc_shard(doc_id: int, n_shards: int) -> int:
@@ -93,7 +103,7 @@ class ShardedDBConfig:
     use_kernel: object = False
     train_sample: int = 16384
     balance_slack: float = 1.5       # per-shard headroom over an even split
-    use_mesh: bool = True            # the reference's mesh scan (no mesh here)
+    use_mesh: bool = True            # mesh scan when an active mesh matches
     corpus_axes: Tuple[str, ...] = ("pod", "data")
 
 
@@ -141,6 +151,10 @@ class ShardedVectorDB(DBInstance):
             "merge_time_s": 0.0,
         }
         self._epoch = 0                # guarded-by: _mu
+        # mesh-path caches: (fn, shard id) per (mesh, k), and this rank's
+        # shard rows and live mask on the mesh's device for one epoch
+        self._mesh_fns: Dict[Tuple[int, int], Tuple[Callable, int]] = {}  # guarded-by: _mu
+        self._mesh_arrays: Optional[Tuple[int, torch.Tensor, torch.Tensor]] = None  # guarded-by: _mu
         # optional obs.Tracer: fan-out/merge spans on the "db" thread lane
         self.tracer = None
 
@@ -287,10 +301,59 @@ class ShardedVectorDB(DBInstance):
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Top-k ``(scores, global ids)`` tensors of ``q`` (on the DB's
         device) against ``snaps`` (default: a fresh ``snapshot()``);
-        ``rung`` overrides every shard's ladder rung for this call."""
+        ``rung`` overrides every shard's ladder rung for this call. With
+        neither, an eligible DB under an active mesh takes the mesh path
+        (its results on the mesh's device)."""
         if snaps is None:
-            snaps = self.snapshot()
+            with self._mu:   # one consistent cross-shard view and its epoch
+                snaps = [sh._snapshot() for sh in self.shards]
+                epoch = self._epoch
+            if rung is None:
+                out = self._mesh_search(q, k, snaps, epoch)
+                if out is not None:
+                    return out
         return self._merge_search(q, k, snaps, rung)
+
+    def _mesh_search(self, q, k: int, snaps, epoch: int
+                     ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """The SPMD scan when a matching mesh is active, else ``None``.
+
+        Eligible only for the plain flat scan (exact over all live rows:
+        the flat main index and the flat freshness buffer together cover
+        exactly ``live``); IVF and quantized indexes take the host-side
+        merge, as in the reference."""
+        cfg = self.cfg
+        mesh = active_mesh() if cfg.use_mesh else None
+        if (mesh is None or cfg.index_type != "flat" or cfg.quant != "none"
+                or cfg.n_shards == 1):
+            return None
+        shape = mesh_shape(mesh)
+        axes = tuple(a for a in cfg.corpus_axes if a in shape)
+        if not axes:
+            return None
+        if int(np.prod([shape[a] for a in axes])) != cfg.n_shards:
+            return None
+        dev = torch.device(mesh.device_type)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        key = (id(mesh), k)
+        with self._mu:
+            if key not in self._mesh_fns:
+                fn, _ = make_sharded_topk(mesh, k, corpus_axes=axes)
+                self._mesh_fns[key] = (fn, corpus_group(mesh, axes)[1])
+            fn, sid = self._mesh_fns[key]
+            if self._mesh_arrays is None or self._mesh_arrays[0] != epoch:
+                snap = snaps[sid]
+                self._mesh_arrays = (
+                    epoch, snap["vectors"].to(dev),
+                    torch.from_numpy(snap["live"]).to(dev))
+            _, vecs, live = self._mesh_arrays
+        # the scan runs lock-free: rows written after the snapshot land in
+        # slots that this epoch's live mask leaves dead
+        s, gi = fn(pad_cols(q.to(dev), vecs.shape[1]), vecs, live)
+        with self._mu:
+            self.counters["mesh_searches"] += 1
+        return s, gi
 
     def _merge_search(self, q, k: int, snaps, rung=None):
         """Per-shard local top-k → global ids → pairwise merge reduction,

@@ -16,6 +16,13 @@ asynchronously, restart from the latest. The port of
 bf16 tensors are stored as their uint16 bits (numpy has no bfloat16) with
 the dtype in the manifest. The manifest is JSON (the reference's is
 msgpack, which the port does not need).
+
+A sharded state (DTensor leaves) is saved as full tensors: every rank
+takes part in gathering each leaf (``save`` is collective), and rank 0
+alone writes. On restore every rank reads the same files and keeps its
+own shard of each leaf at the template's placement, so a restart on the
+mesh ends bit for bit where an uninterrupted run ends, and a checkpoint
+loads on any mesh.
 """
 from __future__ import annotations
 
@@ -43,7 +50,20 @@ def _leaves(state, prefix: str = ""):
             yield path, value
 
 
+def _is_dtensor(t) -> bool:
+    from repro_torch.distributed.sharding import is_dtensor
+    return is_dtensor(t)
+
+
+def _writer() -> bool:
+    """Rank 0 writes (every process when no process group runs)."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(t: torch.Tensor) -> np.ndarray:
+    if _is_dtensor(t):
+        t = t.full_tensor()   # collective: every rank gathers the leaf
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
@@ -66,6 +86,8 @@ class CheckpointManager:
     def save(self, state, step: int, blocking: bool = False) -> None:
         """Snapshot to host memory now, write to disk on a thread."""
         flat = {k: (_to_host(t), _dtype_name(t)) for k, t in _leaves(state)}
+        if not _writer():
+            return
         self.wait()   # one write at a time (the same step may be saved twice)
         if blocking:
             self._write(flat, step)
@@ -139,6 +161,10 @@ class CheckpointManager:
                     torch.bfloat16)
             else:
                 src = torch.from_numpy(arr.copy())
+            if _is_dtensor(t):   # this rank's shard of the full leaf
+                from torch.distributed.tensor import distribute_tensor
+                src = distribute_tensor(src.to(t.device), t.device_mesh,
+                                        t.placements, src_data_rank=None)
             loaded.append((t, src))
         for t, src in loaded:
             t.copy_(src)

@@ -46,15 +46,24 @@ def schedule(cfg: AdamWConfig, step) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
-def adamw_init(params: Tree) -> Dict[str, object]:
+def fp32_zeros(params: Tree, specs=None, mesh=None) -> Tree:
+    """A zero fp32 tensor the shape of each parameter; with a mesh, a
+    DTensor placed by ``specs`` (``{name: spec}``)."""
+    if mesh is None:
+        return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for n, p in params.items()}
+    from repro_torch.distributed.partition import zeros_placed
+
+    return {n: zeros_placed(p.shape, torch.float32, p.device, mesh, specs[n])
+            for n, p in params.items()}
+
+
+def adamw_init(params: Tree, specs=None, mesh=None) -> Dict[str, object]:
     """Zero fp32 moments beside each parameter and step 0 (an int32 host
-    scalar)."""
-    return {"mu": {n: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
-                   for n, p in params.items()},
-            "nu": {n: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
-                   for n, p in params.items()},
+    scalar). With a mesh, each moment is a DTensor placed by ``specs``
+    (``distributed.partition.opt_state_specs``' ``mu``)."""
+    return {"mu": fp32_zeros(params, specs, mesh),
+            "nu": fp32_zeros(params, specs, mesh),
             "step": torch.zeros((), dtype=torch.int32)}
 
 
@@ -71,15 +80,21 @@ def adamw_update(cfg: AdamWConfig, params: Tree, grads: Tree,
                  ) -> Tuple[Tree, Dict[str, object], Dict[str, torch.Tensor]]:
     """One optimizer step, in place; returns ``(params, state, metrics)``
     with ``metrics`` ``grad_norm`` (before clipping) and ``lr``. Decoupled
-    weight decay applies to matrices only (``ndim >= 2``)."""
+    weight decay applies to matrices only (``ndim >= 2``).
+
+    DTensor leaves (a sharded train state) take the same arithmetic: the
+    norm is global over every shard, each moment updates on its own shard
+    (its gradient at its placement), and the parameter takes its update
+    at its own placement. The host scalars enter as Python floats (their
+    fp32 values), which DTensor mixes with its tensors."""
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                          max=1.0) if cfg.grad_clip > 0 else None)
     lr = schedule(cfg, step)
     stepf = step.to(torch.float32)
-    bc1 = 1 - cfg.b1 ** stepf
-    bc2 = 1 - cfg.b2 ** stepf
+    bc1 = float(1 - cfg.b1 ** stepf)
+    bc2 = float(1 - cfg.b2 ** stepf)
     mus, nus = state["mu"], state["nu"]
     for name, p in params.items():
         g = grads[name].float()
@@ -91,7 +106,7 @@ def adamw_update(cfg: AdamWConfig, params: Tree, grads: Tree,
         delta = (mu / bc1).div_((nu / bc2).sqrt_().add_(cfg.eps))
         if p.ndim >= 2:
             delta.add_(p.float(), alpha=cfg.weight_decay)
-        p.copy_(p.float().sub_(lr * delta))
+        p.copy_(p.float().sub_(float(lr) * delta))
         del delta
     return params, {"mu": mus, "nu": nus, "step": step}, \
         {"grad_norm": gnorm, "lr": lr}

@@ -227,8 +227,9 @@ def test_forward_flops_on_meta_match_model_flops(arch):
 
 def test_roofline_report_keys_and_terms():
     """The reference's record keys; the compute and memory terms from the
-    counted cost on ``H100``; XLA's and the mesh's fields ``None``; more
-    than one chip raises until distribution lands."""
+    counted cost on ``H100``; XLA's and the mesh's fields ``None`` on one
+    chip; more than one chip without a lowered sharded step's cost
+    raises (``launch.dryrun`` gives it)."""
     cfg = configs.get_smoke("llama3_8b")
     shape = ShapeConfig("t", 64, 2, "train")
     cost = op_cost.step_cost(cfg, shape)
@@ -252,7 +253,7 @@ def test_roofline_report_keys_and_terms():
     # forward's weight products alone
     fwd = _forward_cost(cfg, 2, 64)
     assert cost.flops > 2.5 * fwd.per_op_flops["mm"]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         analysis.roofline_report(cfg, shape, n_chips=4)
 
 
