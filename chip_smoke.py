@@ -126,12 +126,13 @@ Phases, each of which raises on failure and prints its wall seconds:
    on the card and on the CPU in fp32 and bf16 (prefill logits within
    LOGIT_TOL, flash_attention once a layer, 8 greedy tokens by the
    near-tie rule); then each at full width from seed 0, one at a time
-   (Qwen2-VL-72B at 32 of its 80 layers, Whisper-large-v3, xLSTM,
-   Zamba2-2.7B): its parameter count against the reference's, ``time_model``
-   and peak memory, and the RAG pipeline served closed-loop at concurrency
-   8 (``model_<arch>.json``; Qwen2-VL through the ``model`` factory's
+   (Qwen2-VL-72B at 16 of its 80 layers, Whisper-large-v3 whole,
+   xLSTM-1.3B at 16 of 48, Zamba2-2.7B at 18 of 54: ZOO_LAYERS): its
+   parameter count against the reference's, ``time_model`` and peak
+   memory, and the RAG pipeline served closed-loop at concurrency 8
+   (``model_<arch>.json``; the cut ones through the ``model`` factory's
    ``cfg=``) with every request answered and flash_attention launched once
-   per attention layer of every prefill (32, 64, 9 and 0 a batch) and of
+   per attention layer of every prefill (16, 64, 3 and 0 a batch) and of
    every embedder and cross-encoder batch;
 15. flash bwd (right after phase 7): flash_attention_bwd, from the forward
    kernel's output and log-sum-exp, against its plain version
@@ -158,10 +159,14 @@ Phases, each of which raises on failure and prints its wall seconds:
    of its entries that changed, and the parameters' relative change,
    printed); then ``repro_torch.launch.train`` at SMOKE killed after
    its first checkpoint and relaunched, ending bit for bit where an
-   uninterrupted run ends;
-17. mesh (after phase 16): four processes on the one card, one rank each
-   of a gloo process group (``distributed.spawn``; NCCL refuses two ranks
-   on one card). First each gloo collective once on CUDA tensors, printed
+   uninterrupted run beside it ends;
+17. mesh (after phase 16): first, in this process, the unsharded step-1
+   losses that (c) and (f) are held to, each model freed after, with (d)
+   ``launch.train --arch llama3_8b --smoke --steps 3`` under the host mesh
+   (NCCL, a group of one) running beside them. Then four processes on the
+   one card, one rank each of a gloo process group
+   (``distributed.spawn``; NCCL refuses two ranks on one card), one spawn
+   for the rest. First each gloo collective once on CUDA tensors, printed
    as found. (a) The deployment rows (1,048,576 x 384 fp32, capacity
    1,114,112, 32,768 fresh rows, 1 % of documents removed) in a flat
    4-shard DB on mesh (data 4, model 1), held by every rank (host-side
@@ -171,13 +176,27 @@ Phases, each of which raises on failure and prints its wall seconds:
    ``mesh_searches`` 20 and ``topk_search`` launched on every rank, both
    paths' ``search()`` ms. (b) The llama3 SMOKE train step on (data 2,
    model 2) in fp32 and bf16 against the unsharded step on one rank
-   (MESH_TOL), the attention kernels launched on every rank. (c)
-   Phi-4-mini-3.8B at full width on (data 1, model 4), bf16, batch 2 x
-   4,096 (halved if four ranks do not fit): one warm and 2 timed steps,
-   each rank's peak memory and parameter bytes (against the specs' shard
-   sizes), the step-1 loss against phase 16's unsharded one, each rank's
-   attention kernel launches. (d) ``launch.train --arch llama3_8b --smoke
-   --steps 3`` under the host mesh (NCCL, a group of one).
+   (MESH_TOL), the attention kernels launched on every rank. (e) The MoE
+   (Granite, Qwen3), audio, ssm and hybrid SMOKE configs on (data 2,
+   model 2) in fp32 and bf16, the MoE ones also in fp32 at capacity
+   factor 1: one train step against the unsharded step and a prefill
+   with 4 decode steps against the unsharded model's logits, both on
+   rank 0 (MESH_TOL; ||d||/||want|| for the logits), the attention
+   kernels launched on every rank where the family has attention, and at
+   capacity factor 1 the routes dropped unsharded and by rank. (c)
+   Phi-4-mini-3.8B at full width and MESH_FULL_LAYERS (4) of its 32
+   layers on (data 1, model 4), bf16, batch 2 x 4,096: one warm and
+   MESH_TRAIN_STEPS timed steps, each rank's peak memory and parameter
+   bytes (against the specs' shard sizes), the step-1 loss against the
+   unsharded one, each rank's attention kernel launches. (f)
+   Granite-3.0-1B-A400M at full width and depth on (data 1, model 4),
+   bf16, remat full, batch 2 x 4,096, 8 of its 32 experts a rank: one
+   warm and MESH_TRAIN_STEPS timed steps, each rank's peak memory,
+   parameter bytes against the specs' shard sizes, experts held, routes
+   dropped in a forward of the batch and attention launches, the step-1
+   loss within 1e-2 of the unsharded one. The phase wall seconds print as
+   ``mesh (a)-(d)``, ``mesh (e)`` and ``mesh (f)`` ((f)'s unsharded step
+   in it).
 
 The last lines are one JSON object on the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a card, or run
@@ -3156,16 +3175,24 @@ def phase_moe(torch, ops):
 # the zoo phase: the families ported last, at SMOKE (card against CPU) and
 # at full width (served through the RAG pipeline)
 ZOO = ("qwen2_vl_72b", "whisper_large_v3", "xlstm_1_3b", "zamba2_2_7b")
+# the depth each family runs at full width, every width kept: Qwen2-VL-72B
+# at 16 of its 80 layers, xLSTM-1.3B at 16 of 48 (two 8-layer groups of 7
+# mLSTM : 1 sLSTM), Zamba2-2.7B at 18 of 54 (three groups of 6 Mamba2
+# layers and the shared block); Whisper whole. Qwen2-VL ran 32 layers and
+# the others whole until the script outgrew its time limit: an xLSTM
+# prefill launches ~1,560 kernels a layer, and its profiled prefill and
+# served run took 82 s of the phase's 166 on the card
+ZOO_LAYERS = {"qwen2_vl_72b": 16, "xlstm_1_3b": 16, "zamba2_2_7b": 18}
+# the reference's parameter counts at those depths
 ZOO_PARAMS = {"whisper_large_v3": 1_601_198_080,
-              "xlstm_1_3b": 3_603_581_264,
-              "zamba2_2_7b": 2_396_455_840,
-              "qwen2_vl_72b": 29_331_300_352}   # 32 of its 80 layers
-QWEN2_VL_LAYERS = 32       # of 80: 58.7 GB of bf16 weights on one card
+              "xlstm_1_3b": 1_338_558_576,
+              "zamba2_2_7b": 960_479_200,
+              "qwen2_vl_72b": 15_288_508_416}
 # flash_attention launches of one prefill batch at full width: one a layer
 # (Whisper: 32 encoder + 32 decoder; Zamba2: its shared block once a group
-# of 6 of its 54 Mamba2 layers; xLSTM has no attention)
-ZOO_FLASH = {"qwen2_vl_72b": 32, "whisper_large_v3": 64, "xlstm_1_3b": 0,
-             "zamba2_2_7b": 9}
+# of 6 Mamba2 layers; xLSTM has no attention)
+ZOO_FLASH = {"qwen2_vl_72b": 16, "whisper_large_v3": 64, "xlstm_1_3b": 0,
+             "zamba2_2_7b": 3}
 # ... and at SMOKE
 ZOO_SMOKE_FLASH = {"qwen2_vl_72b": 2, "whisper_large_v3": 4,
                    "xlstm_1_3b": 0, "zamba2_2_7b": 2}
@@ -3375,13 +3402,13 @@ def zoo_smoke(torch, ops, arch, dtype):
 
 
 def zoo_config(arch):
-    """The full-width config the zoo phase runs: the published one, and
-    Qwen2-VL-72B at QWEN2_VL_LAYERS of its 80 layers (every width kept)."""
+    """The full-width config the zoo phase runs: the published one at the
+    depth ZOO_LAYERS gives (every width kept)."""
     from repro_torch import configs
 
     cfg = configs.get_config(arch)
-    if arch == "qwen2_vl_72b":
-        cfg = cfg.replace(n_layers=QWEN2_VL_LAYERS)
+    if arch in ZOO_LAYERS:
+        cfg = cfg.replace(n_layers=ZOO_LAYERS[arch])
     return cfg
 
 
@@ -3398,12 +3425,17 @@ def phase_zoo(torch, ops, ref, record):
 
     from repro_torch.models import api
 
+    t0 = time.perf_counter()
     zoo_flash(torch, ops, ref, record)
+    wall = {"flash": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     for arch in ZOO:
         for dtype in LOGIT_TOL:
             zoo_smoke(torch, ops, arch, dtype)
+    wall["SMOKE"] = time.perf_counter() - t0
     launches = {}
     for arch in ZOO:
+        t_arch = time.perf_counter()
         cfg = zoo_config(arch)
         gc.collect()
         torch.cuda.empty_cache()
@@ -3432,7 +3464,9 @@ def phase_zoo(torch, ops, ref, record):
             else f"model_{arch}.json")
         launches[f"model_{arch}"] = serve_counted(
             torch, ops, spec, cfg, ZOO_REQUESTS, concurrency=8,
-            per_prefill=ZOO_FLASH[arch], inject_cfg=arch == "qwen2_vl_72b")
+            per_prefill=ZOO_FLASH[arch], inject_cfg=arch in ZOO_LAYERS)
+        wall[arch] = time.perf_counter() - t_arch
+    say("zoo: wall s: " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
     return launches
 
 
@@ -3754,9 +3788,9 @@ def lr_witness(torch, ops, ref):
 
 def train_restart(torch):
     """``repro_torch.launch.train`` at SMOKE on the card: run A goes
-    RESTART_STEPS steps uninterrupted; run B is killed (SIGKILL) once its
-    first checkpoint is written and relaunched, restarting from its latest
-    checkpoint. B's last checkpoint must equal A's bit for bit."""
+    RESTART_STEPS steps uninterrupted; run B, beside it, is killed
+    (SIGKILL) once its first checkpoint is written and relaunched,
+    restarting from its latest checkpoint. B's last checkpoint must equal A's bit for bit."""
     import os
     import shutil
 
@@ -3776,28 +3810,40 @@ def train_restart(torch):
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
 
-    run(dirs["A"])
-    first = dirs["B"] / f"step_{RESTART_EVERY:08d}" / "manifest.json"
-    last = f"step_{RESTART_STEPS:08d}"
-    proc = subprocess.Popen(base + ["--ckpt-dir", str(dirs["B"])], env=env,
-                            stdout=subprocess.DEVNULL,
-                            stderr=subprocess.DEVNULL)
+    # A runs beside B (each a process of its own on the card): the steps
+    # are deterministic, and the two runs' start-up is most of the time
+    run_a = subprocess.Popen(base + ["--ckpt-dir", str(dirs["A"])], env=env,
+                             stdout=subprocess.DEVNULL,
+                             stderr=subprocess.PIPE, text=True)
     try:
-        deadline = time.monotonic() + 300
-        while not first.exists():
-            if proc.poll() is not None or time.monotonic() > deadline:
-                raise AssertionError("train restart: run B ended or hung "
-                                     "before its first checkpoint")
-            time.sleep(0.005)
-        proc.kill()
+        first = dirs["B"] / f"step_{RESTART_EVERY:08d}" / "manifest.json"
+        last = f"step_{RESTART_STEPS:08d}"
+        proc = subprocess.Popen(base + ["--ckpt-dir", str(dirs["B"])],
+                                env=env, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
+        try:
+            deadline = time.monotonic() + 300
+            while not first.exists():
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError("train restart: run B ended or "
+                                         "hung before its first checkpoint")
+                time.sleep(0.005)
+            proc.kill()
+        finally:
+            proc.kill()
+            proc.wait()
+        if (dirs["B"] / last).exists():
+            raise AssertionError("train restart: run B finished before the "
+                                 "kill")
+        killed_at = max(int(p.name[5:]) for p in dirs["B"].glob("step_*")
+                        if not p.name.endswith(".tmp"))
+        out = run(dirs["B"])
+        _, err = run_a.communicate(timeout=300)
     finally:
-        proc.kill()
-        proc.wait()
-    if (dirs["B"] / last).exists():
-        raise AssertionError("train restart: run B finished before the kill")
-    killed_at = max(int(p.name[5:]) for p in dirs["B"].glob("step_*")
-                    if not p.name.endswith(".tmp"))
-    out = run(dirs["B"])
+        run_a.kill()
+    if run_a.returncode != 0:
+        raise AssertionError(f"train restart: run A exited "
+                             f"{run_a.returncode}: {err[-4000:]}")
     if f"restored checkpoint at step {killed_at}" not in out:
         raise AssertionError(f"train restart: run B did not restore step "
                              f"{killed_at}: {out}")
@@ -3818,6 +3864,7 @@ def phase_train(torch, ops):
     record and the main path's launches."""
     from repro_torch import configs
 
+    t0 = time.perf_counter()
     worst = {}
     for arch in configs.ARCH_IDS:
         rel, w = train_card_equals_cpu(torch, arch)
@@ -3828,6 +3875,7 @@ def phase_train(torch, ops):
         f"{worst['loss']:.3g}, limit {TRAIN_LOSS_TOL}; max|d| gradients "
         f"{worst['grads']:.3g}, updated parameters {worst['params']:.3g}, "
         f"mu {worst['mu']:.3g}, nu {worst['nu']:.3g})")
+    t1 = time.perf_counter()
     try:
         rec = train_full(torch, ops, TRAIN_BATCH)
     except torch.cuda.OutOfMemoryError as exc:
@@ -3836,7 +3884,10 @@ def phase_train(torch, ops):
         gc.collect()
         torch.cuda.empty_cache()
         rec = train_full(torch, ops, TRAIN_BATCH // 2)
+    t2 = time.perf_counter()
     rec["restart_killed_at"] = train_restart(torch)
+    say(f"train: wall s: SMOKE steps {t1 - t0:.1f}, {TRAIN_ARCH} "
+        f"{t2 - t1:.1f}, restart {time.perf_counter() - t2:.1f}")
     return rec
 
 
@@ -3849,7 +3900,12 @@ MESH_STEP_B, MESH_STEP_S = 4, 64     # the SMOKE step's global batch
 # every leaf / max|p|. fp32 sums in another order (TF32 off); bf16 rounds
 # each partial sum
 MESH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-MESH_TRAIN_STEPS = 2       # timed full-width sharded steps, after one warm
+MESH_TRAIN_STEPS = 1       # timed full-width sharded steps, after one warm
+# ((c) and (f); 2 before (e) and (f) joined the phase)
+# (c)'s depth: Phi-4-mini at full width and MESH_FULL_LAYERS of its 32
+# layers (all 32 until (e) and (f) joined the phase: a step took 28-43 s
+# of gloo's host staging, and the script outgrew its time limit)
+MESH_FULL_LAYERS = 4
 # the gloo collectives probed on CUDA tensors (4 ranks on the one card)
 GLOO_PROBE = ("all_reduce", "broadcast", "all_gather",
               "all_gather_into_tensor", "reduce_scatter_tensor",
@@ -4059,8 +4115,174 @@ def mesh_step(torch, rank):
     return out
 
 
+# (e): every family beside the dense ones, SMOKE on (data 2, model 2)
+MESH_FAMILIES = ("granite_moe_1b_a400m", "qwen3_moe_30b_a3b",
+                 "whisper_large_v3", "xlstm_1_3b", "zamba2_2_7b")
+MESH_DECODE = 4            # decode steps after the prefill
+# (f): Granite-3.0-1B-A400M whole on (data 1, model 4)
+MESH_MOE_ARCH = "granite_moe_1b_a400m"
+MESH_MOE_LOSS_TOL = 1e-2   # (f)'s step-1 loss against the unsharded one
+
+
+def _whole(t):
+    from repro_torch.distributed.sharding import is_dtensor
+
+    return (t.full_tensor() if is_dtensor(t) else t).detach().float()
+
+
+def _rel(got, want) -> float:
+    """||got - want|| / ||want|| (Frobenius)."""
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def family_serve(torch, model, cfg, mesh=None):
+    """A prefill of MESH_STEP_S tokens (Whisper: and its frames) and
+    MESH_DECODE decode steps on seeded tokens, the cache placed by
+    ``cache_specs`` on a mesh: the logits of every step (whole) and the
+    MoE routes dropped in the prefill and in the decode steps (this rank's
+    experts, its groups)."""
+    from repro_torch.distributed import partition as pt
+    from repro_torch.models import api, moe
+
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    B, S, n = MESH_STEP_B, MESH_STEP_S, MESH_STEP_S + MESH_DECODE
+    toks = torch.randint(4, cfg.vocab_size, (B, S + MESH_DECODE),
+                         generator=g, device=DEVICE)
+    extra = ()
+    if cfg.family == "audio":
+        extra = (torch.randn((B, cfg.encoder_seq, cfg.d_model), generator=g,
+                             device=DEVICE).to(model.lm_head.dtype),)
+    cache = model.init_cache(B, n)
+    if mesh is not None:
+        cache = pt.distribute(cache, pt.cache_specs(
+            api.init_cache_shape(cfg, B, n), mesh, B, n), mesh)
+        toks, extra = pt.distribute((toks, extra), pt.batch_specs(
+            (toks, extra), mesh, B), mesh)
+    logits, drops = [], {}
+    with torch.no_grad():
+        with moe.count_drops() as d:
+            lg, cache = model.prefill(toks[:, :S], cache, *extra)
+        logits.append(_whole(lg))
+        drops["prefill"] = dict(d)
+        with moe.count_drops() as d:
+            for i in range(MESH_DECODE):
+                lg, cache = model.decode_step(toks[:, S + i:S + i + 1], cache)
+                logits.append(_whole(lg))
+        drops["decode"] = dict(d)
+    return torch.stack(logits), drops
+
+
+def mesh_family(torch, mesh, rank, arch, dtype, capacity_factor=None):
+    """(e) one case: ``arch``'s SMOKE config in ``dtype`` on mesh (data 2,
+    model 2), seed 0 on every rank: one train step against the unsharded
+    step, a prefill and MESH_DECODE decode steps against the unsharded
+    model's logits (both on rank 0), this rank's attention launches in the
+    sharded step and serve run, and the MoE routes dropped."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.distributed import partition as pt
+    from repro_torch.distributed.sharding import sharding_rules
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step, shard_model)
+
+    cfg = configs.get_smoke(arch).replace(dtype=dtype)
+    if capacity_factor is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
+    tcfg = TrainConfig()
+    b = synthetic_batch(DataConfig(seq_len=MESH_STEP_S,
+                                   global_batch=MESH_STEP_B),
+                        cfg.vocab_size, 0)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}
+    if cfg.family == "audio":
+        g = torch.Generator(device=DEVICE).manual_seed(3)
+        batch["frames"] = torch.randn((MESH_STEP_B, cfg.encoder_seq,
+                                       cfg.d_model), generator=g,
+                                      device=DEVICE)
+    step = make_train_step(cfg, tcfg)
+    t0 = time.perf_counter()
+    with sharding_rules(mesh):
+        state = init_train_state(0, cfg, tcfg, DEVICE, mesh)
+        ops.reset_launch_counts()
+        state, m = step(state, pt.distribute(batch, pt.batch_specs(
+            batch, mesh, MESH_STEP_B), mesh))
+        launches = ops.launch_counts()
+        params = {n: _whole(p) for n, p in state["params"].items()}
+        del state
+        model = api.get_model(cfg).init(cfg, 0, DEVICE)
+        model.requires_grad_(False)
+        shard_model(model, mesh, pt.param_specs(
+            dict(model.named_parameters()), mesh, cfg))
+        ops.reset_launch_counts()
+        logits, drops = family_serve(torch, model, cfg, mesh)
+        serve_launches = ops.launch_counts()["flash_attention"]
+        del model
+    rec = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               launches={k: launches[k] for k in
+                         ("flash_attention", "flash_attention_bwd")},
+               serve_flash=serve_launches, drops=drops,
+               seconds=time.perf_counter() - t0)
+    if rank == 0:
+        plain = init_train_state(0, cfg, tcfg, DEVICE)
+        plain, pm = step(plain, batch)
+        rec["plain_loss"] = float(pm["loss"])
+        rec["plain_grad_norm"] = float(pm["grad_norm"])
+        rec["param_rel"] = max(float((params[n] - p.detach().float()).abs()
+                                     .max()) for n, p in
+                               plain["params"].items()) / max(
+            float(p.detach().float().abs().max())
+            for p in plain["params"].values())
+        del plain
+        model = api.get_model(cfg).init(cfg, 0, DEVICE)
+        want, rec["plain_drops"] = family_serve(torch, model, cfg)
+        rec["logits_rel"] = _rel(logits, want)
+        tol = MESH_TOL[dtype]
+        for key in ("loss", "grad_norm"):
+            if abs(rec[key] - rec[f"plain_{key}"]) > tol * abs(
+                    rec[f"plain_{key}"]):
+                raise AssertionError(f"mesh (e) {arch} {dtype}: {key} "
+                                     f"{rec[key]} sharded, "
+                                     f"{rec[f'plain_{key}']} not")
+        if rec["param_rel"] > tol or rec["logits_rel"] > tol:
+            raise AssertionError(f"mesh (e) {arch} {dtype}: parameters "
+                                 f"{rec['param_rel']}, logits "
+                                 f"{rec['logits_rel']} off")
+    if cfg.family != "ssm" and (min(rec["launches"].values()) == 0
+                                or serve_launches == 0):
+        raise AssertionError(f"mesh (e) {arch} {dtype}: rank {rank} "
+                             f"launches {rec['launches']}, serve "
+                             f"{serve_launches}")
+    dist.barrier()
+    return rec
+
+
+def mesh_families(torch, rank):
+    """(e): every case of ``mesh_family``: the five archs in fp32 and
+    bf16, then the MoE archs in fp32 at capacity factor 1 (the SMOKE
+    configs' factor 8 drops no route, which would hide a routing that
+    splits a group)."""
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2, 2), ("data", "model"), "cuda", "gloo")
+    cases = [(a, dt, None) for a in MESH_FAMILIES
+             for dt in ("float32", "bfloat16")]
+    cases += [(a, "float32", 1.0) for a in MESH_FAMILIES[:2]]
+    out = {}
+    for arch, dtype, cf in cases:
+        out[(arch, dtype, cf)] = mesh_family(torch, mesh, rank, arch, dtype,
+                                             cf)
+    return out
+
+
 def mesh_probe_db_step(rank):
-    """One rank of the first mesh run: the gloo probe, (a) and (b)."""
+    """The first part of a rank of phase 17: the gloo probe, (a), (b)
+    and (e)."""
     import torch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4073,19 +4295,48 @@ def mesh_probe_db_step(rank):
               "the host and crashed the ranks, PERF.md §6, PR 23)")
     out["db"] = mesh_db(torch, rank)
     out["step"] = mesh_step(torch, rank)
+    t0 = time.perf_counter()
+    out["families"] = mesh_families(torch, rank)
+    out["families_s"] = time.perf_counter() - t0
     return out
 
 
+def mesh_ranks(rank, batch_size):
+    """One rank of phase 17's spawn: the gloo probe, (a), (b) and (e)
+    (``mesh_probe_db_step``), then (c) and (f) at batch ``batch_size``,
+    each freed before the next, with their wall seconds on this rank."""
+    import gc
+
+    import torch
+
+    out = mesh_probe_db_step(rank)
+    for key, fn in (("full", mesh_full), ("moe", mesh_moe_full)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[key] = fn(rank, batch_size)
+        out[f"{key}_s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_full_config():
+    """(c)'s config: Phi-4-mini-3.8B at full width, MESH_FULL_LAYERS
+    layers."""
+    from repro_torch import configs
+
+    return configs.get_config(TRAIN_ARCH).replace(n_layers=MESH_FULL_LAYERS)
+
+
 def mesh_full(rank, batch_size):
-    """(c): Phi-4-mini-3.8B at full width on mesh (data 1, model 4), bf16,
-    remat full, batch ``batch_size`` x TRAIN_SEQ (phase 16's seed, data
-    and lr): one warm step and MESH_TRAIN_STEPS timed (CUDA events), this
-    rank's peak memory, its parameter bytes against the specs' shard
-    sizes, and its attention kernels' launches."""
+    """(c): Phi-4-mini-3.8B at full width and MESH_FULL_LAYERS layers on
+    mesh (data 1, model 4), bf16, remat full, batch ``batch_size`` x
+    TRAIN_SEQ (phase 16's seed, data and lr): one warm step and
+    MESH_TRAIN_STEPS timed (CUDA events), this rank's peak memory, its
+    parameter bytes against the specs' shard sizes, and its attention
+    kernels' launches."""
     import torch
     import torch.distributed as dist
 
-    from repro_torch import configs
     from repro_torch.distributed import partition as pt
     from repro_torch.distributed.sharding import sharding_rules
     from repro_torch.kernels import ops
@@ -4097,16 +4348,16 @@ def mesh_full(rank, batch_size):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_mesh((1, MESH_RANKS), ("data", "model"), "cuda", "gloo")
-    cfg = configs.get_config(TRAIN_ARCH)
+    cfg = mesh_full_config()
     tcfg = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
                                        total_steps=1000))
     B, S = batch_size, TRAIN_SEQ
     torch.cuda.reset_peak_memory_stats()
     with sharding_rules(mesh):
         t0 = time.perf_counter()
-        # one rank at a time: each draws the whole model (8.9 GB) before it
-        # keeps its shards, and four whole copies at once would crowd the
-        # card the four ranks share
+        # one rank at a time: each draws the whole model before it keeps
+        # its shards, and four whole copies at once would crowd the card
+        # the four ranks share
         for r in range(MESH_RANKS):
             if rank == r:
                 state = init_train_state(0, cfg, tcfg, DEVICE, mesh)
@@ -4157,64 +4408,196 @@ def mesh_full(rank, batch_size):
                           ("flash_attention", "flash_attention_bwd")})
 
 
-def unsharded_step_loss(torch, batch_size):
-    """Phase 16's first step of Phi-4-mini (seed 0, its data and lr) at
-    ``batch_size`` x TRAIN_SEQ on the card, unsharded: its loss."""
-    import gc
+def mesh_moe_full(rank, batch_size):
+    """(f): Granite-3.0-1B-A400M at full width and depth on mesh (data 1,
+    model 4), bf16, remat full, batch ``batch_size`` x TRAIN_SEQ (seed 0,
+    phase 16's data and lr): its 32 experts split 8 a rank. One warm step
+    and MESH_TRAIN_STEPS timed (CUDA events); this rank's peak memory,
+    parameter bytes against the specs' shard sizes, the experts it holds,
+    the routes its experts dropped in a forward of the batch (no
+    gradient), and its attention kernels' launches."""
+    import torch
+    import torch.distributed as dist
 
     from repro_torch import configs
+    from repro_torch.distributed import partition as pt
+    from repro_torch.distributed.sharding import sharding_rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
     from repro_torch.train.data import DataConfig, synthetic_batch
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import (TrainConfig, init_train_state,
                                               make_train_step)
 
-    cfg = configs.get_config(TRAIN_ARCH)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((1, MESH_RANKS), ("data", "model"), "cuda", "gloo")
+    cfg = configs.get_config(MESH_MOE_ARCH)
     tcfg = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
                                        total_steps=1000))
+    B, S = batch_size, TRAIN_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    with sharding_rules(mesh):
+        t0 = time.perf_counter()
+        for r in range(MESH_RANKS):   # one rank at a time, as (c)
+            if rank == r:
+                state = init_train_state(0, cfg, tcfg, DEVICE, mesh)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        init_s = time.perf_counter() - t0
+        specs = pt.param_specs(state["params"], mesh, cfg)
+        shard_bytes = 0
+        for n, p in state["params"].items():
+            shape = list(p.shape)
+            for d, entry in enumerate(specs[n]):
+                if entry is not None:
+                    shape[d] //= MESH_RANKS
+            numel = 1
+            for size in shape:
+                numel *= size
+            shard_bytes += numel * p.element_size()
+        param_bytes = sum(p.to_local().numel() * p.to_local().element_size()
+                          for p in state["params"].values())
+        experts = state["params"]["layers.0.moe.w_gate"].to_local().shape[0]
+        data = synthetic_batch(DataConfig(seq_len=S, global_batch=B),
+                               cfg.vocab_size, 0)
+        batch = pt.distribute(
+            {k: torch.from_numpy(v).to(DEVICE) for k, v in data.items()},
+            pt.batch_specs(data, mesh, B), mesh)
+        step = make_train_step(cfg, tcfg)
+        ops.reset_launch_counts()
+        state, m = step(state, batch)                  # warm-up
+        losses = [float(m["loss"])]
+        times = []
+        for _ in range(MESH_TRAIN_STEPS):
+            dist.barrier()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            state, m = step(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+            times.append((start.elapsed_time(end),
+                          1e3 * (time.perf_counter() - t0)))
+            losses.append(float(m["loss"]))
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with torch.no_grad(), moe.count_drops() as drops:
+            state["model"].hidden(batch["tokens"])
+    return dict(batch=B, seq=S, init_s=init_s, step_ms=times, losses=losses,
+                peak_gib=peak, param_bytes=param_bytes,
+                spec_bytes=shard_bytes, experts=experts, drops=dict(drops),
+                launches={k: launches[k] for k in
+                          ("flash_attention", "flash_attention_bwd")})
+
+
+def unsharded_loss(torch, cfg, batch_size):
+    """The first train step of ``cfg`` unsharded on the card (seed 0, phase
+    16's data and lr) at ``batch_size`` x TRAIN_SEQ, the model freed
+    after: its loss and the step's peak GiB."""
+    import gc
+
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainConfig, init_train_state,
+                                              make_train_step)
+
+    tcfg = TrainConfig(opt=AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                       total_steps=1000))
+    torch.cuda.reset_peak_memory_stats()
     state = init_train_state(0, cfg, tcfg, DEVICE)
     data = synthetic_batch(DataConfig(seq_len=TRAIN_SEQ,
                                       global_batch=batch_size),
                            cfg.vocab_size, 0)
     batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in data.items()}
     loss = float(make_train_step(cfg, tcfg)(state, batch)[1]["loss"])
+    peak = torch.cuda.max_memory_allocated() / 2**30   # this step's alone
     del state, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return loss
+    return loss, peak
 
 
-def mesh_host_train(torch):
+def mesh_host_train():
     """(d): ``launch.train`` at SMOKE under ``make_host_mesh()`` (NCCL, a
-    group of one), 3 steps on the card."""
+    group of one), 3 steps on the card, started in the background: the
+    process, whose output ``mesh_host_train_line`` reads."""
     import os
     import shutil
 
     ckpt = ROOT / "build" / "mesh_host_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     env = dict(os.environ, PYTHONPATH=str(SRC))
-    out = subprocess.run(
+    return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          "llama3_8b", "--smoke", "--steps", "3", "--log-every", "1",
-         "--ckpt-dir", str(ckpt)], env=env, capture_output=True, text=True,
-        check=True, timeout=300).stdout
+         "--ckpt-dir", str(ckpt)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def mesh_host_train_line(proc):
+    """(d)'s last line, once its process has ended well."""
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        proc.kill()
     lines = out.strip().splitlines()
-    if not lines[-1].startswith("trained 3 steps in "):
-        raise AssertionError(f"mesh host train: {out}")
+    if proc.returncode != 0 or not lines or not lines[-1].startswith(
+            "trained 3 steps in "):
+        raise AssertionError(f"mesh host train: exit {proc.returncode}\n"
+                             f"{out}\n{err[-4000:]}")
     return lines[-1]
 
 
-def phase_mesh(torch, ops, unsharded_loss):
-    """Phase 17 (module docstring): four ranks on the one card over gloo;
-    returns each kernel's launches on the mesh paths (summed over the
-    ranks). ``unsharded_loss`` is ``{batch: phase 16's step-1 loss}``
-    (``None`` runs the phase alone, printing (c)'s loss unchecked)."""
+def phase_mesh(torch, ops):
+    """Phase 17 (module docstring): the unsharded steps that (c) and (f)
+    are held to, in this process with (d) beside them, then four ranks on
+    the one card over gloo, one spawn for the probe, (a), (b), (e), (c)
+    and (f). Returns each kernel's launches on the mesh paths (summed
+    over the ranks) and the phase's wall seconds."""
+    import gc
+    import os
+
+    from repro_torch import configs
     from repro_torch.distributed.spawn import run_ranks
 
-    store = ROOT / "build" / "mesh_store"
     t0 = time.perf_counter()
-    first = run_ranks(mesh_probe_db_step, MESH_RANKS, store_dir=str(store),
-                      cuda_device=0, timeout=900)
-    db = [r["db"] for r in first]
+    host = mesh_host_train()
+    try:
+        want_c, _ = unsharded_loss(torch, mesh_full_config(), TRAIN_BATCH)
+        t_f = time.perf_counter()
+        want_f, plain_peak = unsharded_loss(
+            torch, configs.get_config(MESH_MOE_ARCH), TRAIN_BATCH)
+        plain_f = time.perf_counter() - t_f
+    except BaseException:
+        host.kill()
+        raise
+    host_line = mesh_host_train_line(host)
+    say(f"mesh (f): {MESH_MOE_ARCH} unsharded on the card, batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}: step-1 loss {want_f:.6f}, peak "
+        f"{plain_peak:.2f} GiB, {plain_f:.1f} s")
+    say(f"mesh host (d): {host_line}")
+    t_unsharded = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    say(f"mesh: before the ranks, this process holds "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved); the card "
+        f"has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
+    # the four ranks' caching allocators share one card: segments that
+    # grow in place keep each one's reserve near what it holds (read by
+    # each rank as its CUDA starts; this process's allocator is set)
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = run_ranks(mesh_ranks, MESH_RANKS, TRAIN_BATCH,
+                          store_dir=str(ROOT / "build" / "mesh_store"),
+                          cuda_device=0, timeout=900)
+    finally:
+        del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+    db = [r["db"] for r in ranks]
     if any(d["mesh_searches"] != 20 or d["launches"] < 20 for d in db):
         raise AssertionError(f"mesh DB: searches and launches "
                              f"{[(d['mesh_searches'], d['launches']) for d in db]}")
@@ -4230,7 +4613,7 @@ def phase_mesh(torch, ops, unsharded_loss):
         f"{[round(d['mesh_ms'][0], 1) for d in db]}; host-side merge on the "
         f"card (one process) {db[0]['host_ms']:.3f} ms; each rank's card "
         f"memory {[round(d['card_mib']) for d in db]} MiB")
-    step = [r["step"] for r in first]
+    step = [r["step"] for r in ranks]
     for dtype, rec in step[0].items():
         say(f"mesh step (b) {dtype}: llama3 SMOKE on (data 2, model 2), "
             f"batch {MESH_STEP_B} x {MESH_STEP_S}: loss {rec['loss']:.6f} "
@@ -4243,72 +4626,119 @@ def phase_mesh(torch, ops, unsharded_loss):
         for r in step:
             if min(r[dtype]["launches"].values()) == 0:
                 raise AssertionError(f"mesh step: launches {r[dtype]}")
-    t_first = time.perf_counter() - t0
-    import gc
+    fams = [r["families"] for r in ranks]
+    for key, rec in fams[0].items():
+        arch, dtype, cf = key
+        line = (f"mesh (e) {arch} {dtype}"
+                f"{'' if cf is None else f' capacity factor {cf}'}: SMOKE "
+                f"on (data 2, model 2), batch {MESH_STEP_B} x {MESH_STEP_S}"
+                f": loss {rec['loss']:.6f} against {rec['plain_loss']:.6f} "
+                f"unsharded, grad_norm {rec['grad_norm']:.6f} against "
+                f"{rec['plain_grad_norm']:.6f}, parameters max|d|/max|p| "
+                f"{rec['param_rel']:.3g}, prefill + {MESH_DECODE} decode "
+                f"logits ||d||/||want|| {rec['logits_rel']:.3g} (limit "
+                f"{MESH_TOL[dtype]}); attention launches by rank (step) "
+                f"{[f[key]['launches'] for f in fams]}, (prefill) "
+                f"{[f[key]['serve_flash'] for f in fams]}; "
+                f"{rec['seconds']:.1f} s")
+        if cf is not None:
+            line += (f"; routes dropped unsharded: prefill "
+                     f"{rec['plain_drops']['prefill']['dropped']} of "
+                     f"{rec['plain_drops']['prefill']['routed']}, decode "
+                     f"{rec['plain_drops']['decode']['dropped']} of "
+                     f"{rec['plain_drops']['decode']['routed']}; by rank "
+                     f"(its experts, its groups): prefill "
+                     f"{[f[key]['drops']['prefill']['dropped'] for f in fams]}"
+                     f", decode "
+                     f"{[f[key]['drops']['decode']['dropped'] for f in fams]}")
+        say(line)
+    full = [r["full"] for r in ranks]
+    report_mesh_full(full, want_c)
+    moe = [r["moe"] for r in ranks]
+    report_mesh_moe(moe, want_f)
+    wall = time.perf_counter() - t0
+    t_fam, t_c, t_moe = (max(r[k] for r in ranks)
+                         for k in ("families_s", "full_s", "moe_s"))
+    seconds = {"mesh (a)-(d)": wall - t_fam - t_moe - plain_f,
+               "mesh (e)": t_fam, "mesh (f)": t_moe + plain_f}
+    say(f"mesh: wall s: unsharded (c) and (f) with (d) beside them "
+        f"{t_unsharded:.1f} (of it (f)'s {plain_f:.1f}), spawn + probe + "
+        f"(a) + (b) {wall - t_unsharded - t_fam - t_c - t_moe:.1f}, (c) "
+        f"{t_c:.1f}, (e) {t_fam:.1f}, (f) {t_moe:.1f} on the ranks")
+    launches = {"topk_search": sum(d["launches"] for d in db)}
+    for k in ("flash_attention", "flash_attention_bwd"):
+        launches[k] = (sum(r[dt]["launches"][k] for r in step for dt in r)
+                       + sum(r["launches"][k] for r in full)
+                       + sum(rec["launches"][k] for f in fams
+                             for rec in f.values())
+                       + sum(r["launches"][k] for r in moe))
+        if k == "flash_attention":
+            launches[k] += sum(rec["serve_flash"] for f in fams
+                               for rec in f.values())
+    return launches, seconds
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    free, total = torch.cuda.mem_get_info()
-    say(f"mesh full (c): before it, this process holds "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-        f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved); the card "
-        f"has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free")
-    # the four ranks' caching allocators share one card: segments that
-    # grow in place keep each one's reserve near what it holds (read by
-    # each rank as its CUDA starts; this process's allocator is set)
-    import os
 
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    try:
-        full = run_ranks(mesh_full, MESH_RANKS, TRAIN_BATCH,
-                         store_dir=str(store), cuda_device=0, timeout=600)
-    except RuntimeError as exc:
-        if "OutOfMemoryError" not in str(exc):
-            raise
-        say(f"mesh full (c): batch {TRAIN_BATCH} does not fit four ranks "
-            f"on one card; halving it")
-        full = run_ranks(mesh_full, MESH_RANKS, TRAIN_BATCH // 2,
-                         store_dir=str(store), cuda_device=0, timeout=600)
-    finally:
-        del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+def report_mesh_full(full, want):
+    """(c): prints and checks the ranks' records against the unsharded
+    step-1 loss ``want``."""
     rec = full[0]
-    if unsharded_loss is not None and rec["batch"] not in unsharded_loss:
-        # phase 16 ran another batch: the unsharded step here, alone
-        unsharded_loss[rec["batch"]] = unsharded_step_loss(torch,
-                                                           rec["batch"])
-    want = (unsharded_loss or {}).get(rec["batch"])
-    rel = (abs(rec["losses"][0] - want) / abs(want) if want is not None
-           else float("nan"))
+    rel = abs(rec["losses"][0] - want) / abs(want)
     step_ms = [max(r["step_ms"][i][0] for r in full)
                for i in range(MESH_TRAIN_STEPS)]
-    say(f"mesh full (c): {TRAIN_ARCH} bf16 on (data 1, model 4), batch "
-        f"{rec['batch']} x {rec['seq']}, gloo on one card: step ms (CUDA "
-        f"events, slowest rank) {[round(t, 1) for t in step_ms]}, host "
+    say(f"mesh full (c): {TRAIN_ARCH} at full width, {MESH_FULL_LAYERS} "
+        f"layers, bf16 on (data 1, model 4), batch {rec['batch']} x "
+        f"{rec['seq']}, gloo on one card: step ms (CUDA events, slowest "
+        f"rank) {[round(t, 1) for t in step_ms]}, host "
         f"{[round(max(r['step_ms'][i][1] for r in full), 1) for i in range(MESH_TRAIN_STEPS)]}; "
         f"init {rec['init_s']:.1f} s; peak GiB by rank "
         f"{[round(r['peak_gib'], 2) for r in full]}; parameter bytes by rank "
         f"{[r['param_bytes'] for r in full]} against the specs' "
         f"{rec['spec_bytes']}; losses {[round(x, 4) for x in rec['losses']]}"
-        f", step 1 against phase 16's unsharded {want} (relative "
-        f"{rel:.3g}, limit {MESH_TOL['bfloat16']}); launches by rank "
+        f", step 1 against the unsharded {want:.6f} (relative {rel:.3g}, "
+        f"limit {MESH_TOL['bfloat16']}); launches by rank "
         f"{[r['launches'] for r in full]}")
     if any(r["param_bytes"] != r["spec_bytes"] for r in full):
         raise AssertionError("mesh full: parameter bytes off the specs")
-    if want is not None and not rel <= MESH_TOL["bfloat16"]:
+    if not rel <= MESH_TOL["bfloat16"]:
         raise AssertionError(f"mesh full: step-1 loss {rec['losses'][0]} "
                              f"against {want}")
     if any(min(r["launches"].values()) == 0 for r in full):
         raise AssertionError("mesh full: an attention kernel not launched")
-    t_host = time.perf_counter()
-    say(f"mesh host (d): {mesh_host_train(torch)}")
-    say(f"mesh: wall s: probe + (a) + (b) {t_first:.1f}, (c) "
-        f"{t_host - t0 - t_first:.1f}, (d) {time.perf_counter() - t_host:.1f}")
-    launches = {"topk_search": sum(d["launches"] for d in db)}
-    for k in ("flash_attention", "flash_attention_bwd"):
-        launches[k] = (sum(r[dt]["launches"][k] for r in step for dt in r)
-                       + sum(r["launches"][k] for r in full))
-    return launches, dict(probe=first[0]["probe"], db=db, step=step,
-                          full=full, step_ms=step_ms, loss_rel=rel)
+
+
+def report_mesh_moe(ranks, want):
+    """(f): prints and checks the ranks' records against the unsharded
+    step-1 loss ``want``."""
+    rec = ranks[0]
+    rel = abs(rec["losses"][0] - want) / abs(want)
+    step_ms = [max(r["step_ms"][i][0] for r in ranks)
+               for i in range(MESH_TRAIN_STEPS)]
+    say(f"mesh (f): {MESH_MOE_ARCH} FULL (24 layers, d 1,024, 32 experts "
+        f"top-8, expert d_ff 512, vocab 49,155) bf16 on (data 1, model 4), "
+        f"remat full, batch {rec['batch']} x {rec['seq']}, gloo on one "
+        f"card: step ms (CUDA events, slowest rank) "
+        f"{[round(t, 1) for t in step_ms]}, host "
+        f"{[round(max(r['step_ms'][i][1] for r in ranks), 1) for i in range(MESH_TRAIN_STEPS)]}"
+        f"; init {rec['init_s']:.1f} s; peak GiB by rank "
+        f"{[round(r['peak_gib'], 2) for r in ranks]}; parameter bytes by "
+        f"rank {[r['param_bytes'] for r in ranks]} against the specs' "
+        f"{rec['spec_bytes']}; experts held by rank "
+        f"{[r['experts'] for r in ranks]}; routes dropped by rank (its "
+        f"experts, a forward of the batch) "
+        f"{[(r['drops']['dropped'], r['drops']['routed']) for r in ranks]}"
+        f"; losses {[round(x, 4) for x in rec['losses']]}, step 1 against "
+        f"the unsharded {want:.6f} (relative {rel:.3g}, limit "
+        f"{MESH_MOE_LOSS_TOL}); attention launches by rank "
+        f"{[r['launches'] for r in ranks]}")
+    if any(r["param_bytes"] != r["spec_bytes"] for r in ranks):
+        raise AssertionError("mesh (f): parameter bytes off the specs")
+    if any(r["experts"] != 32 // MESH_RANKS for r in ranks):
+        raise AssertionError("mesh (f): experts not split over the ranks")
+    if not rel <= MESH_MOE_LOSS_TOL:
+        raise AssertionError(f"mesh (f): step-1 loss {rec['losses'][0]} "
+                             f"against {want}")
+    if any(min(r["launches"].values()) == 0 for r in ranks):
+        raise AssertionError("mesh (f): an attention kernel not launched")
 
 
 def main() -> int:
@@ -4407,9 +4837,8 @@ def main() -> int:
     timings["train"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    mesh_launches, _ = phase_mesh(torch, ops,
-                                  {train["batch"]: train["losses"][0]})
-    timings["mesh"] = time.perf_counter() - t0
+    mesh_launches, mesh_seconds = phase_mesh(torch, ops)
+    timings.update(mesh_seconds)
     t0 = time.perf_counter()
     moe_flash_launches = phase_moe(torch, ops)
     timings["moe"] = time.perf_counter() - t0

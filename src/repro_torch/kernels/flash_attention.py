@@ -323,6 +323,10 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @flash_attention_op.register_fake
 def _(q, k, v, causal, window, with_lse, softcap=0.0):
+    # contiguous results: DTensor takes a result's global strides from
+    # here, and they must claim no contiguity that a kernel's local result
+    # lacks (the forward's keeps q's layout on one path and not on
+    # another; a view of a result is then copied where it must be)
     lse_shape = q.shape[:3] if with_lse else (0,)
     return (q.new_empty(q.shape),
             q.new_empty(lse_shape, dtype=torch.float32))
@@ -344,7 +348,7 @@ def flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @flash_attention_bwd_op.register_fake
 def _(q, k, v, o, dout, lse, causal, window, softcap=0.0):
-    return (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+    return tuple(t.new_empty(t.shape) for t in (q, k, v))
 
 
 def _setup_context(ctx, inputs, output):
@@ -384,8 +388,9 @@ def _(q, k, v, causal, window, with_lse, softcap=0.0):
 def _(q, k, v, o, dout, lse, causal, window, softcap=0.0):
     from repro_torch.kernels import ref
 
-    return ref.flash_attention_bwd(q, k, v, o, dout, lse, causal=causal,
-                                   window=window, softcap=softcap)
+    return tuple(g.contiguous() for g in ref.flash_attention_bwd(
+        q, k, v, o, dout, lse, causal=causal, window=window,
+        softcap=softcap))
 
 
 # -- DTensor: each rank's kernel on its local batch rows or heads ------------

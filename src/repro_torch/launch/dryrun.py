@@ -15,10 +15,6 @@ Usage:
   python -m repro_torch.launch.dryrun --arch llama3_8b --shape train_4k
   python -m repro_torch.launch.dryrun --arch llama3_8b --shape train_4k --multi-pod
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--out build/dryrun]
-
-The dense and vlm families are lowered in this slice; the MoE, audio, ssm
-and hybrid archs raise ``NotImplementedError`` and ``--all`` lists them
-under "not ported" (ROADMAP.md, queue 1, "Distribution, the rest").
 """
 from __future__ import annotations
 
@@ -139,7 +135,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         return {"arch": arch, "shape": shape_name, "status": "skipped",
                 "reason": "long_500k requires a sub-quadratic token path "
                           "(full-attention arch)"}
-    specs_lib.require_sharded(cfg)
     if mesh_shape is None:
         mesh_shape, mesh_axes = production_shape(multi_pod)
     n_chips = 1
@@ -168,7 +163,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
     })
     if verbose:
         gib = 2 ** 30
-        print(f"[{arch} x {shape_name} x {report['mesh']}] kind={cell.kind}")
+        print(f"[{arch} x {shape_name} x {report['mesh']}] kind={cell.kind}"
+              f" lowered in {t_lower:.1f} s")
         print(f"  per device: args={per_device['arguments'] / gib:.2f}GiB "
               f"out={per_device['outputs'] / gib:.2f}GiB temp=not measured")
         print(f"  cost: flops/chip={report['flops_per_chip']:.3e} "
@@ -207,7 +203,7 @@ def main(argv=None):
     else:
         ap.error("--arch and --shape, or --all")
 
-    failures, not_ported, n_ok = [], [], 0
+    failures, n_ok = [], 0
     for arch, shape in cells:
         try:
             r = run_cell(arch, shape, multi_pod=args.multi_pod,
@@ -216,22 +212,15 @@ def main(argv=None):
                 print(f"[{arch} x {shape}] SKIP: {r['reason']}")
             else:
                 n_ok += 1
-        except NotImplementedError as e:
-            not_ported.append((arch, shape, str(e)))
         except Exception as e:   # report every failing cell, then fail
             traceback.print_exc()
             failures.append((arch, shape, repr(e)))
-    if not_ported:
-        print("NOT PORTED (not counted as passed):")
-        for arch, shape, why in not_ported:
-            print(f"  {arch} x {shape}: {why}")
     if failures:
         print("FAILURES:")
         for f in failures:
             print(" ", f)
         sys.exit(1)
-    print(f"dry-run ok: {n_ok} cells lowered, {len(not_ported)} not ported, "
-          f"{len(cells) - n_ok - len(not_ported)} skipped")
+    print(f"dry-run ok: {n_ok} cells lowered, {len(cells) - n_ok} skipped")
 
 
 if __name__ == "__main__":

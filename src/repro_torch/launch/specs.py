@@ -15,11 +15,10 @@ specs. Shape semantics follow the reference:
 ``lower_cell`` places the inputs as ``meta`` DTensors by their specs and
 runs the step once under the mesh's sharding rules, counting one rank's
 local operations and its collectives (``roofline.op_cost``): the port's
-counterpart of the reference's AOT ``lower``.
-
-This slice lowers the dense and vlm families. The MoE family (expert
-parallelism), Whisper, xLSTM and Zamba2 raise ``NotImplementedError``
-(ROADMAP.md, queue 1, "Distribution, the rest").
+counterpart of the reference's AOT ``lower``. Every family lowers: the
+dense, MoE (expert-parallel) and vlm transformers, Whisper (its frames
+beside the tokens, its self and cross caches), xLSTM and Zamba2 (their
+recurrent states in the cache).
 """
 from __future__ import annotations
 
@@ -34,10 +33,6 @@ from repro_torch.models.config import ModelConfig, ShapeConfig
 from repro_torch.train.train_step import (TrainConfig, make_train_step,
                                           shard_model, train_state)
 
-SHARDED_FAMILIES = ("dense", "vlm")
-NOT_PORTED = ("the sharded execution of the {family} family (its constrain "
-              "sites{extra}) is not ported yet: ROADMAP.md, queue 1, "
-              "'Distribution, the rest'")
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -88,19 +83,11 @@ def family_rules(cfg: ModelConfig) -> dict:
     return {}
 
 
-def require_sharded(cfg: ModelConfig) -> None:
-    if cfg.family not in SHARDED_FAMILIES:
-        extra = {"moe": ", expert parallelism"}.get(cfg.family, "")
-        raise NotImplementedError(NOT_PORTED.format(family=cfg.family,
-                                                    extra=extra))
-
-
 def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                train_cfg: TrainConfig = None) -> Cell:
     """The cell of ``cfg`` at ``shape`` on ``mesh``; its model and state
     live on ``meta`` and are placed on the mesh here (nothing is
     allocated)."""
-    require_sharded(cfg)
     B, S = shape.global_batch, shape.seq_len
     model = api.build(cfg, device="meta")
     if shape.kind == "train":
@@ -126,7 +113,8 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
         c = dict(c, pos=0 if shape.kind == "prefill" else S - 1)
         with torch.no_grad():
             if shape.kind == "prefill":
-                return model.prefill(b[key], c)
+                extra = (b["frames"],) if cfg.family == "audio" else ()
+                return model.prefill(b[key], c, *extra)
             return model.decode_step(b[key], c)
 
     return Cell(fn=run, inputs=(batch, cache), in_specs=(bspecs, cspecs),

@@ -10,10 +10,12 @@ for the smoke configs on a host). The flags are the reference's
 
 The step runs under a device mesh, as the reference's does: the host mesh
 (1, 1) by default (a process group of one; the state stays unsharded),
-or with ``--production-mesh`` the (16, 16) ("data", "model") mesh, and
-with ``--multi-pod`` (2, 16, 16) ("pod", "data", "model"), under
-``torchrun`` with a world size equal to the mesh's (each rank on
-``cuda:LOCAL_RANK``). The train state is then placed by
+or with ``--production-mesh`` the (16, 16) ("data", "model") mesh, with
+``--multi-pod`` (2, 16, 16) ("pod", "data", "model"), or with ``--mesh
+D,M`` a (D, M) ("data", "model") mesh, under ``torchrun`` with a world
+size equal to the mesh's (each rank on ``cuda:LOCAL_RANK``; gloo for
+``--device cpu``). Every family trains sharded: the dense, MoE
+(expert-parallel) and vlm transformers, Whisper, xLSTM and Zamba2. The train state is then placed by
 ``distributed.partition`` (TP by the name rules, ZeRO-1 moments), each
 data rank reads its own batch shard (``train.data``'s ``shard`` and
 ``n_shards``), and rank 0 prints and writes the checkpoints.
@@ -39,7 +41,8 @@ from repro_torch.distributed import partition as pt
 from repro_torch.distributed.fault_tolerance import (
     FaultTolerantRunner, HeartbeatTracker, StragglerDetector)
 from repro_torch.distributed.sharding import sharding_rules
-from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.launch.mesh import (make_host_mesh, make_mesh,
+                                    make_production_mesh)
 from repro_torch.monitor.monitor import MonitorConfig, ResourceMonitor
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.data import DataConfig, batch_iterator
@@ -107,6 +110,8 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--production-mesh", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--mesh", default="",
+                    help="D,M: a (data, model) mesh of that shape")
     ap.add_argument("--monitor-out", default="")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
@@ -118,10 +123,14 @@ def main(argv=None):
     if device.type == "cuda" and "LOCAL_RANK" in os.environ:
         device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
         torch.cuda.set_device(device)
-    mesh = (make_production_mesh(multi_pod=args.multi_pod,
-                                 device_type=device.type)
-            if args.production_mesh or args.multi_pod
-            else make_host_mesh(device_type=device.type))
+    if args.mesh:
+        mesh = make_mesh(tuple(int(v) for v in args.mesh.split(",")),
+                         ("data", "model"), device.type)
+    elif args.production_mesh or args.multi_pod:
+        mesh = make_production_mesh(multi_pod=args.multi_pod,
+                                    device_type=device.type)
+    else:
+        mesh = make_host_mesh(device_type=device.type)
     try:
         with sharding_rules(mesh):
             return _train(args, device, mesh)

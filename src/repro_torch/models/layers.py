@@ -286,17 +286,144 @@ def multihead_attention(params: Params, x: torch.Tensor,
                                 use_rope=use_rope, positions_3d=positions_3d)
         return attention_out(params, q, k, v, cfg, causal, window)
     hd = cfg.resolved_head_dim
-    B, S = x.shape[:2]
-    n_rep = cfg.n_heads // cfg.n_kv_heads
     q = _split_heads(x @ params["wq"], cfg.n_heads, hd)
     k = _split_heads(kv_x @ params["wk"], cfg.n_kv_heads, hd)
     v = _split_heads(kv_x @ params["wv"], cfg.n_kv_heads, hd)
-    q = q.reshape(B, S, cfg.n_kv_heads, n_rep, hd)
+    if is_dtensor(q):
+        out = _heads_local(_cross_core, q, k, v, cfg.attn_logit_softcap)
+        return _merge_heads(out) @ params["wo"]
+    return _cross_core(q, k, v, cfg.attn_logit_softcap).flatten(2) \
+        @ params["wo"]
+
+
+def _cross_core(q, k, v, softcap: float):
+    """Unmasked attention of ``q [B,S,H,hd]`` over ``k, v [B,T,Hkv,hd]``
+    as the reference's einsums compute it -> ``[B,S,H,hd]``."""
+    B, S, H, hd = q.shape
+    kv = k.shape[2]
+    q = q.reshape(B, S, kv, H // kv, hd)
     scores = torch.einsum("bqkrd,bmkd->bkrqm", q, k).float() / math.sqrt(hd)
-    scores = ref.softcap_logits(scores, cfg.attn_logit_softcap)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bkrqm,bmkd->bqkrd", probs, v)
-    return out.reshape(B, S, cfg.n_heads * hd) @ params["wo"]
+    scores = ref.softcap_logits(scores, softcap)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bkrqm,bmkd->bqkrd", probs, v).reshape(B, S, H, hd)
+
+
+def _to(t, pl):
+    """The DTensor ``t`` at placements ``pl``."""
+    return t if list(t.placements) == list(pl) else \
+        t.redistribute(t.device_mesh, pl)
+
+
+def local_rows(fn: Callable, acts: Sequence, weights: Sequence = (),
+               n_out: int = 1):
+    """``fn(*acts, *weights)``, a computation over rows (every output row
+    from the same input rows alone: projections, norms, gates), on each
+    rank's own rows of the DTensor activations ``acts`` (placed alike; the
+    outputs take their placements) with the ``weights`` gathered whole:
+    stored sharded by their specs, gathered at use, their gradients (a
+    partial sum over the ranks that hold other rows) reduce-scattered
+    back. No tensor is reshaped and no operation runs at the DTensor
+    level, whose rules differ between torch releases (the card's refuses
+    a flatten of a sharded sequence, a roll, and a Partial sum beside a
+    shard). A decode step gathers its weights too: its cost is in the
+    dry-run's decode cells (PERF.md §5). Plain tensors: ``fn`` itself."""
+    if not is_dtensor(acts[0]):
+        return fn(*acts, *weights)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = acts[0].device_mesh
+    # a pending sum (Partial) is reduced first: fn reads whole values
+    pl = [p if isinstance(p, Shard) else Replicate()
+          for p in acts[0].placements]
+    rep = [Replicate()] * mesh.ndim
+    summed = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+    ws = [_to(w, rep) if is_dtensor(w) else like(w, acts[0])
+          for w in weights]
+    return local_map(
+        fn, out_placements=(pl,) * n_out if n_out > 1 else pl,
+        in_placements=(pl,) * len(acts) + (rep,) * len(ws),
+        in_grad_placements=(pl,) * len(acts) + (summed,) * len(ws),
+        device_mesh=mesh)(*(_to(a, pl) for a in acts), *ws)
+
+
+def rows_placement(x):
+    """The placements of ``x`` with its batch rows (dim 0) kept and every
+    other dim gathered: the layout of a sequence gathered whole."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(0) if p == Shard(0) else Replicate()
+            for p in x.placements]
+
+
+def row_span(x) -> Tuple[int, int]:
+    """(first position, positions) of this rank's sequence rows of a
+    ``[B, S, ...]`` DTensor (all of them when dim 1 is not sharded)."""
+    rows = local_block(x)[1]
+    return rows.start, rows.stop - rows.start
+
+
+def local_block(t) -> Tuple[slice, ...]:
+    """This rank's block of a DTensor: one slice a dim."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    shape, off = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    return tuple(slice(o, o + n) for o, n in zip(off, shape))
+
+
+def assign(leaf: torch.Tensor, index: Tuple, value: torch.Tensor) -> None:
+    """``leaf[index] = value`` in place, ``index`` a tuple over leading
+    dims of ints and whole-dim slices (a layer of a stacked cache leaf;
+    a ring buffer's slot). On a DTensor each rank writes its own block:
+    the rank whose shard holds each int index (``cache_specs`` may shard a
+    stacked dim) writes the part of ``value`` its shard covers; nothing
+    runs at the DTensor level but the value's redistribution."""
+    if not is_dtensor(leaf):
+        leaf[index] = value
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    kept = [d for d, i in enumerate(index) if not isinstance(i, int)]
+    kept += list(range(len(index), leaf.ndim))   # leaf dim of each value dim
+    want = [Shard(kept.index(p.dim)) if isinstance(p, Shard)
+            and p.dim in kept else Replicate() for p in leaf.placements]
+    local = _to(value, want).to_local() if is_dtensor(value) else value
+    at = []
+    for i, b in zip(index, local_block(leaf)):
+        if isinstance(i, int):
+            if not b.start <= i < b.stop:
+                return                 # another rank's shard holds it
+            at.append(i - b.start)
+        else:
+            at.append(slice(None))
+    leaf.to_local()[tuple(at)] = local.to(leaf.dtype)
+
+
+def _heads_local(fn, q, k, v, *args):
+    """``fn(q, k, v, *args)`` (an attention core, ``[B,S,H,hd]`` out) on
+    each rank's own rows and heads: the batch over the mesh dims that
+    shard q's rows, the heads over those that split both q's and the KV
+    heads into whole groups (``_whole_heads``), everything else gathered.
+    Each rank's result is its block of the output, so its gradients are
+    its blocks of the inputs'."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    kv = k.shape[2]
+    pl, m = [], 1
+    for size, p in zip(mesh.shape, q.placements):
+        if p == Shard(2) and kv % (m * size) == 0 and \
+                q.shape[2] % (m * size) == 0:
+            m *= size
+            pl.append(p)
+        else:
+            pl.append(Shard(0) if p == Shard(0) else Replicate())
+    return local_map(lambda *a: fn(*a, *args), out_placements=pl,
+                     in_placements=(pl, pl, pl), device_mesh=mesh)(
+        *(_to(t, pl) for t in (q, k, v)))
 
 
 def cached_attention_step(params: Params, x: torch.Tensor,
@@ -336,21 +463,107 @@ def cached_attention_step(params: Params, x: torch.Tensor,
     else:
         cache_k[:, int(index)] = k[:, 0].to(cache_k.dtype)
         cache_v[:, int(index)] = v[:, 0].to(cache_v.dtype)
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    if is_dtensor(q):
-        q = _whole_heads(q, cfg.n_kv_heads, dim=2)
-    q = q.reshape(B, 1, cfg.n_kv_heads, n_rep, hd)
-    scores = torch.einsum("bqkrd,bmkd->bkrqm", q, cache_k).float()
-    scores = ref.softcap_logits(scores / math.sqrt(hd),
-                                cfg.attn_logit_softcap)
     kpos = like(torch.arange(cache_k.shape[1], device=x.device), x)
     ok = kpos[None, :] <= pos                                    # [B, M]
     if window > 0:
         ok &= kpos[None, :] > pos - window
+    return attend_cached(q, cache_k, cache_v, ok,
+                         cfg.attn_logit_softcap) @ params["wo"]
+
+
+def attend_cached(q, cache_k, cache_v, ok, softcap: float = 0.0):
+    """One query position against a cache: ``q [B,1,H,hd]`` over ``cache_k/v
+    [B,M,Hkv,hd]`` where ``ok [B,M]`` (query head ``h`` reads KV head ``h //
+    (H // Hkv)``), the logits scaled and soft-capped in fp32, an fp32
+    softmax cast back before the product with v -> ``[B,1,H*hd]``.
+
+    On DTensors each rank attends over its own cache shard (``_attend``):
+    a cache sequence-sharded over "model" gives each rank a slice of the
+    keys, and the softmax is taken across the slices by two small
+    all-reduces (the rows' max and sum) and a third of the partial
+    outputs, never gathering the cache."""
+    if is_dtensor(q):
+        return _attend_sharded(q, cache_k, cache_v, ok, softcap)
+    return _attend(q, cache_k, cache_v, ok, softcap)
+
+
+def _attend(q, k, v, ok, softcap: float, groups=()):
+    """``attend_cached`` on local tensors; with ``groups`` (process groups
+    over which the keys are split) the softmax spans every rank's keys."""
+    import torch.distributed._functional_collectives as funcol
+
+    B, _, H, hd = q.shape
+    kv = k.shape[2]
+    q = q.reshape(B, 1, kv, H // kv, hd)
+    scores = torch.einsum("bqkrd,bmkd->bkrqm", q, k).float()
+    scores = ref.softcap_logits(scores / math.sqrt(hd), softcap)
     scores = scores.masked_fill(~ok[:, None, None, None, :], float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bkrqm,bmkd->bqkrd", probs, cache_v)
-    return out.reshape(B, 1, cfg.n_heads * hd) @ params["wo"]
+    if not groups:
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        out = torch.einsum("bkrqm,bmkd->bqkrd", probs, v)
+        return out.reshape(B, 1, H * hd)
+    top = scores.amax(-1, keepdim=True)
+    for g in groups:
+        top = funcol.wait_tensor(funcol.all_reduce(top, "max", g))
+    e = torch.exp(scores - top)
+    den = e.sum(-1, keepdim=True)
+    for g in groups:
+        den = funcol.wait_tensor(funcol.all_reduce(den, "sum", g))
+    out = torch.einsum("bkrqm,bmkd->bqkrd", (e / den).to(q.dtype), v)
+    for g in groups:
+        out = funcol.wait_tensor(funcol.all_reduce(out, "sum", g))
+    return out.reshape(B, 1, H * hd)
+
+
+def _attend_sharded(q, k, v, ok, softcap: float):
+    """``attend_cached`` on DTensors: the cache keeps its batch and
+    sequence shards (any other sharded dim, such as the head dim, is
+    gathered), q and ``ok`` take its batch shards, q's heads gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = k.device_mesh
+    kpl = [p if p in (Shard(0), Shard(1)) else Replicate()
+           for p in k.placements]
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in kpl]
+    groups = tuple(mesh.get_group(i) for i, p in enumerate(kpl)
+                   if p == Shard(1))
+    return local_map(
+        lambda *a: _attend(*a, softcap, groups), out_placements=rows,
+        in_placements=(rows, kpl, kpl, kpl), device_mesh=mesh)(
+        _to(q, rows), _to(k, kpl), _to(v, kpl), _to(like(ok, q), kpl))
+
+
+def write_prefix(cache: torch.Tensor, new) -> None:
+    """``cache[i, :, :S] = new[i]`` for every layer ``i`` of a DTensor
+    ``[L, B, max_len, ...]`` cache and the layers' ``[B, S, ...]``
+    values, in place and at once, as the reference's scan writes them.
+    Each rank writes the positions its shard holds (``cache_specs``
+    shards the sequence, and may shard the layer dim where it equals the
+    batch): the values are gathered over the sequence first."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    S = new[0].shape[1]
+    want = [Replicate() if p == Shard(2) else p for p in cache.placements]
+    vals = _to(torch.stack(new), want).to_local()
+    seq = local_block(cache)[2]
+    lo, hi = max(seq.start, 0), min(seq.stop, S)
+    if lo < hi:
+        cache.to_local()[:, :, lo - seq.start:hi - seq.start] = \
+            vals[:, :, lo:hi].to(cache.dtype)
+
+
+def placed_like(t: torch.Tensor, ref) -> torch.Tensor:
+    """``t`` at ``ref``'s placements when ``ref`` is a DTensor (a value
+    that replaces a cache leaf keeps the leaf's layout)."""
+    return _to(t, ref.placements) if is_dtensor(ref) else t
+
+
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``: a vocab-parallel lookup on a DTensor table."""
+    if is_dtensor(table):
+        return F.embedding(tokens.long(), table)
+    return table[tokens.long()]
 
 
 def _write_at(cache: torch.Tensor, new: torch.Tensor, pos) -> None:
@@ -403,21 +616,13 @@ def cached_cross_attention_step(params: Params, x: torch.Tensor,
                                 cross_k: torch.Tensor, cross_v: torch.Tensor,
                                 cfg: ModelConfig):
     """Decode-time cross attention of ``x [B,1,D]`` against the encoder's
-    precomputed ``cross_k/v [B,T,Hkv,hd]`` (K/V repeated over the query
-    groups where there are several, as the reference's ``_repeat_kv``).
-    Returns ``[B,1,D]``."""
-    hd = cfg.resolved_head_dim
-    B = x.shape[0]
-    q = _split_heads(x @ params["wq"], cfg.n_heads, hd)
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    kk, vv = cross_k, cross_v
-    if n_rep > 1:
-        kk = kk.repeat_interleave(n_rep, dim=2)
-        vv = vv.repeat_interleave(n_rep, dim=2)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, kk).float() / math.sqrt(hd)
-    probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, vv)
-    return out.reshape(B, 1, cfg.n_heads * hd) @ params["wo"]
+    precomputed ``cross_k/v [B,T,Hkv,hd]`` (query head ``h`` reads KV head
+    ``h // (H // Hkv)``, as the reference's ``_repeat_kv``; on a mesh over
+    each rank's cache shard, ``attend_cached``). Returns ``[B,1,D]``."""
+    q = _split_heads(x @ params["wq"], cfg.n_heads, cfg.resolved_head_dim)
+    ok = like(torch.ones(cross_k.shape[:2], dtype=torch.bool,
+                         device=x.device), q)
+    return attend_cached(q, cross_k, cross_v, ok) @ params["wo"]
 
 
 # -- training ------------------------------------------------------------------
@@ -457,7 +662,8 @@ def lm_loss(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
     exist at a time, forward or backward."""
     D, V = head.shape
     if is_dtensor(head):
-        xf, lf = _batch_rows(x).reshape(-1, D), _batch_rows(labels).reshape(-1)
+        xf = _Pinned.apply(_batch_rows(x).reshape(-1, D))
+        lf = _batch_rows(labels).reshape(-1)
         return _sharded_lm_loss(xf, head, lf) / _n_labels(labels)
     xf, lf = x.reshape(-1, D), labels.reshape(-1)
     rows = max(1, chunk_elems // V)
@@ -470,6 +676,22 @@ def lm_loss(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
             _head_nll_sum, *part, use_reentrant=False)
             if torch.is_grad_enabled() else _head_nll_sum(*part))
     return total / _n_labels(labels)
+
+
+class _Pinned(torch.autograd.Function):
+    """The identity on a DTensor whose gradient is redistributed to the
+    input's placements: on a 3-d mesh DTensor may return the loss's row
+    gradient split over the model dim too, which the unflatten of the
+    rows back to ``[B, S, D]`` (the reshape's backward) cannot take."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _to(g, ctx.placements)
 
 
 def _batch_rows(t):

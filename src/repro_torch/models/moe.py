@@ -19,15 +19,22 @@ expert at a decode batch of 8), as the reference's does.
 The router runs in fp32 whatever the model's dtype; its top-k takes
 ``lax.top_k``'s order (a stable descending sort, lower expert first on
 equal gates).
+
+On a mesh (DTensor activations) the sort dispatch runs expert-parallel
+(``_moe_sort_sharded``): the experts split over "model", every rank
+routing whole groups and running its own experts' products.
 """
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain, is_dtensor
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig, MoEConfig
 
@@ -83,21 +90,48 @@ def _experts(params: Params, xin: torch.Tensor, activation: str):
     return torch.einsum("gecf,efd->gecd", h, params["w_down"])
 
 
-def moe_apply_sort(params: Params, x: torch.Tensor, cfg: ModelConfig,
-                   with_aux: bool = True):
-    """Group-local sort-based dispatch. x: [G, S, D] -> ([G, S, D], aux).
+class _Drops(threading.local):
+    def __init__(self):
+        self.counts: Optional[Dict[str, int]] = None
 
-    Each group's ``S·k`` routed slots are stably sorted by expert; a slot's
-    position within its expert's segment places it in the ``[E, C]``
-    buffer, and a slot at position ``>= C`` is dropped (weight 0, token row
-    ``S``, a zero padding row). ``with_aux=False`` skips the load-balancing
-    loss (inference never reads it) and returns None in its place."""
+
+_DROPS = _Drops()
+
+
+@contextmanager
+def count_drops():
+    """Count, in the MoE layers that run inside (this thread only), the
+    routed slots and those dropped past capacity, by the experts this
+    rank holds (all of them unsharded): yields ``{"routed": n,
+    "dropped": n}``. Each layer reads its count back to the host, so
+    count in a forward pass, not a timed step."""
+    prev = _DROPS.counts
+    _DROPS.counts = {"routed": 0, "dropped": 0}
+    try:
+        yield _DROPS.counts
+    finally:
+        _DROPS.counts = prev
+
+
+def _dispatch(experts: Params, x: torch.Tensor, vals: torch.Tensor,
+              idx: torch.Tensor, cfg: ModelConfig, e0: int = 0):
+    """The sort dispatch of routed tokens ``x [G,S,D]`` (gates ``vals``,
+    expert ids ``idx`` ``[G,S,k]``) through the experts ``e0 ..
+    e0 + E_loc - 1`` whose weights ``experts`` holds (``[E_loc, ...]``):
+    ``[G,S,D]``, the sum of those experts' gated outputs (all of them when
+    ``E_loc`` is the config's ``E``).
+
+    Each group's ``S·k`` routed slots are stably sorted by expert; a
+    slot's position within its expert's segment places it in the ``[E, C]``
+    buffer, and a slot at position ``>= C`` is dropped (weight 0, token
+    row ``S``, a zero padding row). Only the held experts' slots are
+    gathered and run."""
     m = cfg.moe
     g, s, d = x.shape
     e, k = m.num_experts, m.top_k
+    e_loc = experts["w_gate"].shape[0]
     cap = expert_capacity(s, m)
     dev = x.device
-    vals, idx, gates = _router(params, x, m)            # [G,S,k]
     flat_e = idx.reshape(g, s * k)                      # expert of each slot
     flat_w = vals.reshape(g, s * k)
     flat_tok = torch.arange(s, device=dev).repeat_interleave(k)
@@ -113,19 +147,120 @@ def moe_apply_sort(params: Params, x: torch.Tensor, cfg: ModelConfig,
     # is written once, the dropped ones all land on the discarded row E*C
     slot_tok = torch.full((g, e * cap + 1), s, dtype=torch.long, device=dev)
     slot_tok.scatter_(1, slot, torch.where(keep, stok, s))
-    slot_tok = slot_tok[:, :e * cap]
     slot_w = torch.zeros((g, e * cap + 1), dtype=torch.float32, device=dev)
     slot_w.scatter_(1, slot, torch.where(keep, sw, 0.0))
-    slot_w = slot_w[:, :e * cap]
+    held = slice(e0 * cap, (e0 + e_loc) * cap)
+    slot_tok, slot_w = slot_tok[:, held], slot_w[:, held]
+    if _DROPS.counts is not None:   # the held experts' routes, and drops
+        per = F.one_hot(flat_e, e).sum(1)[:, e0:e0 + e_loc]    # [G,E_loc]
+        _DROPS.counts["routed"] += int(per.sum())
+        _DROPS.counts["dropped"] += int((per - cap).clamp(min=0).sum())
     xpad = torch.cat([x, x.new_zeros((g, 1, d))], dim=1)
     rows = torch.arange(g, device=dev)[:, None]
-    xin = xpad[rows, slot_tok].reshape(g, e, cap, d)     # [G,E,C,D]
-    out = _experts(params, xin, cfg.activation)
-    flat = out.reshape(g, e * cap, d) * slot_w[..., None].to(out.dtype)
+    xin = xpad[rows, slot_tok].reshape(g, e_loc, cap, d)  # [G,E_loc,C,D]
+    out = _experts(experts, xin, cfg.activation)
+    flat = out.reshape(g, e_loc * cap, d) * slot_w[..., None].to(out.dtype)
     y = torch.zeros((g, s + 1, d), dtype=out.dtype, device=dev)
-    y.scatter_add_(1, slot_tok[..., None].expand(g, e * cap, d), flat)
-    aux = aux_load_balance_loss(gates, idx, m) if with_aux else None
-    return y[:, :s], aux
+    y.scatter_add_(1, slot_tok[..., None].expand(g, e_loc * cap, d), flat)
+    return y[:, :s]
+
+
+def moe_apply_sort(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                   with_aux: bool = True):
+    """Group-local sort-based dispatch (``_dispatch``). x: [G, S, D] ->
+    ([G, S, D], aux). ``with_aux=False`` skips the load-balancing loss
+    (inference never reads it) and returns None in its place. A DTensor
+    ``x`` runs expert-parallel (``_moe_sort_sharded``)."""
+    if is_dtensor(x):
+        return _moe_sort_sharded(params, x, cfg, with_aux)
+    vals, idx, gates = _router(params, x, cfg.moe)      # [G,S,k]
+    y = _dispatch(params, x, vals, idx, cfg)
+    aux = aux_load_balance_loss(gates, idx, cfg.moe) if with_aux else None
+    return y, aux
+
+
+def _moe_sort_sharded(params: Params, x, cfg: ModelConfig, with_aux: bool):
+    """Expert parallelism: the sort dispatch on a mesh, its experts
+    sharded over "model" (``partition``'s specs).
+
+    Capacity is counted over a whole group, so every rank routes whole
+    groups: ``x`` is constrained to ``("batch", None, "embed")``, its
+    groups over the data dims where they divide them and its sequence
+    gathered (a training or prefill row is sequence-sharded before it; a
+    decode step's one group, the batch, is gathered across the data
+    ranks). Each rank then routes its groups (the router, gathered, in
+    fp32: the same top-k on every model rank), builds only its own
+    experts' slots of the ``[G, E, C, D]`` buffer, runs their products and
+    scatter-adds their gated outputs into a ``[G, S, D]`` partial sum
+    over the model ranks, which the caller's constrain reduce-scatters
+    onto the sequence-parallel residual (or all-reduces in decode).
+
+    What each rank sends: its sequence slice of the normed residual in the
+    all-gather before the layer, the router's ``[D, E/m]`` shard, and its
+    ``[G, S, D]`` partial output in the reduce-scatter after it; no token
+    crosses ranks by an all-to-all. The backward mirrors it (the
+    reduce-scatter's gradient is an all-gather, the gather's a
+    reduce-scatter). The load-balancing loss takes its two per-expert
+    means over every token of the global batch (sums all-reduced over
+    the data ranks), not a mean of per-rank losses."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+
+    m = cfg.moe
+    e = m.num_experts
+    x = constrain(x, "batch", None, "embed")
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    xpl = list(x.placements)
+    router = params["router"]
+    if is_dtensor(router):
+        router = router.redistribute(mesh, rep)
+    names = ("w_gate", "w_up", "w_down")
+    # the experts split where every stack is expert-sharded (the specs
+    # shard a count of experts the model dim does not divide by other
+    # dims, which are gathered here)
+    wpl = [p if all(params[n].placements[i] == Shard(0) for n in names)
+           else Replicate() for i, p in enumerate(params["w_gate"].placements)]
+    ws = [L._to(params[n], wpl) for n in names]
+    _, off = compute_local_shape_and_global_offset(ws[0].shape, mesh, wpl)
+    e0 = off[0]
+    # the experts' sum crosses the model ranks that split the experts
+    ypl = [Partial() if w == Shard(0) else p for w, p in zip(wpl, xpl)]
+    # a weight's gradient from this rank's groups is a partial sum over
+    # the data ranks that route other groups
+    def summed(pl):
+        return [Partial() if p == Shard(0) else w for w, p in zip(pl, xpl)]
+
+    vals, idx, gates = local_map(
+        lambda xl, rl: _router({"router": rl}, xl, m),
+        out_placements=(xpl, xpl, xpl), in_placements=(xpl, rep),
+        in_grad_placements=(xpl, summed(rep)), device_mesh=mesh)(x, router)
+
+    def dispatch(xl, vl, il, *wl):
+        return _dispatch(dict(zip(names, wl)), xl, vl, il, cfg, e0)
+
+    y = local_map(dispatch, out_placements=ypl,
+                  in_placements=(xpl, xpl, xpl, wpl, wpl, wpl),
+                  in_grad_placements=(ypl, ypl, xpl, *[summed(wpl)] * 3),
+                  device_mesh=mesh)(x, vals, idx, *ws)
+    if not with_aux:
+        return y, None
+    # the two per-expert sums over this rank's groups: a partial sum over
+    # the data ranks that hold other groups
+    spl = [Partial() if p == Shard(0) else Replicate() for p in xpl]
+
+    def sums(gl, il):
+        return (F.one_hot(il[..., 0], e).float().reshape(-1, e).sum(0),
+                gl.reshape(-1, e).sum(0))
+
+    tok, prob = local_map(sums, out_placements=(spl, spl),
+                          in_placements=(xpl, xpl),
+                          device_mesh=mesh)(gates, idx)
+    n = x.shape[0] * x.shape[1]
+    tok, prob = tok.redistribute(mesh, rep), prob.redistribute(mesh, rep)
+    return y, e * ((tok / n) * (prob / n)).sum()
 
 
 def moe_apply_onehot(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -186,4 +321,7 @@ MOE_IMPLS = {
 def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
               impl: str = "sort", with_aux: bool = True
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    if impl != "sort" and is_dtensor(x):
+        raise ValueError(f"the {impl!r} dispatch is a test oracle: on a "
+                         f"mesh the MoE runs the sort dispatch")
     return MOE_IMPLS[impl](params, x, cfg, with_aux)

@@ -113,8 +113,10 @@ class Block(nn.Module):
         if one_group:
             h = h.transpose(0, 1)
         y, aux = moe_lib.moe_apply(self.moe, h, cfg, moe_impl, with_aux)
-        return (y.transpose(0, 1) if one_group else y,
-                aux if with_aux else 0.0)
+        if one_group:   # back to the batch's rows (a sum over the experts'
+            # ranks on a mesh, all-reduced)
+            y = constrain(y.transpose(0, 1), "batch", None, "embed")
+        return y, aux if with_aux else 0.0
 
     def forward(self, x, positions, causal: bool, positions_3d=None,
                 moe_impl: str = "sort", with_aux: bool = False):
@@ -249,20 +251,15 @@ class Transformer(ZooModel):
         ks, vs = [], []
         for i, blk in enumerate(self.layers):
             x, k, v, _ = blk(x, positions, True, p3)
-            if sharded:   # written at once, as the reference's scan does
+            if sharded:   # written at once (layers.write_prefix)
                 ks.append(k)
                 vs.append(v)
             else:
                 cache["k"][i, :, :S] = k
                 cache["v"][i, :, :S] = v
         if sharded:
-            # a per-layer write would gather a cache whose layer dim is
-            # sharded (cache_specs shards the first dim equal to the batch)
-            for key, new in (("k", ks), ("v", vs)):
-                dst = cache[key]
-                if S != dst.shape[2]:
-                    dst = dst[:, :, :S]
-                dst.copy_(torch.stack(new).to(dst.dtype))
+            L.write_prefix(cache["k"], ks)
+            L.write_prefix(cache["v"], vs)
         if lengths is None:
             cache["pos"] = S
             x = x[:, -1:]

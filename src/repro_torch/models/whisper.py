@@ -15,6 +15,15 @@ Training (``loss_fn``): the reference's token cross entropy of the decoder
 over the encoder's output, every encoder and decoder layer recomputed in
 the backward unless ``cfg.remat`` is ``none`` (the reference checkpoints
 both scans whole, without a policy).
+
+On a mesh the layers take the reference's ``constrain`` sites: the
+residuals sequence-parallel (1,500 frames, which a 16-way model dim does
+not divide, stay whole), each normed residual gathered before the
+column-parallel products, each row-parallel output reduce-scattered
+before its add; the attention kernels by their DTensor rules (20 heads
+that the model dim does not divide are gathered); cross attention on each
+rank's rows and heads; the decode step over each rank's shard of the
+caches placed by ``cache_specs``; the logits vocab-sharded.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import constrain, is_dtensor, like
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (ZooModel, dense_init_, param,
@@ -63,6 +73,21 @@ def _ln(x, p, eps):
     return L.layernorm(x, p["w"], p["b"], eps)
 
 
+def _gathered(h):
+    """A normed residual with its sequence gathered for the column-parallel
+    products that read it (a no-op without a mesh)."""
+    return constrain(h, "batch", None, "embed")
+
+
+def _add(x, y):
+    """``x + y`` on the sequence-parallel residual: the row-parallel
+    output ``y`` (a partial sum over "model") reduce-scattered first, by a
+    redistribute that autograd records (the reference's constrain
+    sites)."""
+    y = constrain(y, "batch", "seq", "embed")
+    return constrain(x + y, "batch", "seq", "embed")
+
+
 class Whisper(ZooModel):
     """The encoder-decoder; its tensors are uninitialised until ``init``
     fills them (on ``meta`` they are shapes only). ``device=None`` is the
@@ -89,11 +114,11 @@ class Whisper(ZooModel):
 
     def _enc_layer(self, x, lp, positions):
         cfg = self.cfg
-        h = _ln(x, lp.attn_norm, cfg.norm_eps)
-        x = x + L.multihead_attention(lp.attn, h, positions, cfg,
-                                      causal=False, use_rope=False)
-        h = _ln(x, lp.mlp_norm, cfg.norm_eps)
-        return x + L.mlp_apply(lp.mlp, h, cfg.activation)
+        h = _gathered(_ln(x, lp.attn_norm, cfg.norm_eps))
+        x = _add(x, L.multihead_attention(lp.attn, h, positions, cfg,
+                                          causal=False, use_rope=False))
+        h = _gathered(_ln(x, lp.mlp_norm, cfg.norm_eps))
+        return _add(x, L.mlp_apply(lp.mlp, h, cfg.activation))
 
     def encode(self, frames: torch.Tensor,
                remat: str = "none") -> torch.Tensor:
@@ -102,26 +127,28 @@ class Whisper(ZooModel):
         cfg = self.cfg
         x = self._on_device("frames", frames).to(self.lm_head.dtype)
         B, T, d = x.shape
-        x = x + L.sinusoidal_positions(T, d, self.device).to(x.dtype)[None]
-        positions = torch.arange(T, device=self.device).expand(B, T)
+        x = constrain(x + like(L.sinusoidal_positions(T, d, self.device).to(
+            x.dtype)[None], x), "batch", "seq", "embed")
+        positions = like(torch.arange(T, device=self.device).expand(B, T), x)
         for lp in self.encoder:
             x = L.remat(self._enc_layer, remat, x, lp, positions)
-        return _ln(x, self.enc_final_norm, cfg.norm_eps)
+        # gathered once for every decoder layer's cross K/V products
+        return _gathered(_ln(x, self.enc_final_norm, cfg.norm_eps))
 
     def _dec_layer(self, x, lp, positions, enc_out):
         """One decoder layer; returns its output and its self-attention
         ``k``, ``v``."""
         cfg = self.cfg
-        h = _ln(x, lp.self_norm, cfg.norm_eps)
+        h = _gathered(_ln(x, lp.self_norm, cfg.norm_eps))
         q, k, v = L.attention_qkv(lp.self_attn, h, positions, cfg,
                                   use_rope=False)
-        x = x + L.attention_out(lp.self_attn, q, k, v, cfg, True)
-        h = _ln(x, lp.cross_norm, cfg.norm_eps)
-        x = x + L.multihead_attention(lp.cross_attn, h, positions, cfg,
-                                      causal=False, kv_x=enc_out,
-                                      use_rope=False)
-        h = _ln(x, lp.mlp_norm, cfg.norm_eps)
-        return x + L.mlp_apply(lp.mlp, h, cfg.activation), k, v
+        x = _add(x, L.attention_out(lp.self_attn, q, k, v, cfg, True))
+        h = _gathered(_ln(x, lp.cross_norm, cfg.norm_eps))
+        x = _add(x, L.multihead_attention(lp.cross_attn, h, positions, cfg,
+                                          causal=False, kv_x=enc_out,
+                                          use_rope=False))
+        h = _gathered(_ln(x, lp.mlp_norm, cfg.norm_eps))
+        return _add(x, L.mlp_apply(lp.mlp, h, cfg.activation)), k, v
 
     def _decoder_pass(self, tokens: torch.Tensor, enc_out: torch.Tensor,
                       cache=None, remat: str = "none"):
@@ -129,22 +156,37 @@ class Whisper(ZooModel):
         self-attention K/V are written to its first S positions; each
         layer under ``remat``."""
         cfg = self.cfg
-        x = self.embed[self._on_device("tokens", tokens).long()]
+        x = self._embed(tokens)
         B, S, d = x.shape
-        x = x + L.sinusoidal_positions(S, d, self.device).to(x.dtype)[None]
-        positions = torch.arange(S, device=self.device).expand(B, S)
+        x = constrain(x + like(L.sinusoidal_positions(S, d, self.device).to(
+            x.dtype)[None], x), "batch", "seq", "embed")
+        positions = like(torch.arange(S, device=self.device).expand(B, S), x)
+        sharded = cache is not None and is_dtensor(cache["k"])
+        ks, vs = [], []
         for i, lp in enumerate(self.decoder):
             x, k, v = L.remat(self._dec_layer, remat, x, lp, positions,
                               enc_out)
-            if cache is not None:
+            if sharded:   # written at once (layers.write_prefix)
+                ks.append(k)
+                vs.append(v)
+            elif cache is not None:
                 cache["k"][i, :, :S] = k
                 cache["v"][i, :, :S] = v
+        if sharded:
+            L.write_prefix(cache["k"], ks)
+            L.write_prefix(cache["v"], vs)
         return _ln(x, self.dec_final_norm, cfg.norm_eps)
+
+    def _embed(self, tokens):
+        """Token ids -> embeddings, the residual's layout on a mesh."""
+        return constrain(L.embed_tokens(self.embed, self._on_device(
+            "tokens", tokens)), "batch", "seq", "embed")
 
     def forward(self, tokens: torch.Tensor,
                 frames: torch.Tensor) -> torch.Tensor:
         """Full-sequence forward -> logits ``[B,S,V]``."""
-        return self._decoder_pass(tokens, self.encode(frames)) @ self.lm_head
+        return constrain(self._decoder_pass(tokens, self.encode(frames))
+                         @ self.lm_head, "batch", None, "vocab")
 
     def init_cache(self, batch: int, max_len: int) -> Dict:
         """Zeroed ``k``/``v`` ``[Ld, B, max_len, Hkv, hd]``, ``cross_k``/
@@ -170,12 +212,10 @@ class Whisper(ZooModel):
         hd = cfg.resolved_head_dim
         enc_out = self.encode(frames)
         x = self._decoder_pass(tokens, enc_out, cache)
-        cache["cross_k"] = torch.stack([
-            L._split_heads(enc_out @ lp.cross_attn["wk"], cfg.n_kv_heads, hd)
-            for lp in self.decoder])
-        cache["cross_v"] = torch.stack([
-            L._split_heads(enc_out @ lp.cross_attn["wv"], cfg.n_kv_heads, hd)
-            for lp in self.decoder])
+        for key, w in (("cross_k", "wk"), ("cross_v", "wv")):
+            cache[key] = L.placed_like(torch.stack([
+                L._split_heads(enc_out @ lp.cross_attn[w], cfg.n_kv_heads,
+                               hd) for lp in self.decoder]), cache[key])
         cache["pos"] = tokens.shape[1]
         return (x[:, -1:] @ self.lm_head)[:, 0], cache
 
@@ -184,7 +224,7 @@ class Whisper(ZooModel):
         (an int): adds that index's sinusoidal position, writes the new K/V
         in place. Returns ``(logits [B,V], cache)``."""
         cfg = self.cfg
-        x = self.embed[self._on_device("tokens", tokens).long()]   # [B,1,d]
+        x = self._embed(tokens)                                    # [B,1,d]
         index = cache["pos"]
         d = cfg.d_model
         half = d // 2
@@ -193,7 +233,7 @@ class Whisper(ZooModel):
                           * (-math.log(10000.0) / half))
         ang = float(index) * freqs
         pe = torch.stack([torch.sin(ang), torch.cos(ang)], 1).reshape(-1)[:d]
-        x = x + pe[None, None].to(x.dtype)
+        x = x + like(pe[None, None].to(x.dtype), x)
         for i, lp in enumerate(self.decoder):
             h = _ln(x, lp.self_norm, cfg.norm_eps)
             x = x + L.cached_attention_step(lp.self_attn, h, cache["k"][i],

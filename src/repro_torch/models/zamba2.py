@@ -13,16 +13,22 @@ per-application LoRA deltas on the shared block are omitted.
 Training (``loss_fn``): the reference's token cross entropy, each group
 (its Mamba2 layers and the shared block) recomputed in the backward unless
 ``cfg.remat`` is ``none``.
+
+On a mesh the residual is sequence-parallel: the Mamba2 layers as
+``mamba2.block_forward`` places them, the shared block as the dense
+transformer's (its windowed attention through the kernel's DTensor
+rules); the states and ring buffers under ``cache_specs``, each rank
+writing its own shard (``layers.assign``).
 """
 from __future__ import annotations
 
-import math
 from typing import Dict
 
 import torch
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import constrain, like
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
 from repro_torch.models.config import ModelConfig
@@ -63,7 +69,14 @@ class Zamba2(ZooModel):
         self.lm_head = param((d, v), device, dtype)
 
     def _tokens(self, tokens):
-        return self.embed[self._on_device("tokens", tokens).long()]
+        """Token ids -> the residual (sequence-parallel on a mesh)."""
+        return constrain(L.embed_tokens(self.embed, self._on_device(
+            "tokens", tokens)), "batch", "seq", "embed")
+
+    def _head(self, x):
+        x = constrain(L.rmsnorm(x, self.final_norm, self.cfg.norm_eps),
+                      "batch", None, "embed")
+        return constrain(x @ self.lm_head, "batch", None, "vocab")
 
     def _groups_forward(self, x, cache=None):
         """The G groups over ``x [B,S,d]``; with a ``cache``, each Mamba2
@@ -72,13 +85,14 @@ class Zamba2(ZooModel):
         cfg = self.cfg
         G, E = _groups(cfg)
         B, S = x.shape[:2]
-        positions = torch.arange(S, device=self.device).expand(B, S)
+        positions = like(torch.arange(S, device=self.device).expand(B, S), x)
         for g in range(G):
             for e in range(E):
                 x, st = mamba2.block_forward(x, self.mamba[g * E + e], cfg)
+                x = constrain(x, "batch", "seq", "embed")
                 if cache is not None:
                     for name, t in st.items():
-                        cache["mamba"][name][g, e] = t
+                        L.assign(cache["mamba"][name], (g, e), t)
             x, k, v, _ = self.shared(x, positions, True)
             if cache is not None:
                 self._keep_window(cache, g, k, v)
@@ -91,17 +105,18 @@ class Zamba2(ZooModel):
         (S >= M), or the first S slots and zeros after (S < M)."""
         M, S = cache["k"].shape[2], k.shape[1]
         for name, t in (("k", k), ("v", v)):
-            if S >= M:
-                cache[name][g] = torch.roll(t[:, S - M:], S % M, dims=1)
+            if S >= M:   # t[:, S - M:] rolled right by S % M (two slices:
+                # DTensor has no rule for roll)
+                last, r = t[:, S - M:], S % M
+                ring = torch.cat([last[:, M - r:], last[:, :M - r]], 1)
             else:
-                cache[name][g, :, :S] = t
-                cache[name][g, :, S:] = 0
+                ring = torch.cat([t, t.new_zeros((t.shape[0], M - S,
+                                                  *t.shape[2:]))], 1)
+            L.assign(cache[name], (g,), ring)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         """Full-sequence forward -> logits ``[B,S,V]``."""
-        x = self._groups_forward(self._tokens(tokens))
-        x = L.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
-        return x @ self.lm_head
+        return self._head(self._groups_forward(self._tokens(tokens)))
 
     def init_cache(self, batch: int, max_len: int) -> Dict:
         """Zeroed Mamba2 states ``ssm [G, E, B, nh, P, N]`` (fp32) and
@@ -125,34 +140,27 @@ class Zamba2(ZooModel):
         ``(last-position logits [B,V], cache)``."""
         x = self._groups_forward(self._tokens(tokens), cache)
         cache["pos"] = tokens.shape[1]
-        x = L.rmsnorm(x[:, -1:], self.final_norm, self.cfg.norm_eps)
-        return (x @ self.lm_head)[:, 0], cache
+        return self._head(x[:, -1:])[:, 0], cache
 
-    def _shared_step(self, x, ck, cv, pos: int):
-        """The shared block on one token at position ``pos`` against a ring
-        buffer ``ck/cv [B,M,Hkv,hd]``: the new K/V go to slot ``pos % M``;
-        slot j is attended while ``j <= pos``, every slot once ``pos >=
-        M``."""
+    def _shared_step(self, x, cache, g: int, pos: int):
+        """The shared block on one token at position ``pos`` (a host int)
+        against group g's ring buffer ``[B,M,Hkv,hd]``: the new K/V go to
+        slot ``pos % M`` (on a mesh each rank writes its shard of the
+        buffer); slot j is attended while ``j <= pos``, every slot once
+        ``pos >= M`` (``layers.attend_cached``)."""
         cfg = self.cfg
         sp = self.shared
-        hd = cfg.resolved_head_dim
-        B, M = x.shape[0], ck.shape[1]
+        B, M = x.shape[0], cache["k"].shape[2]
         h = L.rmsnorm(x, sp.attn_norm, cfg.norm_eps)
-        p = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+        p = like(torch.full((B, 1), pos, dtype=torch.long, device=x.device),
+                 x)
         q, k, v = L.attention_qkv(sp.attn, h, p, cfg)
-        slot = pos % M
-        ck[:, slot] = k[:, 0].to(ck.dtype)
-        cv[:, slot] = v[:, 0].to(cv.dtype)
-        n_rep = cfg.n_heads // cfg.n_kv_heads
-        qg = q.reshape(B, 1, cfg.n_kv_heads, n_rep, hd)
-        scores = torch.einsum("bqkrd,bmkd->bkrqm", qg, ck).float()
-        scores = scores / math.sqrt(hd)
-        if pos < M:
-            kpos = torch.arange(M, device=x.device)
-            scores = scores.masked_fill(kpos > pos, float("-inf"))
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        a = torch.einsum("bkrqm,bmkd->bqkrd", probs, cv)
-        x = x + a.reshape(B, 1, cfg.n_heads * hd) @ sp.attn["wo"]
+        for name, new in (("k", k), ("v", v)):
+            L.assign(cache[name], (g, slice(None), pos % M), new[:, 0])
+        ok = like(torch.arange(M, device=x.device)[None, :].expand(B, M)
+                  <= pos, x)
+        x = x + L.attend_cached(q, cache["k"][g], cache["v"][g], ok,
+                                cfg.attn_logit_softcap) @ sp.attn["wo"]
         h = L.rmsnorm(x, sp.mlp_norm, cfg.norm_eps)
         return x + L.mlp_apply(sp.mlp, h, cfg.activation)
 
@@ -172,11 +180,10 @@ class Zamba2(ZooModel):
                     x, self.mamba[g * E + e], cfg,
                     {name: t[g, e] for name, t in ms.items()})
                 for name, t in st.items():
-                    ms[name][g, e] = t
-            x = self._shared_step(x, cache["k"][g], cache["v"][g], pos)
+                    L.assign(ms[name], (g, e), t)
+            x = self._shared_step(x, cache, g, pos)
         cache["pos"] = pos + 1
-        x = L.rmsnorm(x, self.final_norm, cfg.norm_eps)
-        return (x @ self.lm_head)[:, 0], cache
+        return self._head(x)[:, 0], cache
 
 
 def _train_group(model: Zamba2, x: torch.Tensor, g: int,
@@ -186,7 +193,8 @@ def _train_group(model: Zamba2, x: torch.Tensor, g: int,
     cfg = model.cfg
     G, E = _groups(cfg)
     for e in range(E):
-        x, _ = mamba2.block_forward(x, model.mamba[g * E + e], cfg)
+        x = constrain(mamba2.block_forward(x, model.mamba[g * E + e], cfg)[0],
+                      "batch", "seq", "embed")
     return model.shared(x, positions, True)[0]
 
 
@@ -199,7 +207,7 @@ def loss_fn(model: Zamba2, batch: Dict,
     remat = "none" if cfg.remat == "none" else "full"
     x = model._tokens(batch["tokens"])
     B, S = x.shape[:2]
-    positions = torch.arange(S, device=model.device).expand(B, S)
+    positions = like(torch.arange(S, device=model.device).expand(B, S), x)
     for g in range(_groups(cfg)[0]):
         x = L.remat(_train_group, remat, model, x, g, positions)
     x = L.rmsnorm(x, model.final_norm, cfg.norm_eps)

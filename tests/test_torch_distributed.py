@@ -378,8 +378,8 @@ def _mesh_db_rank(rank):
 _TRAIN_B, _TRAIN_S = 4, 16
 
 
-def _train_cfg():
-    return configs.get_smoke("llama3_8b").replace(dtype="float32")
+def _train_cfg(arch="llama3_8b"):
+    return configs.get_smoke(arch).replace(dtype="float32")
 
 
 def _batch(cfg, step):
@@ -390,10 +390,10 @@ def _batch(cfg, step):
     return {k: torch.from_numpy(v) for k, v in b.items()}
 
 
-def _train_rank(rank, ckpt_dir):
-    """The sharded llama3 SMOKE step on mesh (data 2, model 2), fp32: 2
-    steps with a checkpoint after step 1, then a restart from it that runs
-    step 2 again."""
+def _train_rank(rank, ckpt_dir, arch="llama3_8b"):
+    """The sharded SMOKE step of ``arch`` on mesh (data 2, model 2), fp32:
+    2 steps with a checkpoint after step 1, then a restart from it that
+    runs step 2 again."""
     from repro_torch.distributed import partition as ptn
     from repro_torch.distributed.sharding import sharding_rules
     from repro_torch.launch.mesh import make_mesh
@@ -401,7 +401,7 @@ def _train_rank(rank, ckpt_dir):
     from repro_torch.train.train_step import (TrainConfig, init_train_state,
                                               make_train_step)
 
-    cfg = _train_cfg()
+    cfg = _train_cfg(arch)
     mesh = make_mesh((2, 2), ("data", "model"), "cpu")
     tcfg = TrainConfig()
     ckpt = CheckpointManager(ckpt_dir, keep=2)
@@ -441,22 +441,201 @@ def _train_rank(rank, ckpt_dir):
     return out
 
 
-def _all_ranks(rank, ckpt_dir):
+# -- the MoE, audio, ssm and hybrid families on mesh (data 2, model 2) ------
+
+FAMILIES = ("granite_moe_1b_a400m", "qwen3_moe_30b_a3b", "whisper_large_v3",
+            "xlstm_1_3b", "zamba2_2_7b")
+# each case: (arch, config changes); xLSTM once more chunkwise, and the
+# MoE at capacity factor 1, where routes past an expert's capacity drop
+CASES = {arch: (arch, {}) for arch in FAMILIES}
+CASES["xlstm_1_3b-chunked"] = ("xlstm_1_3b", {"mlstm_chunk": 16})
+CASES["granite_moe_1b_a400m-cf1"] = ("granite_moe_1b_a400m",
+                                     {"capacity_factor": 1.0})
+_FAM_B, _FAM_S, _FAM_STEPS = 4, 64, 4   # batch, length, decode steps
+
+
+def _case_cfg(case):
+    """The case's SMOKE config in fp32, in both packages."""
+    import dataclasses
+
+    arch, kw = CASES[case]
+    jcfg = jconfigs.get_smoke(arch).replace(dtype="float32")
+    if "capacity_factor" in kw:
+        jcfg = jcfg.replace(moe=dataclasses.replace(jcfg.moe, **kw))
+    elif kw:
+        jcfg = jcfg.replace(**kw)
+    from repro_torch import convert
+
+    return jcfg, convert.model_config(jcfg)
+
+
+def _fam_batch(cfg, seed, S=_FAM_S):
+    """Seeded numpy inputs: token ids and labels, Whisper's frames."""
+    rng = np.random.default_rng(seed)
+    b = {"tokens": rng.integers(4, cfg.vocab_size, (_FAM_B, S)).astype(
+        np.int32), "labels": rng.integers(4, cfg.vocab_size, (
+            _FAM_B, S)).astype(np.int32)}
+    if cfg.family == "audio":
+        b["frames"] = rng.standard_normal(
+            (_FAM_B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return b
+
+
+def _fam_model(cfg, weights):
+    """The case's model on the CPU holding ``weights`` (by name)."""
+    model = api.build(cfg, "cpu")
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(weights[name])
+    return model
+
+
+def _fam_serve(model, cfg, mesh=None):
+    """A prefill of ``_FAM_S`` tokens and ``_FAM_STEPS`` decode steps (a
+    cache of all of them, placed by ``cache_specs`` on a mesh): each
+    step's logits, and the routes that MoE layers dropped in the prefill
+    and in the decode steps."""
+    from repro_torch.models import moe
+
+    b = {k: torch.from_numpy(v) for k, v in _fam_batch(cfg, 7).items()}
+    nxt = torch.from_numpy(np.random.default_rng(8).integers(
+        4, cfg.vocab_size, (_FAM_B, _FAM_STEPS)).astype(np.int32))
+    n = _FAM_S + _FAM_STEPS
+    cache = model.init_cache(_FAM_B, n)
+    if mesh is not None:
+        cache = pt.distribute(cache, pt.cache_specs(
+            api.init_cache_shape(cfg, _FAM_B, n), mesh, _FAM_B, n), mesh)
+        b, nxt = pt.distribute((b, nxt), pt.batch_specs(
+            (b, nxt), mesh, _FAM_B), mesh)
+    extra = (b["frames"],) if cfg.family == "audio" else ()
+    out, drops = [], {}
+    with torch.no_grad():
+        with moe.count_drops() as d:
+            lg, cache = model.prefill(b["tokens"], cache, *extra)
+        out.append(lg)
+        drops["prefill"] = dict(d)
+        with moe.count_drops() as d:
+            for i in range(_FAM_STEPS):
+                lg, cache = model.decode_step(nxt[:, i:i + 1], cache)
+                out.append(lg)
+        drops["decode"] = dict(d)
+    return [(t.full_tensor() if sh.is_dtensor(t) else t).numpy()
+            for t in out], drops
+
+
+def _fam_train(state, cfg, step_fn, mesh=None):
+    """Two train steps: metrics, parameters and moments after them."""
+    out = {"metrics": []}
+    for i in range(2):
+        b = {k: torch.from_numpy(v) for k, v in _fam_batch(cfg, i).items()}
+        if mesh is not None:
+            b = pt.distribute(b, pt.batch_specs(b, mesh, _FAM_B), mesh)
+        state, m = step_fn(state, b)
+        out["metrics"].append((float(m["loss"]), float(m["grad_norm"])))
+
+    def full(t):
+        return (t.full_tensor() if sh.is_dtensor(t) else t).detach().numpy()
+
+    for key, tree in (("params", state["params"]),
+                      ("mu", state["opt"]["mu"]),
+                      ("nu", state["opt"]["nu"])):
+        out[key] = {n: full(t) for n, t in tree.items()}
+    return out
+
+
+def _families_rank(rank, weights_dir):
+    """Every case on mesh (data 2, model 2) from the reference's weights:
+    two train steps (with the local shards' shapes) and the serve run."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.train_step import (TrainConfig, make_train_step,
+                                              shard_model, train_state)
+
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    out = {}
+    for case in CASES:
+        _, cfg = _case_cfg(case)
+        weights = torch.load(os.path.join(weights_dir, f"{case}.pt"))
+        with sh.sharding_rules(mesh):
+            state = train_state(_fam_model(cfg, weights), TrainConfig(),
+                                mesh)
+            rec = {"local_shapes": {n: tuple(p.to_local().shape)
+                                    for n, p in state["params"].items()},
+                   "mu_local_shapes": {
+                       n: tuple(m.to_local().shape)
+                       for n, m in state["opt"]["mu"].items()}}
+            rec.update(_fam_train(state, cfg,
+                                  make_train_step(cfg, TrainConfig()), mesh))
+            model = _fam_model(cfg, weights)
+            model.requires_grad_(False)
+            shard_model(model, mesh, pt.param_specs(
+                dict(model.named_parameters()), mesh, cfg))
+            rec["serve"], rec["drops"] = _fam_serve(model, cfg, mesh)
+        out[case] = rec
+    return out
+
+
+def _all_ranks(rank, ckpt_dir, weights_dir):
     # one thread a rank: four ranks share the host's cores, and a BLAS
     # that picks its thread count by load can sum in another order between
     # two calls, which the bit-for-bit restart would read as a difference
     torch.set_num_threads(1)
     return {"collectives": _collectives_rank(rank),
             "db": _mesh_db_rank(rank),
-            "train": _train_rank(rank, ckpt_dir)}
+            "train": _train_rank(rank, ckpt_dir),
+            "moe_train": _train_rank(rank, ckpt_dir + "_moe",
+                                     "granite_moe_1b_a400m"),
+            "families": _families_rank(rank, weights_dir)}
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
+def family_weights(tmp_path_factory):
+    """Each case's reference weights (``jax.random.PRNGKey(0)``) carried
+    into the port by ``convert.model_from_jax``, saved by name for the
+    ranks; with the reference's loss on the first train batch."""
+    import jax.numpy as jnp
+
+    from repro_torch import convert
+
+    d = tmp_path_factory.mktemp("weights")
+    losses = {}
+    for case in CASES:
+        jcfg, cfg = _case_cfg(case)
+        jm = japi.get_model(jcfg)
+        params = jm.init(jax.random.PRNGKey(0), jcfg)
+        model = convert.model_from_jax(params, cfg, "cpu")
+        torch.save({n: p.detach().clone() for n, p in
+                    model.named_parameters()}, d / f"{case}.pt")
+        losses[case] = float(jm.loss_fn(params, jcfg, {
+            k: jnp.asarray(v) for k, v in _fam_batch(jcfg, 0).items()}))
+    return str(d), losses
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory, family_weights):
     """Every multi-rank program on 4 gloo ranks, once for the module."""
     d = tmp_path_factory.mktemp("ranks")
-    return run_ranks(_all_ranks, 4, str(d / "ckpt"), store_dir=str(d),
-                     timeout=240)
+    return run_ranks(_all_ranks, 4, str(d / "ckpt"), family_weights[0],
+                     store_dir=str(d), timeout=600)
+
+
+@pytest.fixture(scope="module")
+def unsharded(family_weights):
+    """Each case unsharded on the CPU from the same weights: its two
+    train steps and its serve run."""
+    from repro_torch.train.train_step import (TrainConfig, make_train_step,
+                                              train_state)
+
+    out = {}
+    for case in CASES:
+        _, cfg = _case_cfg(case)
+        weights = torch.load(os.path.join(family_weights[0], f"{case}.pt"))
+        rec = _fam_train(train_state(_fam_model(cfg, weights),
+                                     TrainConfig()), cfg,
+                         make_train_step(cfg, TrainConfig()))
+        rec["serve"], rec["drops"] = _fam_serve(_fam_model(cfg, weights),
+                                                cfg)
+        out[case] = rec
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -597,6 +776,124 @@ def test_sharded_restart_bit_for_bit(ranks):
         for n, p in tr["params"].items():
             np.testing.assert_array_equal(tr["restart_params"][n], p,
                                           err_msg=n)
+
+
+def _local_shape(shape, spec, mesh_shape):
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        for a in ((entry,) if isinstance(entry, str) else entry or ()):
+            out[d] //= mesh_shape[a]
+    return tuple(out)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_family_train_step_equals_unsharded(ranks, unsharded, case):
+    """Mesh (data 2, model 2) in fp32, the reference's weights: two train
+    steps' loss and grad_norm, and the gathered parameters and moments
+    after them, equal the unsharded port step's within 1e-5 on every
+    rank (the MoE's load-balancing loss over the global batch, its
+    experts split over "model"); the local shards' shapes are the
+    specs'."""
+    want = unsharded[case]
+    _, cfg = _case_cfg(case)
+    mesh = SimpleNamespace(shape={"data": 2, "model": 2})
+    shapes = {n: p.shape for n, p in want["params"].items()}
+    pspecs = pt.param_specs({n: torch.empty(s, device="meta") for n, s in
+                             shapes.items()}, mesh, cfg)
+    mspecs = pt.opt_state_specs({n: torch.empty(s, device="meta") for n, s
+                                 in shapes.items()}, mesh, cfg)["mu"]
+    for r in ranks:
+        got = r["families"][case]
+        np.testing.assert_allclose(got["metrics"], want["metrics"],
+                                   rtol=TOL, atol=TOL)
+        for key in ("params", "mu", "nu"):
+            for n, v in want[key].items():
+                np.testing.assert_allclose(got[key][n], v, rtol=TOL,
+                                           atol=TOL, err_msg=f"{key} {n}")
+        for n, s in shapes.items():
+            assert got["local_shapes"][n] == _local_shape(
+                s, pspecs[n], mesh.shape), n
+            assert got["mu_local_shapes"][n] == _local_shape(
+                s, mspecs[n], mesh.shape), n
+    if cfg.moe is not None:   # expert parallelism at work
+        w = pspecs["layers.0.moe.w_gate"]
+        assert w == ("model", None, None), w
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_family_unsharded_loss_equals_reference(family_weights, unsharded,
+                                                case):
+    """The unsharded port's first loss equals the reference's ``loss_fn``
+    on the same weights and batch (so the sharded one does too)."""
+    want = family_weights[1][case]
+    got = unsharded[case]["metrics"][0][0]
+    assert abs(got - want) <= TOL * abs(want), (got, want)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_family_prefill_and_decode_equal_unsharded(ranks, unsharded, case):
+    """A prefill and 4 decode steps on the mesh, the cache placed by
+    ``cache_specs`` (sequence-sharded KV, recurrent states sharded as the
+    reference's): every step's logits equal the unsharded model's within
+    1e-5 on every rank."""
+    want = unsharded[case]["serve"]
+    for r in ranks:
+        for i, (a, b) in enumerate(zip(r["families"][case]["serve"], want)):
+            np.testing.assert_allclose(a, b, rtol=TOL, atol=TOL,
+                                       err_msg=f"step {i}")
+
+
+def test_moe_drops_tokens_and_sharded_routing_agrees(ranks, unsharded):
+    """At capacity factor 1 the unsharded Granite SMOKE model drops routes
+    in the prefill (a group is a batch row) and in decode (the group is
+    the whole batch); the sharded run, whose rows are sequence-sharded and
+    whose batch is split over the data ranks, routes whole groups and
+    drops the same routes: the dropped counts summed over the ranks whose
+    experts differ equal the unsharded ones, and the outputs equal
+    (``test_family_*`` above)."""
+    case = "granite_moe_1b_a400m-cf1"
+    want = unsharded[case]["drops"]
+    assert want["prefill"]["dropped"] > 0 and want["decode"]["dropped"] > 0
+    # ranks (d, m): model rank m holds half the experts; data rank d its
+    # half of the prefill's rows (decode routes the whole batch on both)
+    by = [r["families"][case]["drops"] for r in ranks]
+    for phase in ("prefill", "decode"):
+        data_split = 2 if phase == "prefill" else 1
+        got = sum(d[phase]["dropped"] for d in by) // (2 // data_split)
+        assert got == want[phase]["dropped"], (phase, got, want[phase])
+    assert unsharded["granite_moe_1b_a400m"]["drops"]["prefill"][
+        "dropped"] == 0                       # the SMOKE factor 8 drops none
+
+
+def test_moe_sharded_restart_bit_for_bit(ranks):
+    """Granite's SMOKE step on the mesh, its experts split over "model":
+    a checkpoint at step 1 (the expert shards gathered whole), restored
+    into a state drawn from another seed, ends bit for bit where the
+    uninterrupted run ends."""
+    for r in ranks:
+        tr = r["moe_train"]
+        assert tr["restored_at"] == 1
+        assert tr["restart"] == tr["metrics"][1:]
+        for n, p in tr["params"].items():
+            np.testing.assert_array_equal(tr["restart_params"][n], p,
+                                          err_msg=n)
+
+
+@pytest.mark.parametrize("arch", ["granite_moe_1b_a400m", "zamba2_2_7b"])
+def test_launch_train_on_cpu_mesh(tmp_path, arch):
+    """``launch.train --mesh 2,2`` under a 4-rank launch (``torchrun
+    --standalone``: gloo on the CPU) trains a SMOKE config 2 steps and
+    exits 0."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "4", "-m", "repro_torch.launch.train",
+         "--arch", arch, "--smoke", "--steps", "2", "--device", "cpu",
+         "--mesh", "2,2", "--ckpt-dir", str(tmp_path / "ckpt")],
+        capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "trained 2 steps in " in r.stdout, r.stdout
 
 
 # -- the mesh module ------------------------------------------------------------

@@ -2,7 +2,7 @@
 collective term of ``roofline.analysis``) on a ``fake`` process group with
 ``meta`` tensors, on the CPU.
 
-A SMOKE config's cells run on a fake (4, 4) mesh, and one FULL cell
+Every family's SMOKE cells run on a fake (4, 4) mesh, and one FULL cell
 (``llama3_8b`` x ``decode_32k``) on the production (16, 16) mesh. The
 report's keys are held against the reference's (``repro.launch.dryrun``:
 ``roofline_report``'s and the run's), the per-device argument bytes
@@ -48,6 +48,18 @@ def _local_bytes(shape, dtype, spec, mesh_shape):
     return n * torch.empty((), dtype=dtype).element_size()
 
 
+def _leaves(tree):
+    """A cache's (or its specs') leaves in one order: a spec tuple is a
+    leaf, a tuple of tensors (xLSTM's sLSTM states) is not."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, tuple) and tree and not all(
+            e is None or isinstance(e, str) or (isinstance(e, tuple) and all(
+                isinstance(a, str) for a in e)) for e in tree):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
 def _expected_arguments(cfg, shape, mesh_shape):
     """Per-device argument bytes from the specs: the parameters (and for
     training the fp32 moments), the batch and the cache, each shard's."""
@@ -69,9 +81,10 @@ def _expected_arguments(cfg, shape, mesh_shape):
             cfg, B, S if shape.kind == "prefill" else 1)
         cache = api.init_cache_shape(cfg, B, S)
         cspecs = pt.cache_specs(cache, mesh, B, S)
-        total += sum(_local_bytes(cache[k].shape, cache[k].dtype, cspecs[k],
-                                  mesh_shape) for k in ("k", "v"))
-        total += 4   # the placed 0-d position
+        # every cache leaf: KV caches, Whisper's cross K/V, the recurrent
+        # states, the placed 0-d position
+        total += sum(_local_bytes(t.shape, t.dtype, spec, mesh_shape)
+                     for t, spec in zip(_leaves(cache), _leaves(cspecs)))
     bspecs = pt.batch_specs(batch, mesh, B)
     total += sum(_local_bytes(t.shape, t.dtype, bspecs[k], mesh_shape)
                  for k, t in batch.items())
@@ -149,14 +162,36 @@ def test_heads_not_split_by_the_model_axis(tmp_path):
     assert cost.link_bytes > 0 and cost.per_op_flops["flash_attention"] > 0
 
 
-@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "granite_moe_1b_a400m",
-                                  "whisper_large_v3", "xlstm_1_3b",
-                                  "zamba2_2_7b"])
-def test_other_families_are_not_ported(arch):
-    """MoE, audio, ssm and hybrid raise, naming the ROADMAP item that
-    ports their sharded execution."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        dryrun.run_cell(arch, "decode_32k", out_dir="", verbose=False)
+NEW_CELLS = [(arch, shape) for arch in ("qwen3_moe_30b_a3b",
+                                        "granite_moe_1b_a400m",
+                                        "whisper_large_v3")
+             for shape in ("train_4k", "prefill_32k", "decode_32k")] + [
+    (arch, shape) for arch in ("xlstm_1_3b", "zamba2_2_7b")
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
+
+
+@pytest.mark.parametrize("arch,shape_name", NEW_CELLS,
+                         ids=[f"{a}-{s}" for a, s in NEW_CELLS])
+def test_family_cells_lower_on_fake_4x4(arch, shape_name):
+    """The MoE (expert-parallel), audio, ssm and hybrid SMOKE cells on a
+    fake (4, 4) mesh: each lowers with the reference's report keys and a
+    collective term, and one rank's argument bytes equal the specs' shard
+    sizes (parameters, moments, batch, and every cache leaf)."""
+    r = dryrun.run_cell(arch, shape_name, smoke=True, mesh_shape=(4, 4),
+                        mesh_axes=("data", "model"), out_dir="",
+                        verbose=False)
+    _check_report(r, 16)
+    assert r["per_device_bytes"]["arguments"] == _expected_arguments(
+        configs.get_smoke(arch), SHAPES[shape_name],
+        {"data": 4, "model": 4})
+    if "moe" in arch:
+        # the expert dispatch: the rows gathered over "model" before it,
+        # the experts' partial sums reduce-scattered (or, in decode,
+        # all-reduced) after it
+        assert r["n_collectives"].get("all-gather", 0) > 0
+        assert r["n_collectives"].get(
+            "reduce-scatter" if shape_name != "decode_32k"
+            else "all-reduce", 0) > 0
 
 
 def test_long_500k_skipped_for_full_attention():
@@ -165,13 +200,14 @@ def test_long_500k_skipped_for_full_attention():
 
 
 def test_main_lists_not_ported_apart(capsys):
-    """The CLI prints a not-ported cell under its own heading and does not
-    count it as lowered."""
+    """The CLI lowers a Whisper cell (its family once listed as not
+    ported) and counts it as lowered."""
     dryrun.main(["--arch", "whisper_large_v3", "--shape", "decode_32k",
                  "--out", ""])
     out = capsys.readouterr().out
-    assert "NOT PORTED" in out
-    assert "dry-run ok: 0 cells lowered, 1 not ported" in out
+    assert "[whisper_large_v3 x decode_32k x 16x16] kind=decode lowered in" \
+        in out
+    assert "dry-run ok: 1 cells lowered, 0 skipped" in out
 
 
 def test_import_starts_no_process_group():
