@@ -24,7 +24,8 @@ Phases, each of which raises on failure and prints its wall seconds:
    a (query, probe) grid's and the bound's; PQ with 48 subspaces; k 16;
    sq8_topk also at d 768 and 1,024), with the time of the kernel's
    wrapper, its plain version and one PyTorch yardstick (CUDA events,
-   medians of 20: around 10 back-to-back calls and around single calls),
+   medians of RUNS, 10: around 10 back-to-back calls and around single
+   calls),
    the kernel's ratio to the yardstick under both and its share of its
    bound on this card (int8 products at the int8 tensor cores' rate);
    topk_search, quant_score, sq8_topk and pq_topk also through their C
@@ -96,8 +97,8 @@ Phases, each of which raises on failure and prints its wall seconds:
    383 beside 384, pq_topk's 256-subspace table, flash_attention at the
    Llama-3-8B prefill at each head dim beside 128;
 12. engine: Llama-3-8B (random bf16 weights from seed 0) generating for
-   16 RAG prompts of 16 to 512 tokens lock-step (``ModelLLM``, batch 8)
-   and through ``GenEngine`` at (slots 8, chunk 128, budget 4, fcfs) and
+   8 RAG prompts (ENGINE_PROMPTS; 16 before phase 18 came) of 16 to 512
+   tokens lock-step (``ModelLLM``, batch 8) and through ``GenEngine`` at (slots 8, chunk 128, budget 4, fcfs) and
    (slots 3, chunk 32, budget 1, sjf): greedy tokens equal but for rows
    whose first difference is a near tie of the lock-step logits; then
    ``model_llama3_8b_engine.json`` served as phase 10 serves the lock-step
@@ -111,8 +112,9 @@ Phases, each of which raises on failure and prints its wall seconds:
    bounds, the experts a step routes to, launches and idle share), the
    served model's engine beside lock-step on 8 prompts (its drops
    counted, not held), the engine held to lock-step at full width without
-   drops (fp32, 4 layers), then ``model_qwen3_moe_30b_a3b.json`` served lock-step (flash_attention
-   in every prefill layer) and closed at concurrency 8;
+   drops (fp32, 4 layers), then ``model_qwen3_moe_30b_a3b.json`` served
+   lock-step (flash_attention in every prefill layer) and closed at
+   concurrency 8;
 14. zoo: flash_attention with a sliding window against its plain version
    (every combination of window 1, 17, 64 and 4,096, S 63, 65 and 1,000,
    GQA groups 1, 4 and 8, causal or not, and the wgmma kernel at dh 64,
@@ -185,18 +187,42 @@ Phases, each of which raises on failure and prints its wall seconds:
    kernels launched on every rank where the family has attention, and at
    capacity factor 1 the routes dropped unsharded and by rank. (c)
    Phi-4-mini-3.8B at full width and MESH_FULL_LAYERS (4) of its 32
-   layers on (data 1, model 4), bf16, batch 2 x 4,096: one warm and
-   MESH_TRAIN_STEPS timed steps, each rank's peak memory and parameter
+   layers on (data 1, model 4), bf16, batch 2 x 4,096: MESH_TRAIN_STEPS
+   timed steps, the first among them, each rank's peak memory and parameter
    bytes (against the specs' shard sizes), the step-1 loss against the
    unsharded one, each rank's attention kernel launches. (f)
    Granite-3.0-1B-A400M at full width and depth on (data 1, model 4),
-   bf16, remat full, batch 2 x 4,096, 8 of its 32 experts a rank: one
-   warm and MESH_TRAIN_STEPS timed steps, each rank's peak memory,
+   bf16, remat full, batch 2 x 4,096, 8 of its 32 experts a rank:
+   MESH_TRAIN_STEPS timed steps, the first among them, each rank's peak memory,
    parameter bytes against the specs' shard sizes, experts held, routes
    dropped in a forward of the batch and attention launches, the step-1
    loss within 1e-2 of the unsharded one. The phase wall seconds print as
    ``mesh (a)-(d)``, ``mesh (e)`` and ``mesh (f)`` ((f)'s unsharded step
    in it).
+
+18. experiments (after phase 9): RAGPerf's own experiments
+   (``repro_torch.experiments``) and the examples (``repro_torch.examples``).
+   (b), inside phase 9 while its Llama-3-8B is resident: Fig. 5's
+   generation-model axis at full width, bf16 (``query_breakdown``'s
+   pipeline through ``common.build_pipeline(llm=...)``), its four stage
+   seconds and ``generation_frac``, flash_attention once a layer. (a)
+   Every experiment's ``run(1.0, device="cuda")``, its rows printed; the
+   model-free ones and the quickstart run once more on the CPU in six
+   processes of their own, started beside the kernels' build: the card's
+   rows held to the CPU's by ``repro_torch.experiments.common
+   .compare_rows`` (the CPU tests' rule: the same names and keys; counts,
+   bytes, flags and the retrieve model's bytes equal; quality equal; the
+   shard sweep's virtual-time latencies within 1e-9). (c)
+   ``fused_retrieve``'s check over the card's rows: every config equal to
+   ``off`` by the parity rule, fresh and mutated, the roofline ordered,
+   and the sq8 and PQ micro-batches at least 1.05x faster fused (their
+   ms printed). (d) ``quickstart`` (its quality equal to the CPU's),
+   ``serve_multiarch --arch llama3_8b`` at SMOKE, and
+   ``train_e2e`` 20 steps then relaunched from its checkpoint to 40, the
+   loss falling. All five DB kernels, flash_attention and
+   flash_attention_bwd must launch in the phase; the wall seconds print
+   as ``experiments (a)`` (with the wait for the CPU's processes),
+   ``experiments (b)`` and ``experiments (c)-(d)``.
 
 The last lines are one JSON object on the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a card, or run
@@ -211,6 +237,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -250,7 +277,8 @@ ATTN_ROW_REL_LIMIT = 3e-2
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 0.125}
 LLAMA3_8B_PARAMS = 8_030_261_248
 ENCODER_LAYERS = 4         # the transformer embedder's and cross-encoder's
-RUNS = 20                  # timed runs per measurement (median reported)
+RUNS = 10                  # timed runs per measurement (median reported;
+                           # 20 before the experiments phase came)
 REPEAT = 10                # back-to-back calls per timed run of a kernel
 
 NQ, N, DIM, K = 64, 1 << 20, 384, 16
@@ -2240,10 +2268,11 @@ def time_model(torch, model, runs=RUNS) -> dict:
     return out
 
 
-def phase_model_full(torch, ops):
+def phase_model_full(torch, ops, with_model=None):
     """Llama-3-8B at full width on the card: the parameter count, then the
     RAG pipeline served with it; returns flash_attention's launches in the
-    serve run."""
+    serve run and what ``with_model`` (called with the model before it is
+    freed) returns."""
     from repro_torch import configs
     from repro_torch.models import api, transformer
 
@@ -2266,10 +2295,11 @@ def phase_model_full(torch, ops):
         f"({api.param_bytes(model) / 1e9:.2f} GB bf16) drawn on the card in "
         f"{time.perf_counter() - t0:.1f} s; prefill logits finite")
     time_model(torch, model)
+    held = with_model(model) if with_model else None
     del model, logits
     torch.cuda.empty_cache()
     return serve_counted(torch, ops, SRC / "repro_torch" / "specs" /
-                         "model_llama3_8b.json", cfg)
+                         "model_llama3_8b.json", cfg), held
 
 
 def serve_counted(torch, ops, spec, cfg, n_requests=None, concurrency=0,
@@ -2372,6 +2402,223 @@ def serve_counted(torch, ops, spec, cfg, n_requests=None, concurrency=0,
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return launches["flash_attention"]
 
+
+
+# the experiments phase: RAGPerf's own experiments (repro_torch.experiments)
+# and the examples (repro_torch.examples) on the card
+# the model-free experiments (and the quickstart), run once more on the
+# CPU in six processes of one thread each, balanced by their CPU seconds
+# (the work is mostly host Python). They start beside the kernels' build,
+# whose nvcc processes leave cores idle, and have ended long before the
+# card's rows are held to theirs (beside the card's run, until this script
+# started them with the build, they outlasted it by 19-28 s)
+EXPERIMENTS_ON_CPU = (
+    ("quickstart",), ("resource_limits",),
+    ("sensitivity", "resource_utilization"),
+    ("sharded_retrieval", "index_schemes"),
+    ("accuracy_eval", "fused_retrieve"),
+    ("update_workload", "monitor_overhead"))
+CPU_THREADS = 1
+E2E_STEPS = 40             # train_e2e: 20 steps, then a relaunch to 40
+EXPERIMENT_KERNELS = ("topk_search", "ivf_topk", "sq8_topk", "pq_topk",
+                      "quant_score", "flash_attention", "flash_attention_bwd")
+
+
+def experiments_on_cpu():
+    """Start the model-free experiments and the quickstart at scale 1.0 on
+    the CPU, in processes of their own with the card hidden (one per group
+    of EXPERIMENTS_ON_CPU), each of which writes its rows to its path under
+    build/. Returns the processes and their paths; any still running when
+    this script exits is killed."""
+    import atexit
+    import os
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    paths = [build / f"experiments_cpu_{i}.json"
+             for i in range(len(EXPERIMENTS_ON_CPU))]
+    for path in paths:
+        path.unlink(missing_ok=True)
+    code = (
+        "import json, sys, torch\n"
+        f"torch.set_num_threads({CPU_THREADS})\n"
+        "from repro_torch.examples import quickstart\n"
+        "from repro_torch.experiments import run\n"
+        "rows = {}\n"
+        "for n in sys.argv[2:]:\n"
+        "    if n == 'quickstart':\n"
+        "        q = quickstart.main(['--device', 'cpu'])\n"
+        "        rows[n] = {k: q[k] for k in ('n_chunks', 'quality')}\n"
+        "    else:\n"
+        "        rows[n] = run.MODULES[n].run(1.0, 'cpu')\n"
+        "open(sys.argv[1], 'w').write(json.dumps(rows))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(path), *names], env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for path, names in zip(paths, EXPERIMENTS_ON_CPU)]
+    atexit.register(lambda: [proc.kill() for proc in procs])
+    return procs, paths
+
+
+def experiments_cpu_rows(procs, paths):
+    """The CPU processes' rows, once each has ended well."""
+    rows = {}
+    try:
+        for proc, path in zip(procs, paths):
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"experiments on the CPU: exit "
+                                     f"{proc.returncode}\n{err[-4000:]}")
+            rows.update(json.loads(Path(path).read_text()))
+    finally:
+        for proc in procs:
+            proc.kill()
+    return rows
+
+
+def row_text(row) -> str:
+    return f"{row['bench']}: " + ", ".join(
+        f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in row.items() if k != "bench")
+
+
+def experiments_fig5(torch, ops, model):
+    """(b): Fig. 5's generation-model axis at full Llama-3-8B width, bf16,
+    with ``model`` (phase 9's, still resident) behind
+    ``common.build_pipeline(llm=...)``; returns its launches and wall
+    seconds."""
+    from repro_torch import configs
+    from repro_torch.core.generator import ModelLLM
+    from repro_torch.experiments import query_breakdown as qb
+
+    t0 = time.perf_counter()
+    cfg = configs.get_config("llama3_8b")
+    corpus = qb.make_corpus(32)
+    questions = qb.questions_for(corpus, 16)
+    ops.reset_launch_counts()
+    llm = ModelLLM(cfg, max_prompt=64, max_new=4, batch_size=4,
+                   device=DEVICE, model=model)
+    pipe = qb.model_pipeline(corpus, questions, llm, DEVICE)
+    launches = ops.launch_counts()
+    row = qb.model_row("llama3_8b", pipe)
+    bd = pipe.breakdown()
+    answers = [t.answer for t in pipe.traces]
+    if (launches["flash_attention"] < cfg.n_layers or len(answers) != 4
+            or not all(answers) or not 0 < row["generation_frac"] < 1):
+        raise AssertionError(f"experiments (b): launches {launches}, "
+                             f"answers {answers}, row {row}")
+    say(f"experiments (b): Fig. 5 at full width, llama3_8b bf16 "
+        f"({cfg.n_layers} layers, d {cfg.d_model}) behind the axis's "
+        f"pipeline, 4 questions: " + ", ".join(
+            f"{s} {bd.get(s, 0.0):.6f} s" for s in qb.QUERY_STAGES)
+        + f"; {row_text(row)}; flash_attention {launches['flash_attention']}"
+        f" launches")
+    return launches, time.perf_counter() - t0
+
+
+def phase_experiments(torch, ops, cpu):
+    """Phase 18 (module docstring): (a) the experiments on the card against
+    the CPU's processes ``cpu`` (``experiments_on_cpu``), (c) the
+    fused-retrieve gate, (d) the examples. Returns each kernel's launches
+    in the phase and its wall seconds by part."""
+    import shutil
+
+    from repro_torch.examples import quickstart, serve_multiarch, train_e2e
+    from repro_torch.experiments import common, fused_retrieve
+    from repro_torch.experiments import run as experiments
+
+    seconds = {}
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    card, walls = {}, {}
+    for name, mod in experiments.MODULES.items():
+        t1 = time.perf_counter()
+        card[name] = mod.run(1.0, DEVICE)
+        walls[name] = time.perf_counter() - t1
+        for row in card[name]:
+            say(f"experiments (a) {row_text(row)}")
+    say("experiments (a): wall s on the card: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items()))
+    seconds["experiments (a)"] = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    errs = fused_retrieve.check(card["fused_retrieve"])
+    if errs:
+        raise AssertionError("experiments (c): " + "; ".join(errs))
+    lat = {r["bench"]: r for r in card["fused_retrieve"]
+           if "/latency_" in r["bench"]}
+    say("experiments (c): fused_retrieve --check at scale 1.0 on the "
+        f"card: {len(fused_retrieve.CONFIGS)} configs x 2 modes equal "
+        "off by the parity rule, fresh and mutated; roofline ordered; "
+        + "; ".join(f"{b}: unfused_ms {r['unfused_ms']:.4f}, fused_ms "
+                    f"{r['fused_ms']:.4f}, speedup {r['speedup']:.3f}"
+                    for b, r in lat.items()))
+
+    quick = quickstart.main(["--device", DEVICE])
+    served = serve_multiarch.main(["--arch", "llama3_8b", "--device",
+                                   DEVICE])["llama3_8b"]
+    ckpt = ROOT / "build" / "experiments_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--device", DEVICE, "--ckpt-dir", str(ckpt)]
+    first = train_e2e.main(["--steps", str(E2E_STEPS // 2), *argv])
+    again = train_e2e.main(["--steps", str(E2E_STEPS), *argv])
+    launches = ops.launch_counts()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    seconds["experiments (c)-(d)"] = time.perf_counter() - t1
+
+    t1 = time.perf_counter()
+    cpu_rows = experiments_cpu_rows(*cpu)
+    waited = time.perf_counter() - t1
+    names = [n for group in EXPERIMENTS_ON_CPU for n in group
+             if n != "quickstart"]
+    compared = 0
+    for name in names:
+        try:
+            compared += common.compare_rows(cpu_rows[name], card[name])
+        except AssertionError as exc:
+            raise AssertionError(f"experiments (a) {name}, the card against "
+                                 f"the CPU: {exc}") from None
+    say(f"experiments (a): the model-free {len(names)} on the card equal "
+        f"the CPU's by common.compare_rows ({compared} counts, bytes, flags "
+        f"and quality values, quality equal); waited {waited:.1f} s for the "
+        f"CPU's processes after the card's run")
+
+    want = cpu_rows["quickstart"]
+    worst = max(abs(quick["quality"][k] - v)
+                for k, v in want["quality"].items())
+    loss0 = first["losses"][0]
+    loss = again["losses"][E2E_STEPS - 1]
+    if (quick["n_chunks"] != want["n_chunks"] or quick["queries"] == 0
+            or worst != 0
+            or served["n_requests"] != 8 or not all(served["answers"])
+            or again["start"] != E2E_STEPS // 2 or not loss < loss0
+            or not all(math.isfinite(v) for run in (first, again)
+                       for v in run["losses"].values())):
+        raise AssertionError(
+            f"experiments (d): quickstart {quick} vs the CPU's {want}; "
+            f"serve_multiarch {served}; train_e2e losses {first['losses']}"
+            f", {again['losses']} (restart at {again['start']})")
+    say(f"experiments (d): quickstart on the card: {quick['n_chunks']} "
+        f"chunks, {quick['queries']} queries, {quick['qps']:.1f} requests/s,"
+        f" quality {quick['quality']} (equal to the CPU's); "
+        f"serve_multiarch --arch llama3_8b (SMOKE): ttft "
+        f"{served['ttft_mean_s'] * 1e3:.2f} ms, tpot "
+        f"{served['tpot_mean_s'] * 1e3:.2f} ms, generation "
+        f"{100 * served['generation_frac']:.1f} % of query latency; "
+        f"train_e2e {E2E_STEPS // 2} steps ({first['tok_s']:.0f} tok/s, "
+        f"the first step's build included) then relaunched from its "
+        f"checkpoint at step {again['start']} to {E2E_STEPS} "
+        f"({again['tok_s']:.0f} tok/s): loss {loss0:.4f} at step 0, "
+        f"{loss:.4f} at step {E2E_STEPS - 1}; served ttft "
+        f"{again['served']['ttft_mean_s'] * 1e3:.2f} ms")
+    missing = [k for k in EXPERIMENT_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"experiments: no launch of {missing}: "
+                             f"{launches}")
+    say(f"experiments: launches {launches}")
+    seconds["experiments (a)"] += waited
+    return launches, seconds
 
 
 # the serving phase: scenario sims card vs CPU on the fused DB, live
@@ -2955,7 +3202,8 @@ def phase_limits(torch, ops, ref, compare_topk, records) -> None:
 
 
 # the engine phase: the token-level engine at Llama-3-8B's full width
-ENGINE_PROMPTS = 16         # 24 before the train phase came
+ENGINE_PROMPTS = 8          # one lock-step batch (24 before the train
+                            # phase came, 16 before the experiments)
 # (slots, chunk_tokens, prefill_chunks_per_step, admission)
 ENGINE_SETTINGS = ((8, 128, 4, "fcfs"), (3, 32, 1, "sjf"))
 # requests of each engine serve run (32 before the train phase came, for
@@ -3094,9 +3342,9 @@ def phase_moe(torch, ops):
     the card: its counts against the reference's, ``time_model``, the
     served model's engine beside lock-step on one batch of prompts (its
     drops: counted), the engine against lock-step at full width without
-    drops in fp32 at 4 layers (held), then ``model_qwen3_moe_30b_a3b.json`` served lock-step
-    (flash_attention in every prefill layer) and closed under load.
-    Returns flash_attention's launches in the lock-step serve run."""
+    drops in fp32 at 4 layers (held), then ``model_qwen3_moe_30b_a3b.json``
+    served lock-step (flash_attention in every prefill layer) and closed
+    under load. Returns flash_attention's launches in the lock-step serve run."""
     import dataclasses
     import gc
 
@@ -3900,8 +4148,11 @@ MESH_STEP_B, MESH_STEP_S = 4, 64     # the SMOKE step's global batch
 # every leaf / max|p|. fp32 sums in another order (TF32 off); bf16 rounds
 # each partial sum
 MESH_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-MESH_TRAIN_STEPS = 1       # timed full-width sharded steps, after one warm
-# ((c) and (f); 2 before (e) and (f) joined the phase)
+# timed full-width sharded steps of (c) and (f), the first among them: the
+# rank's CUDA, cuBLAS and gloo are warm from (a), (b) and (e), which run in
+# the same process before them (after one untimed warm step until the
+# experiments phase came; 2 timed before (e) and (f) joined the phase)
+MESH_TRAIN_STEPS = 1
 # (c)'s depth: Phi-4-mini at full width and MESH_FULL_LAYERS of its 32
 # layers (all 32 until (e) and (f) joined the phase: a step took 28-43 s
 # of gloo's host staging, and the script outgrew its time limit)
@@ -4330,8 +4581,8 @@ def mesh_full_config():
 def mesh_full(rank, batch_size):
     """(c): Phi-4-mini-3.8B at full width and MESH_FULL_LAYERS layers on
     mesh (data 1, model 4), bf16, remat full, batch ``batch_size`` x
-    TRAIN_SEQ (phase 16's seed, data and lr): one warm step and
-    MESH_TRAIN_STEPS timed (CUDA events), this rank's peak memory, its
+    TRAIN_SEQ (phase 16's seed, data and lr): MESH_TRAIN_STEPS steps timed
+    (CUDA events), the first among them, this rank's peak memory, its
     parameter bytes against the specs' shard sizes, and its attention
     kernels' launches."""
     import torch
@@ -4385,9 +4636,7 @@ def mesh_full(rank, batch_size):
             pt.batch_specs(data, mesh, B), mesh)
         step = make_train_step(cfg, tcfg)
         ops.reset_launch_counts()
-        state, m = step(state, batch)                  # warm-up
-        losses = [float(m["loss"])]
-        times = []
+        losses, times = [], []
         for _ in range(MESH_TRAIN_STEPS):
             dist.barrier()
             start = torch.cuda.Event(enable_timing=True)
@@ -4411,8 +4660,9 @@ def mesh_full(rank, batch_size):
 def mesh_moe_full(rank, batch_size):
     """(f): Granite-3.0-1B-A400M at full width and depth on mesh (data 1,
     model 4), bf16, remat full, batch ``batch_size`` x TRAIN_SEQ (seed 0,
-    phase 16's data and lr): its 32 experts split 8 a rank. One warm step
-    and MESH_TRAIN_STEPS timed (CUDA events); this rank's peak memory,
+    phase 16's data and lr): its 32 experts split 8 a rank.
+    MESH_TRAIN_STEPS steps timed (CUDA events), the first among them; this
+    rank's peak memory,
     parameter bytes against the specs' shard sizes, the experts it holds,
     the routes its experts dropped in a forward of the batch (no
     gradient), and its attention kernels' launches."""
@@ -4467,9 +4717,7 @@ def mesh_moe_full(rank, batch_size):
             pt.batch_specs(data, mesh, B), mesh)
         step = make_train_step(cfg, tcfg)
         ops.reset_launch_counts()
-        state, m = step(state, batch)                  # warm-up
-        losses = [float(m["loss"])]
-        times = []
+        losses, times = [], []
         for _ in range(MESH_TRAIN_STEPS):
             dist.barrier()
             start = torch.cuda.Event(enable_timing=True)
@@ -4765,6 +5013,8 @@ def main() -> int:
         say(card)
         return 0
 
+    # phase 18's CPU half, beside the build (its cores are partly idle)
+    cpu_experiments = experiments_on_cpu()
     t0 = time.perf_counter()
     reports = _build.build_all()
     say(f"build: {len(reports)} kernels in {time.perf_counter() - t0:.1f} s")
@@ -4817,8 +5067,16 @@ def main() -> int:
     phase_model_smoke(torch, ops)
     timings["model smoke"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    flash_launches = phase_model_full(torch, ops)
-    timings["model full width"] = time.perf_counter() - t0
+    flash_launches, (fig5_launches, fig5_s) = phase_model_full(
+        torch, ops, lambda model: experiments_fig5(torch, ops, model))
+    timings["model full width"] = time.perf_counter() - t0 - fig5_s
+    timings["experiments (b)"] = fig5_s
+    torch.cuda.empty_cache()
+    experiment_launches, experiment_seconds = phase_experiments(
+        torch, ops, cpu_experiments)
+    for k, v in fig5_launches.items():
+        experiment_launches[k] += v
+    timings.update(experiment_seconds)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_serving(torch, ops)
@@ -4864,6 +5122,8 @@ def main() -> int:
         # each path's launches, its counts set to 0 just before it
         if name == "flash_attention":
             rec["launches_by_path"] = {"model_llama3_8b": flash_launches,
+                                       "experiments":
+                                           experiment_launches[name],
                                        "model_qwen3_moe_30b_a3b":
                                            moe_flash_launches,
                                        **zoo_flash_launches,
@@ -4873,14 +5133,16 @@ def main() -> int:
         elif name == "flash_attention_bwd":
             rec["launches_by_path"] = {
                 f"train_{TRAIN_ARCH}": train["launches"][name],
-                "mesh": mesh_launches[name]}
+                "mesh": mesh_launches[name],
+                "experiments": experiment_launches[name]}
             rec["train"] = {k: v for k, v in train.items()
                             if k not in ("launches", "roofline")}
         else:
             rec["launches_by_path"] = {
                 "dbs": db_launches[name],
                 "sharded": sharded_launches.get(name, 0),
-                "mesh": mesh_launches.get(name, 0)}
+                "mesh": mesh_launches.get(name, 0),
+                "experiments": experiment_launches[name]}
         rec["launches"] = sum(rec["launches_by_path"].values())
         kernels.append(rec)
     say(json.dumps({"kernels": kernels}))

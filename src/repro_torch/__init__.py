@@ -26,6 +26,14 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def synchronize(device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU): a host clock read after it includes the device's time."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def require_same_device(owner: str, model, device: torch.device) -> None:
     """Raise unless ``model`` (a component's model, given or drawn) lies on
     the component's ``device``: a component never moves its inputs to a

@@ -7,11 +7,18 @@ query path is the list of composable ``Stage`` objects
 (``repro_torch.core.stages``) folded lock-step here. ``device`` reaches every
 factory that names a ``device`` parameter (the vector DB, the transformer
 embedder, the cross-encoder, the model LLM); ``None`` means the card.
+
+The indexing path's ``insertion`` and ``index_build`` stages end by waiting
+for the DB's device: a DB on the card queues its copies and builds
+asynchronously, and a stage's host-clock time must include its device work.
+The query stages need no such wait: each one's output reaches the host
+before its timer stops.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from repro_torch import synchronize
 from repro_torch.core import registry
 from repro_torch.core.interfaces import (BaseEmbedder, BaseLLM, BaseReranker,
                                          Chunk, DBInstance, StageTrace)
@@ -93,10 +100,19 @@ class RAGPipeline:
             vecs = self.embedder.embed([c.text for c in chunks])
         with self.timer.stage("insertion"):
             self.db.insert(vecs, chunks)
+            self._sync_db()
         if build:
             with self.timer.stage("index_build"):
                 self.db.build_index()
+                self._sync_db()
         return len(chunks)
+
+    def _sync_db(self) -> None:
+        """Wait for the DB's queued device work (a DB without a device
+        queues none)."""
+        dev = getattr(self.db, "device", None)
+        if dev is not None:
+            synchronize(dev)
 
     def update_document(self, doc_id: int, text: str, version: int = 1) -> int:
         """Paper §3.2 update op: replace a document's chunks in place."""
@@ -106,6 +122,7 @@ class RAGPipeline:
             vecs = self.embedder.embed([c.text for c in chunks])
         with self.timer.stage("insertion"):
             self.db.update(doc_id, vecs, chunks)
+            self._sync_db()
         return len(chunks)
 
     def remove_document(self, doc_id: int) -> int:

@@ -236,8 +236,9 @@ def test_spec_rejects_unported_serving_features(key, value):
 
 
 def test_port_imports_nothing_of_jax():
-    """Import every module of the port in a fresh interpreter: neither jax
-    nor any module of the JAX package may load."""
+    """Import every module of the port in a fresh interpreter, the
+    experiments and the examples too: neither jax nor any module of the JAX
+    package may load."""
     code = r"""
 import importlib, pathlib, sys
 root = pathlib.Path(sys.argv[1])
@@ -248,6 +249,13 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
 assert not bad, bad
+# the experiments and the examples among them
+for sub in ("experiments", "examples"):
+    mods = sorted((root / "repro_torch" / sub).glob("*.py"))
+    assert len(mods) > 4, sub
+    for path in mods:
+        assert f"repro_torch.{sub}.{path.stem}".removesuffix(".__init__") \
+            in sys.modules, path
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
     src = os.path.join(ROOT, "src")
