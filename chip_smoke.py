@@ -82,7 +82,8 @@ Phases, each of which raises on failure and prints its wall seconds:
    ``update_storm`` and ``replica_failure`` served live on the card (every
    request answered but the injected kills'); ``model_llama3_8b.json``
    served closed-loop at concurrency 8 (its rate R), open-loop Poisson at
-   0.9 R, and elastic at 0.9 R with up to 2 replicas and a
+   0.9 R, and elastic at 0.9 R with up to 2 replicas, each over
+   MODEL_LOAD_REQUESTS (16) requests, the elastic one with a
    Chrome trace under ``build/`` (no failed request, the kernels launched,
    the elastic run's peak memory at most the closed run's + 2 GiB); and
    ``--stage-pipeline`` on ``fused_ivf.json``, whose pipelined outputs
@@ -105,7 +106,8 @@ Phases, each of which raises on failure and prints its wall seconds:
    spec (closed at concurrency 8, open at 0.9 R of its own R,
    elastic at 0.9 R with a trace that must hold the engine's ``gen.*``
    instants), every query generated and counted once, with the engine's
-   decode steps, prefill chunks and mean active slots;
+   decode steps, prefill chunks and mean active slots; phase 18 (e) runs
+   between the two on the same weights;
 13. moe: Qwen3-30B-A3B (30,532,110,336 random bf16 parameters from seed 0)
    built on the card, its counts, bytes and model FLOPs against the
    reference's, ``time_model`` (prefill and decode step against their
@@ -207,12 +209,30 @@ Phases, each of which raises on failure and prints its wall seconds:
    pipeline through ``common.build_pipeline(llm=...)``), its four stage
    seconds and ``generation_frac``, flash_attention once a layer. (a)
    Every experiment's ``run(1.0, device="cuda")``, its rows printed; the
-   model-free ones and the quickstart run once more on the CPU in six
-   processes of their own, started beside the kernels' build: the card's
-   rows held to the CPU's by ``repro_torch.experiments.common
-   .compare_rows`` (the CPU tests' rule: the same names and keys; counts,
-   bytes, flags and the retrieve model's bytes equal; quality equal; the
-   shard sweep's virtual-time latencies within 1e-9). (c)
+   model-free ones (the ``scenarios`` and ``chaos`` suites among them) and
+   the quickstart run once more on the CPU in seven processes of their
+   own, started beside the kernels' build: the card's rows held to the
+   CPU's by ``repro_torch.experiments.common.compare_rows`` (the CPU
+   tests' rule: the same names and keys; counts, bytes, flags and the
+   retrieve model's bytes equal; quality equal; the shard sweep's and the
+   scenario suites' virtual-time values within 1e-9). The serving studies
+   each with its own check (``experiments_studies``): ``serving``'s QPS
+   sweep, ``stage_pipeline``'s identical outputs, ``elastic_scaling``'s
+   check (equivalence and the controller's replay held; elastic against
+   static on goodput and p99 printed with its verdict beside a second
+   static run's under the same rule, not held: at the study's load no
+   stage on the card is busy and both axes differ by noise), ``gen_engine``
+   at ``BENCH_CFG`` (equal outputs and an engine TTFT p95 below
+   lock-step's; flash_attention in its lock-step prefill),
+   ``scenarios``' check (every golden variant twice: golden dicts and
+   fault logs equal, the replays deterministic), ``chaos``' check and
+   ``overhead``'s 3 % tracing gate at its --smoke size (GOLDEN_SCALE; one
+   retry at doubled rounds); the live five's rows held by their flags and
+   configured values. (e), inside phase 12 on its Llama-3-8B: the
+   ``gen_engine`` point at full width (bf16, ENGINE_FULL_REQUESTS 24),
+   equivalence by the near-tie rule, the TTFT p50/p95 of both schedulers,
+   the offered load, the speedup and the rows differing at near ties
+   printed, not held. (c)
    ``fused_retrieve``'s check over the card's rows: every config equal to
    ``off`` by the parity rule, fresh and mutated, the roofline ordered,
    and the sq8 and PQ micro-batches at least 1.05x faster fused (their
@@ -222,7 +242,8 @@ Phases, each of which raises on failure and prints its wall seconds:
    loss falling. All five DB kernels, flash_attention and
    flash_attention_bwd must launch in the phase; the wall seconds print
    as ``experiments (a)`` (with the wait for the CPU's processes),
-   ``experiments (b)`` and ``experiments (c)-(d)``.
+   ``experiments (a) studies``, ``experiments (b)``, ``experiments
+   (c)-(d)`` and ``experiments (e)``.
 
 The last lines are one JSON object on the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a card, or run
@@ -2407,7 +2428,7 @@ def serve_counted(torch, ops, spec, cfg, n_requests=None, concurrency=0,
 # the experiments phase: RAGPerf's own experiments (repro_torch.experiments)
 # and the examples (repro_torch.examples) on the card
 # the model-free experiments (and the quickstart), run once more on the
-# CPU in six processes of one thread each, balanced by their CPU seconds
+# CPU in seven processes of one thread each, balanced by their CPU seconds
 # (the work is mostly host Python). They start beside the kernels' build,
 # whose nvcc processes leave cores idle, and have ended long before the
 # card's rows are held to theirs (beside the card's run, until this script
@@ -2417,11 +2438,24 @@ EXPERIMENTS_ON_CPU = (
     ("sensitivity", "resource_utilization"),
     ("sharded_retrieval", "index_schemes"),
     ("accuracy_eval", "fused_retrieve"),
-    ("update_workload", "monitor_overhead"))
+    ("update_workload", "monitor_overhead"),
+    ("scenarios", "chaos"))
 CPU_THREADS = 1
 E2E_STEPS = 40             # train_e2e: 20 steps, then a relaunch to 40
 EXPERIMENT_KERNELS = ("topk_search", "ivf_topk", "sq8_topk", "pq_topk",
                       "quant_score", "flash_attention", "flash_attention_bwd")
+# RAGPerf's serving studies in (a): each runs on the card with its own
+# check. The live five's rows measure the card's wall clock (coalescing,
+# autoscale events and span counts follow it too), so they are held by
+# their flags and configured values; the simulated two run on the CPU too
+# (EXPERIMENTS_ON_CPU) and are held to its rows
+LIVE_STUDIES = ("serving", "stage_pipeline", "elastic_scaling", "gen_engine",
+                "overhead")
+SIM_STUDIES = ("scenarios", "chaos")
+OVERHEAD_RUNS = 3          # the overhead gate's interleaved rounds, at its
+                           # --smoke size (GOLDEN_SCALE) for the run's time
+# elastic_scaling's sizes at scale 1.0 (its sweep's), for the control run
+ELASTIC_DOCS, ELASTIC_REQUESTS = 48, 160
 
 
 def experiments_on_cpu():
@@ -2517,6 +2551,177 @@ def experiments_fig5(torch, ops, model):
     return launches, time.perf_counter() - t0
 
 
+def held_live(name, rows, values):
+    """A live study's rows on the card: the bench names of ``values`` in
+    order, each value finite and not negative, a throughput positive
+    (``common.compare_rows`` of the rows against themselves), and each
+    flag or configured key at its value in ``values`` (bench -> key ->
+    value). Returns the values held."""
+    from repro_torch.experiments import common
+
+    benches = [r["bench"] for r in rows]
+    if benches != list(values):
+        raise AssertionError(f"experiments (a) {name}: rows {benches}, "
+                             f"want {list(values)}")
+    common.compare_rows(rows, rows)
+    held = 0
+    for row in rows:
+        for key, want in values[row["bench"]].items():
+            if row[key] != want:
+                raise AssertionError(f"experiments (a) {name}: "
+                                     f"{row['bench']} {key} {row[key]!r}, "
+                                     f"want {want!r}")
+            held += 1
+    return held
+
+
+def experiments_studies(torch, ops):
+    """(a)'s serving studies on the card, each with its own check, which
+    raises on failure: ``stage_pipeline``'s identical outputs (inside its
+    run), ``elastic_scaling``'s equivalence and controller replay,
+    ``gen_engine``'s equivalence and TTFT-p95 win at ``BENCH_CFG``,
+    ``scenarios.check`` (every golden variant twice: golden dicts and fault
+    logs equal, the controller's replay deterministic), ``chaos.check`` and
+    ``overhead``'s 3 % gate with its one retry at doubled rounds.
+    ``elastic_scaling.check``'s timing rule (elastic not worse than static
+    on both goodput and p99) is printed beside the same rule applied to a
+    second static run against the first, not held: at the study's load no
+    stage on the card is busy, so both axes differ by noise, and a second
+    static run breaks the rule too (PERF.md, the serving studies). Returns
+    each study's rows."""
+    from repro_torch.experiments import (chaos, elastic_scaling, gen_engine,
+                                         overhead, scenarios, serving,
+                                         stage_pipeline)
+    from repro_torch.scenarios.registry import GOLDEN_SCALE
+
+    rows, walls, held = {}, {}, {}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    rows["serving"] = part("serving", lambda: serving.run(1.0, DEVICE))
+    qps = (25, 50, 100, 200)
+    held["serving"] = held_live("serving", rows["serving"], {
+        **{f"serving_open_q{q}": {"offered_qps": float(q)} for q in qps},
+        "serving_closed_c4": {"concurrency": 4.0}})
+
+    rows["stage_pipeline"] = part("stage_pipeline",
+                                  lambda: stage_pipeline.run(1.0, DEVICE))
+    stages = [r["bench"].split("/")[2] for r in rows["stage_pipeline"]
+              if r["bench"].count("/") == 2 and "/b4/" in r["bench"]]
+    held["stage_pipeline"] = held_live(
+        "stage_pipeline", rows["stage_pipeline"],
+        {b: {} for batch in (4, 8, 16) for b in
+         [f"stage_pipeline/b{batch}"]
+         + [f"stage_pipeline/b{batch}/{st}" for st in stages]})
+    say("experiments (a) stage_pipeline: lock-step, samebatch and "
+        "stagebatch outputs identical at batch 4, 8 and 16; " + "; ".join(
+            f"{r['bench']}: lockstep_qps {r['lockstep_qps']:.2f}, "
+            f"pipelined_qps {r['pipelined_qps']:.2f}, speedup "
+            f"{r['speedup']:.3f}" for r in rows["stage_pipeline"]
+            if "speedup" in r))
+
+    def elastic():
+        doc = elastic_scaling.sweep(1.0, device=DEVICE)
+        # the control: static once more, held to the first static run by
+        # the same rule (an identical configuration's run-to-run noise)
+        again = elastic_scaling._serve(
+            ELASTIC_DOCS, ELASTIC_REQUESTS,
+            elastic_scaling.SCENARIO.arrival.target_qps, 0, "static",
+            DEVICE)
+        return doc, again
+
+    doc, again = part("elastic_scaling", elastic)
+    rows["elastic_scaling"] = elastic_scaling.rows_of(doc)
+    st, el, kn = doc["static"], doc["elastic"], doc["knobs"]
+    errs = elastic_scaling.check(doc)
+    noise = elastic_scaling.check(
+        dict(doc, elastic=dict(again, deterministic_replay=True)))
+    say(f"experiments (a) elastic_scaling: static goodput "
+        f"{st['goodput_qps']:.4f} QPS, p99 {st['p99_ms']:.2f} ms; elastic "
+        f"goodput {el['goodput_qps']:.4f} QPS, p99 {el['p99_ms']:.2f} ms "
+        f"({el['n_events']} events: " + ", ".join(
+            f"{e['stage']} {e['prev']}->{e['new']}" for e in el["events"])
+        + f"); knobs-only at 2x load goodput {kn['goodput_qps']:.4f} QPS, "
+        f"p99 {kn['p99_ms']:.2f} ms; static again goodput "
+        f"{again['goodput_qps']:.4f} QPS, p99 {again['p99_ms']:.2f} ms; "
+        f"elastic against static by --check's timing rule: "
+        f"{errs or 'not worse'}; static again against static by the same "
+        f"rule: {noise or 'not worse'}")
+    if not doc["equivalent_outputs"] or not el["deterministic_replay"]:
+        raise AssertionError(f"experiments (a) elastic_scaling --check: "
+                             f"{errs}")
+    held["elastic_scaling"] = held_live(
+        "elastic_scaling", rows["elastic_scaling"],
+        {**{f"elastic_scaling/{m}": {} for m in
+            ("static", "elastic", "knobs")},
+         "elastic_scaling/gain": {"equivalent": 1.0}})
+
+    before = ops.launch_counts()["flash_attention"]
+    points = part("gen_engine", lambda: gen_engine.sweep(1.0,
+                                                         device=DEVICE))
+    flash = ops.launch_counts()["flash_attention"] - before
+    rows["gen_engine"] = gen_engine.rows_of(points)
+    p = points[0]
+    say(f"experiments (a) gen_engine at BENCH_CFG ({p['n_requests']} "
+        f"requests, batch {p['batch']}, slots {p['slots']}, chunk "
+        f"{p['chunk_tokens']}): offered {p['offered_qps']:.3f} QPS; "
+        f"TTFT p50/p95 lock-step {p['lockstep_ttft_p50_ms']:.2f}/"
+        f"{p['lockstep_ttft_p95_ms']:.2f} ms, engine "
+        f"{p['engine_ttft_p50_ms']:.2f}/{p['engine_ttft_p95_ms']:.2f} ms, "
+        f"p95 speedup {p['ttft_p95_speedup']:.3f}x; equivalent "
+        f"{p['equivalent']}; flash_attention {flash} launches")
+    errs = gen_engine.check(points)
+    if errs or flash == 0:
+        raise AssertionError(f"experiments (a) gen_engine --check: {errs}; "
+                             f"flash_attention {flash} launches")
+    held["gen_engine"] = held_live("gen_engine", rows["gen_engine"],
+                                   {"gen_engine/b8s12": {"equivalent": 1}})
+
+    for name, mod in (("scenarios", scenarios), ("chaos", chaos)):
+        rows[name] = part(name, lambda: mod.run(1.0, DEVICE))
+        errs = part(f"{name} --check", lambda: mod.check(device=DEVICE))
+        if errs:
+            raise AssertionError(f"experiments (a) {name} --check: "
+                                 + "; ".join(errs))
+    say(f"experiments (a) scenarios --check: "
+        f"{len(rows['scenarios'])} golden variants replayed twice on the "
+        f"card, golden dicts and fault logs equal, replays deterministic; "
+        f"chaos --check: deterministic, lossless, recovery events verified")
+
+    def overhead_gate():
+        m = overhead.measure(GOLDEN_SCALE, OVERHEAD_RUNS, DEVICE)
+        say(f"experiments (a) overhead at scale {GOLDEN_SCALE}, "
+            f"{OVERHEAD_RUNS} rounds: " + row_text(overhead.row_of(m)))
+        return overhead.gate(m, GOLDEN_SCALE, OVERHEAD_RUNS, DEVICE,
+                             say=lambda text: say(
+                                 f"experiments (a) overhead: {text}"))
+
+    m, bad = part("overhead", overhead_gate)
+    if bad:
+        raise AssertionError("experiments (a) overhead --check: "
+                             + "; ".join(bad))
+    rows["overhead"] = [overhead.row_of(m)]
+    held["overhead"] = held_live("overhead", rows["overhead"], {
+        "overhead/steady": {"scale": GOLDEN_SCALE,
+                            "runs": float(m["runs"])}})
+    say(f"experiments (a) overhead --check: tracing within "
+        f"{overhead.TOLERANCE:.0%} (throughput ratio {m['tput_ratio']:.4f}"
+        f", p99 ratio {m['p99_ratio']:.4f}, {int(m['runs'])} rounds, "
+        f"{int(m['n_spans'])} spans a run)")
+    for name in LIVE_STUDIES + SIM_STUDIES:
+        for row in rows[name]:
+            say(f"experiments (a) {row_text(row)}")
+    say("experiments (a): the live studies' flags and configured values "
+        "held on the card: " + ", ".join(f"{k} {v}" for k, v in
+                                         held.items())
+        + "; wall s: " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return rows
+
+
 def phase_experiments(torch, ops, cpu):
     """Phase 18 (module docstring): (a) the experiments on the card against
     the CPU's processes ``cpu`` (``experiments_on_cpu``), (c) the
@@ -2533,6 +2738,8 @@ def phase_experiments(torch, ops, cpu):
     ops.reset_launch_counts()
     card, walls = {}, {}
     for name, mod in experiments.MODULES.items():
+        if name in LIVE_STUDIES + SIM_STUDIES:
+            continue
         t1 = time.perf_counter()
         card[name] = mod.run(1.0, DEVICE)
         walls[name] = time.perf_counter() - t1
@@ -2541,6 +2748,9 @@ def phase_experiments(torch, ops, cpu):
     say("experiments (a): wall s on the card: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items()))
     seconds["experiments (a)"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    card.update(experiments_studies(torch, ops))
+    seconds["experiments (a) studies"] = time.perf_counter() - t1
 
     t1 = time.perf_counter()
     errs = fused_retrieve.check(card["fused_retrieve"])
@@ -2580,9 +2790,9 @@ def phase_experiments(torch, ops, cpu):
             raise AssertionError(f"experiments (a) {name}, the card against "
                                  f"the CPU: {exc}") from None
     say(f"experiments (a): the model-free {len(names)} on the card equal "
-        f"the CPU's by common.compare_rows ({compared} counts, bytes, flags "
-        f"and quality values, quality equal); waited {waited:.1f} s for the "
-        f"CPU's processes after the card's run")
+        f"the CPU's by common.compare_rows ({compared} counts, bytes, flags,"
+        f" quality and virtual-time values, quality equal); waited "
+        f"{waited:.1f} s for the CPU's processes after the card's run")
 
     want = cpu_rows["quickstart"]
     worst = max(abs(quick["quality"][k] - v)
@@ -2633,6 +2843,9 @@ SIM_QUALITY_TOL = 1e-9
 # requests of the Llama-3-8B spec's serve runs (48 before the train phase
 # came: cut for the whole run's time)
 MODEL_REQUESTS = 24
+# requests of each of phase 10's closed, open and elastic runs of the
+# Llama-3-8B spec (24 before phase 18 (e) came: cut for the run's time)
+MODEL_LOAD_REQUESTS = 16
 # the model runs' latency SLO: an interactive answer of 16 tokens from an
 # 8B generator (TTFT ~0.11 s, 15 decode steps of 40-70 ms at batch 8)
 MODEL_SLO_MS = 2000.0
@@ -2971,8 +3184,8 @@ def phase_serving(torch, ops):
     t0 = time.perf_counter()
     (ROOT / "build").mkdir(exist_ok=True)
     model_under_load(torch, ops, DEVICE, specs / "model_llama3_8b.json",
-                     MODEL_REQUESTS, ROOT / "build" / "serving_trace.json",
-                     shares=(0.9,))
+                     MODEL_LOAD_REQUESTS,
+                     ROOT / "build" / "serving_trace.json", shares=(0.9,))
     say(f"serving: model under load {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     stage_pipeline(torch, ops, DEVICE, specs / "fused_ivf.json")
@@ -3209,6 +3422,11 @@ ENGINE_SETTINGS = ((8, 128, 4, "fcfs"), (3, 32, 1, "sjf"))
 # requests of each engine serve run (32 before the train phase came, for
 # the whole run's time)
 ENGINE_LOAD_REQUESTS = 16
+# experiments (e): gen_engine's point at full width, at its settings
+# (batch 8, slots 12, chunk 32, 3 chunks a step, prompts to 96 tokens, 24
+# new), over 24 requests (the study's 48 at scale 1.0 cut for the run's
+# time)
+ENGINE_FULL_REQUESTS = 24
 
 
 def rag_requests(n):
@@ -3230,8 +3448,10 @@ def rag_requests(n):
 def phase_engine(torch, ops):
     """Llama-3-8B (random bf16 weights from seed 0) through the lock-step
     ``ModelLLM`` and through ``GenEngine`` in ENGINE_SETTINGS: the same
-    greedy tokens outside near ties; then ``model_llama3_8b_engine.json``
-    served closed, open and elastic (``model_under_load``)."""
+    greedy tokens outside near ties; phase 18 (e) on its weights
+    (``gen_engine_full``); then ``model_llama3_8b_engine.json`` served
+    closed, open and elastic (``model_under_load``). Returns (e)'s
+    flash_attention launches and wall seconds."""
     from repro_torch import configs
     from repro_torch.core.generator import ModelLLM
 
@@ -3239,14 +3459,82 @@ def phase_engine(torch, ops):
     llm = ModelLLM(cfg, max_prompt=512, max_new=16, batch_size=8, seed=0,
                    device=DEVICE)
     engine_matches_lockstep(torch, llm, ENGINE_SETTINGS)
+    full = gen_engine_full(torch, ops, llm)
     del llm
     torch.cuda.empty_cache()
     (ROOT / "build").mkdir(exist_ok=True)
-    return model_under_load(
+    model_under_load(
         torch, ops, DEVICE,
         SRC / "repro_torch" / "specs" / "model_llama3_8b_engine.json",
         ENGINE_LOAD_REQUESTS, ROOT / "build" / "engine_trace.json",
         shares=(0.9,))
+    return full
+
+
+def gen_engine_full(torch, ops, llm):
+    """Phase 18 (e): ``gen_engine``'s point (``experiments.gen_engine.
+    _point``) at full Llama-3-8B width on ``llm``'s bf16 weights, over
+    ENGINE_FULL_REQUESTS requests: equivalence by the near-tie rule (bf16
+    chunked prefill sums in another order than the lock-step prefill), the
+    TTFT figures printed, not held. Returns flash_attention's launches in
+    the point and its wall seconds."""
+    import numpy as np
+
+    from repro_torch.core.generator import ModelLLM, build_prompt
+    from repro_torch.experiments import gen_engine
+    from repro_torch.kernels.parity import compare_tokens
+
+    t0 = time.perf_counter()
+    model = ModelLLM(llm.cfg, max_prompt=96, max_new=24, batch_size=8,
+                     device=DEVICE, model=llm.model)
+    tol = LOGIT_TOL[llm.cfg.dtype]
+    near, rule_launches = [], []
+
+    def ids(answers):
+        return np.array([[int(w[3:]) for w in a.split()] for a in answers])
+
+    def near_ties(questions, want, got):
+        want_ids, got_ids = ids(want), ids(got)
+        if want_ids.shape != got_ids.shape:
+            return False
+        gaps = np.zeros(want_ids.shape)
+        if (want_ids != got_ids).any():
+            # the rule's own forwards are not the point's: their launches
+            # are taken out of the count
+            before = ops.launch_counts()["flash_attention"]
+            prompts = model.tok.encode_batch(
+                [build_prompt(q, []) for q in questions], model.max_prompt)
+            gaps = greedy_gaps(torch, model.model, prompts,
+                               np.maximum((prompts != 0).sum(1), 1),
+                               want_ids)
+            rule_launches.append(ops.launch_counts()["flash_attention"]
+                                 - before)
+        res = compare_tokens(want_ids, got_ids, gaps, tol)
+        near.append(res["mismatch_rows"])
+        return res["violations"] == 0
+
+    ops.reset_launch_counts()
+    p = gen_engine._point(n_req=ENGINE_FULL_REQUESTS, batch=8, slots=12,
+                          chunk_tokens=32, max_prompt=96, max_new=24,
+                          seed=0, device=DEVICE, llm=model, same=near_ties)
+    flash = ops.launch_counts()["flash_attention"] - sum(rule_launches)
+    if not p["equivalent"] or flash == 0:
+        raise AssertionError(f"experiments (e): {p}; rows differing at "
+                             f"near ties {near}; flash_attention {flash}")
+    say(f"experiments (e): gen_engine at full width, {llm.cfg.name} "
+        f"{llm.cfg.dtype} ({p['n_requests']} requests, batch {p['batch']},"
+        f" slots {p['slots']}, chunk {p['chunk_tokens']}, prompts to 96 "
+        f"tokens, 24 new): offered {p['offered_qps']:.4f} QPS; TTFT p50/p95"
+        f" lock-step {p['lockstep_ttft_p50_ms']:.2f}/"
+        f"{p['lockstep_ttft_p95_ms']:.2f} ms, engine "
+        f"{p['engine_ttft_p50_ms']:.2f}/{p['engine_ttft_p95_ms']:.2f} ms; "
+        f"ttft_p95_speedup {p['ttft_p95_speedup']:.4f}; walls lock-step "
+        f"{p['lockstep_wall_s']:.2f} s, engine {p['engine_wall_s']:.2f} s;"
+        f" rows differing only at near ties (top-2 gap <= {tol}): "
+        f"offline {near[0]}, under load {near[1]} of {p['n_requests']}; "
+        f"flash_attention {flash} launches (and {sum(rule_launches)} in "
+        f"the rule's forwards, not counted)")
+    return flash, time.perf_counter() - t0
 
 
 def engine_matches_lockstep(torch, llm, settings, require=True,
@@ -5087,8 +5375,10 @@ def main() -> int:
     timings["limits"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    phase_engine(torch, ops)
-    timings["engine"] = time.perf_counter() - t0
+    engine_flash_launches, timings["experiments (e)"] = phase_engine(
+        torch, ops)
+    timings["engine"] = (time.perf_counter() - t0
+                         - timings["experiments (e)"])
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     train = phase_train(torch, ops)
@@ -5124,6 +5414,8 @@ def main() -> int:
             rec["launches_by_path"] = {"model_llama3_8b": flash_launches,
                                        "experiments":
                                            experiment_launches[name],
+                                       "experiments (e)":
+                                           engine_flash_launches,
                                        "model_qwen3_moe_30b_a3b":
                                            moe_flash_launches,
                                        **zoo_flash_launches,

@@ -1,6 +1,8 @@
 """RAGPerf's own experiments on the port: the paper's Figs. 5-12 and §5.8,
-the fused-retrieve gate and the sharded-retrieval sweep, one module each,
-named as the JAX package's ``benchmarks/`` modules are.
+the serving studies (the QPS sweep, the stage pipeline, elastic scaling,
+the generation engine, the scenario and chaos suites, the tracing-overhead
+gate), the fused-retrieve gate and the sharded-retrieval sweep, one module
+each, named as the JAX package's ``benchmarks/`` modules are.
 
 Every module exposes ``run(scale=1.0, device="cuda") -> rows`` (rows of
 ``{"bench": ..., metric: value}``) and prints them as

@@ -116,7 +116,10 @@ def timed(fn, *args, **kw):
 # counts, sizes, bytes, flags, labels and the roofline's byte model equal;
 # quality within the caller's tolerance; the shard sweep's virtual-time
 # numbers within SIM_TOL; every other key is a measurement of its run
-# (finite, not negative; a rate, a total or a latency positive)
+# (finite, not negative; a rate, a total or a latency positive). The
+# serving studies have rules of their own, by bench (``rule``), because one
+# key name means two things there (``goodput_qps`` is virtual time in a
+# scenario's row and the wall clock's in a live one)
 EXACT_KEYS = frozenset({
     "chunks", "index_bytes", "vector_bytes", "rebuilds", "shards",
     "corpus_scale", "imbalance", "output_identical", "exact_built",
@@ -142,11 +145,56 @@ SAMPLED_ROWS = frozenset(
     MONITOR_ROWS + g for g in ("host_rss_bytes", "cpu_util", "io_read_Bps",
                                "io_write_Bps", "torch_device_bytes",
                                "db_live"))
+# the simulator's rows (scenarios, chaos): wall-clock free, so every key is
+# held: counts and event numbers equal, quality by the quality rule, the
+# virtual-time latencies and rates within SIM_TOL
+SIM_BENCHES = ("scenarios/", "chaos/")
+SIM_COUNT_KEYS = frozenset({
+    "n_requests", "n_scaling_events", "n_knob_moves", "deterministic",
+    "n_failed", "n_retried", "n_faults_injected", "n_respawns",
+    "n_retires"})
+SIM_QUALITY_KEYS = frozenset({"quality_goodput_qps", "quality_weight"})
+# the live serving studies' rows: measurements of their run (coalescing,
+# autoscale events and span counts follow the wall clock too), but for the
+# flags, the configured sizes and the samples a seeded stream fixes;
+# ``serving``'s offered load and concurrency are its configured values
+LIVE_BENCHES = ("serving_", "stage_pipeline/", "elastic_scaling/",
+                "gen_engine/", "overhead/")
+LIVE_EXACT_KEYS = frozenset({"equivalent", "deterministic", "runs", "scale",
+                             "n_samples_off", "n_samples_on"})
+SERVING_SET_KEYS = frozenset({"offered_qps", "concurrency"})
+# a live row's throughputs are positive (goodput may be 0: a loaded host
+# can miss every SLO)
+LIVE_POSITIVE_KEYS = frozenset({
+    "achieved_qps", "offered_qps", "lockstep_qps", "samebatch_qps",
+    "pipelined_qps", "tput_off_qps", "tput_on_qps", "speedup",
+    "ttft_p95_speedup"})
+
+
+def rule(bench: str, key: str) -> str:
+    """How ``compare_rows`` holds ``key`` of row ``bench``: ``exact``,
+    ``quality``, ``sim`` (within SIM_TOL) or ``measured``."""
+    if bench.startswith(SIM_BENCHES):
+        if key in SIM_COUNT_KEYS:
+            return "exact"
+        return "quality" if key in SIM_QUALITY_KEYS else "sim"
+    if bench.startswith(LIVE_BENCHES):
+        if key in LIVE_EXACT_KEYS or (bench.startswith("serving_")
+                                      and key in SERVING_SET_KEYS):
+            return "exact"
+        return "measured"
+    if bench.startswith(MONITOR_ROWS):
+        return "measured"
+    if key in EXACT_KEYS:
+        return "exact"
+    if key in QUALITY_KEYS:
+        return "quality"
+    return "sim" if key in SIM_KEYS else "measured"
 
 
 def compare_rows(want: List[Dict], got: List[Dict],
                  quality_tol: float = 0.0) -> int:
-    """Hold ``got``'s rows against ``want``'s by the rules above: the same
+    """Hold ``got``'s rows against ``want``'s by ``rule``: the same
     ``bench`` names (but for sampled gauge rows) and keys in the same order.
     Raises AssertionError at the first disagreement; returns the number of
     values held (the measurements not counted)."""
@@ -164,22 +212,22 @@ def compare_rows(want: List[Dict], got: List[Dict],
         bench = g["bench"]
         if list(g) != list(w):
             raise AssertionError(f"{bench}: keys {list(g)} vs {list(w)}")
+        live = bench.startswith(LIVE_BENCHES)
         for key, wv in w.items():
             gv = g[key]
             if key == "bench":
                 continue
-            measured = bench.startswith(MONITOR_ROWS) or not (
-                key in EXACT_KEYS or key in QUALITY_KEYS or key in SIM_KEYS)
-            if measured:
-                ok = math.isfinite(gv) and gv >= 0 and (
-                    gv > 0 or key not in POSITIVE_KEYS)
-            elif key in EXACT_KEYS:
+            how = rule(bench, key)
+            if how == "measured":
+                ok = math.isfinite(gv) and gv >= 0 and (gv > 0 or key not in (
+                    LIVE_POSITIVE_KEYS if live else POSITIVE_KEYS))
+            elif how == "exact":
                 ok = gv == wv
-            elif key in QUALITY_KEYS:
+            elif how == "quality":
                 ok = abs(gv - wv) <= quality_tol
             else:
                 ok = abs(gv - wv) <= SIM_TOL
-            n += not measured
+            n += how != "measured"
             if not ok:
                 raise AssertionError(f"{bench}: {key} {gv!r} against "
                                      f"{wv!r}")

@@ -10,11 +10,14 @@ import time
 import traceback
 
 from repro_torch import resolve_device
-from repro_torch.experiments import (accuracy_eval, fused_retrieve,
-                                     index_schemes, indexing_breakdown,
-                                     monitor_overhead, query_breakdown,
+from repro_torch.experiments import (accuracy_eval, chaos,
+                                     elastic_scaling, fused_retrieve,
+                                     gen_engine, index_schemes,
+                                     indexing_breakdown, monitor_overhead,
+                                     overhead, query_breakdown,
                                      resource_limits, resource_utilization,
-                                     sensitivity, sharded_retrieval,
+                                     scenarios, sensitivity, serving,
+                                     sharded_retrieval, stage_pipeline,
                                      update_workload)
 from repro_torch.experiments.common import emit
 
@@ -28,7 +31,14 @@ MODULES = {
     "sensitivity": sensitivity,               # Fig. 11
     "index_schemes": index_schemes,           # Fig. 12
     "monitor_overhead": monitor_overhead,     # §5.8
+    "serving": serving,                       # open/closed-loop QPS sweep
+    "stage_pipeline": stage_pipeline,         # lock-step vs pipelined stages
+    "elastic_scaling": elastic_scaling,       # static vs elastic + knob ladder
+    "gen_engine": gen_engine,                 # lock-step vs continuous batching
+    "scenarios": scenarios,                   # named scenario suite (sim mode)
+    "chaos": chaos,                           # fault injection + recovery
     "sharded_retrieval": sharded_retrieval,   # corpus scaling at flat p99
+    "overhead": overhead,                     # tracing on/off A-B gate
     "fused_retrieve": fused_retrieve,         # fused-kernel retrieve gate
 }
 

@@ -18,9 +18,12 @@ into goodput: **quality-aware goodput** counts each SLO-meeting query at its
 quality weight (gold-context hit × answer F1 — ``metrics.quality``), so a
 knob-ladder "win" that held latency by degrading recall is charged for it.
 
-The pipeline is built on ``device`` (``None`` means the card).  The
-reference's golden-trace files stay with the reference: this package never
-reads or writes them.
+The pipeline is built on ``device`` (``None`` means the card).
+``golden_dict`` gives the stable, diff-reviewable subset of a report that
+the reference pins in its golden traces; the reference's golden-trace files
+stay with the reference: this package never reads or writes them, and
+holds its reports to a live reference run or to a second run of its own
+(``diff_golden``).
 """
 from __future__ import annotations
 
@@ -47,6 +50,13 @@ from repro_torch.workload.runner import gold_chunks_for
 from repro_torch.obs import decomposition_summary
 from repro_torch.scenarios.sim import CostModel, ScenarioSim
 from repro_torch.scenarios.spec import ScenarioSpec
+
+# the stable subset of summary keys a golden dict pins
+GOLDEN_SUMMARY_KEYS = ("n_queries", "n_mutations", "slo_attainment",
+                       "goodput_qps", "quality_goodput_qps",
+                       "quality_weight_mean", "p95_latency_ms",
+                       "n_failed", "error_rate", "availability",
+                       "p95_mutation_latency_ms")
 
 
 @dataclass
@@ -362,3 +372,45 @@ class ScenarioRunner:
                                replicas={"retrieval": 2, "generation": 2},
                                default_batch=batch, max_replicas=4).run(
             qs, ground_truth=ans, gold_chunks=golds).traces
+
+
+# -- golden dicts ------------------------------------------------------------
+
+def golden_dict(report: ScenarioReport, spec: ScenarioSpec) -> Dict[str, object]:
+    """The stable, diff-reviewable subset a golden trace pins: the scenario
+    spec itself (definition drift is a golden diff, not a silent re-run),
+    the exact scaling-event stream and knob timeline, and rounded
+    quality/goodput figures."""
+    return {
+        "scenario": report.scenario,
+        "seed": report.seed,
+        "spec": spec.to_dict(),
+        "n_requests": report.n_requests,
+        "scaling_events": report.scaling_events,
+        "knob_timeline": report.knob_timeline,
+        "fault_events": report.fault_events,
+        "summary": {k: round(float(report.summary[k]), 6)
+                    for k in GOLDEN_SUMMARY_KEYS if k in report.summary},
+        "quality": {k: round(float(v), 6)
+                    for k, v in sorted(report.quality.items())},
+        # the critical-path breakdown is pure virtual-time arithmetic, so
+        # it is bit-deterministic and pinnable like the summary
+        "trace_decomposition": {
+            comp: {k: round(float(v), 6) for k, v in sorted(vals.items())}
+            for comp, vals in sorted(report.trace_decomposition.items())},
+    }
+
+
+def diff_golden(expected: Dict, actual: Dict) -> List[str]:
+    """Human-readable mismatches between two golden dicts (empty list ==
+    the same run)."""
+    out: List[str] = []
+    for key in sorted(set(expected) | set(actual)):
+        if key not in expected:
+            out.append(f"unexpected new key {key!r}")
+        elif key not in actual:
+            out.append(f"missing key {key!r}")
+        elif expected[key] != actual[key]:
+            out.append(f"{key}: expected {expected[key]!r}, "
+                       f"got {actual[key]!r}")
+    return out
