@@ -224,8 +224,10 @@ Phases, each of which raises on failure and prints its wall seconds:
    stage on the card is busy and both axes differ by noise), ``gen_engine``
    at ``BENCH_CFG`` (equal outputs and an engine TTFT p95 below
    lock-step's; flash_attention in its lock-step prefill),
-   ``scenarios``' check (every golden variant twice: golden dicts and
-   fault logs equal, the replays deterministic), ``chaos``' check and
+   ``scenarios``' check (every golden variant twice: the first replay
+   equal, key by key and exactly, to its trace recorded on the CPU in
+   ``src/repro_torch/scenarios/golden/``, the two replays' golden dicts
+   and fault logs equal, the replays deterministic), ``chaos``' check and
    ``overhead``'s 3 % tracing gate at its --smoke size (GOLDEN_SCALE; one
    retry at doubled rounds); the live five's rows held by their flags and
    configured values. (e), inside phase 12 on its Llama-3-8B: the
@@ -244,6 +246,19 @@ Phases, each of which raises on failure and prints its wall seconds:
    as ``experiments (a)`` (with the wait for the CPU's processes),
    ``experiments (a) studies``, ``experiments (b)``, ``experiments
    (c)-(d)`` and ``experiments (e)``.
+
+19. lock order (after phase 10): ``scripts/lock_order.py --device cuda``
+   in a fresh interpreter, so that each kernel library's first load
+   (``kernels._build._lock``) falls inside the recorded window: the
+   reference's chaos workload (24 queries through the elastic executor, a
+   retrieval replica killed and respawned, a writer stall, one removal)
+   over a flat ``torch`` DB and a 4-shard ``torch_sharded`` DB on the
+   ``fused`` rung, with the executor's, DBs' (each shard's too), stage
+   timer's, accountant's, launch counter's and kernel loader's locks
+   instrumented (``repro_torch.analysis.lockorder``). Each graph's edges
+   and acquisitions by lock print; the run fails on a cycle, a non-zero
+   exit, or a graph in which ``elastic._lock``, ``vectordb._mu`` or the
+   launch counter's lock was never taken.
 
 The last lines are one JSON object on the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. Without a card, or run
@@ -2580,8 +2595,9 @@ def experiments_studies(torch, ops):
     raises on failure: ``stage_pipeline``'s identical outputs (inside its
     run), ``elastic_scaling``'s equivalence and controller replay,
     ``gen_engine``'s equivalence and TTFT-p95 win at ``BENCH_CFG``,
-    ``scenarios.check`` (every golden variant twice: golden dicts and fault
-    logs equal, the controller's replay deterministic), ``chaos.check`` and
+    ``scenarios.check`` (every golden variant twice: the first replay equal
+    to its CPU-recorded trace, golden dicts and fault logs equal, the
+    controller's replay deterministic), ``chaos.check`` and
     ``overhead``'s 3 % gate with its one retry at doubled rounds.
     ``elastic_scaling.check``'s timing rule (elastic not worse than static
     on both goodput and p99) is printed beside the same rule applied to a
@@ -2689,8 +2705,10 @@ def experiments_studies(torch, ops):
                                  + "; ".join(errs))
     say(f"experiments (a) scenarios --check: "
         f"{len(rows['scenarios'])} golden variants replayed twice on the "
-        f"card, golden dicts and fault logs equal, replays deterministic; "
-        f"chaos --check: deterministic, lossless, recovery events verified")
+        f"card, each first replay equal key by key to its trace recorded "
+        f"on the CPU (src/repro_torch/scenarios/golden), golden dicts and "
+        f"fault logs equal, replays deterministic; chaos --check: "
+        f"deterministic, lossless, recovery events verified")
 
     def overhead_gate():
         m = overhead.measure(GOLDEN_SCALE, OVERHEAD_RUNS, DEVICE)
@@ -3200,6 +3218,43 @@ LIMIT_DIMS = (3, 130, 383)
 LIMIT_HEAD_DIMS = (24, 80, 96, 200)
 BIG_K = 500                # the large-k time at the main path's shapes
 ODD_DIM = DIM - 1          # a padded width beside the main path's 384
+
+
+def phase_lock_order() -> None:
+    """Phase 19 (module docstring): ``scripts/lock_order.py`` in a fresh
+    interpreter on the card; each graph's edges and acquisitions printed
+    and checked here too."""
+    from repro_torch.analysis.lockorder import LockOrderGraph
+
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "lock_order.py"),
+         "--device", DEVICE], capture_output=True, text=True, timeout=300)
+    graphs = [json.loads(line) for line in out.stdout.splitlines()
+              if line.startswith('{"lock_order"')]
+    for rec in graphs:
+        say(f"lock order {rec['lock_order']}: edges "
+            + (", ".join(f"{a} -> {b}" for a, b in rec["edges"]) or "none")
+            + "; acquisitions " + ", ".join(
+                f"{k} {v}" for k, v in sorted(rec["acquisitions"].items()))
+            + f"; {rec['seconds']:.2f} s")
+    if out.returncode != 0:
+        raise AssertionError(f"lock order: exit {out.returncode}:\n"
+                             f"{out.stdout[-2000:]}{out.stderr[-4000:]}")
+    if [rec["lock_order"] for rec in graphs] != ["torch", "torch_sharded"]:
+        raise AssertionError(f"lock order: graphs {out.stdout[-2000:]}")
+    for rec in graphs:
+        g = LockOrderGraph()   # the edges replayed: a cycle raises here too
+        for a, b in rec["edges"]:
+            g.note_acquired(a)
+            g.note_acquire_attempt(b)
+            g.note_released(a)
+        g.assert_acyclic()
+        acq = rec["acquisitions"]
+        for lock in ("elastic._lock", "vectordb._mu", "ops._COUNTS._lock"):
+            if not sum(n for name, n in acq.items()
+                       if name == lock or name.startswith(lock + "[")):
+                raise AssertionError(f"lock order {rec['lock_order']}: "
+                                     f"{lock} never taken: {acq}")
 
 
 def phase_limits(torch, ops, ref, compare_topk, records) -> None:
@@ -5370,6 +5425,9 @@ def main() -> int:
     phase_serving(torch, ops)
     timings["serving"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_lock_order()
+    timings["lock order"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_limits(torch, ops, ref, compare_topk, records)
     timings["limits"] = time.perf_counter() - t0

@@ -1,5 +1,6 @@
 """Scenario suite: every registered workload scenario as a deterministic,
-quality-priced experiment (the port of ``benchmarks/scenarios.py``).
+quality-priced experiment — and the golden-trace regression gate (the port
+of ``benchmarks/scenarios.py``).
 
 Each named scenario (``repro_torch.scenarios.registry``: steady,
 burst_tolerance, update_storm, mixed_interference, diurnal_ramp, the chaos
@@ -9,24 +10,30 @@ real-pipeline quality replay on ``device``), reporting plain SLO goodput
 next to **quality-aware goodput** so knob-ladder savings are honestly
 priced against their recall/answer cost.
 
-The sim mode is bit-deterministic, so ``--check`` replays every scenario's
-golden-size variant twice and fails unless the two runs' golden dicts
+Because the sim mode is bit-deterministic, each scenario's golden dict
 (scaling-event stream, knob timeline, fault log, rounded quality and
-goodput; ``scenarios.golden_dict``) and fault logs are equal and the
-controller's replay reproduces its live event stream (``--only NAME``
-narrows it). The reference pins the same dicts in golden-trace files; this
-package records none, and holds its dicts to a live reference run in its
-tests instead.
+goodput; ``scenarios.golden_dict``) is pinned by a golden trace in the
+port's own ``src/repro_torch/scenarios/golden/``, recorded on the CPU:
+
+* ``--check``  — replay every scenario's golden-size variant twice and fail
+  unless the first replay equals its recorded trace, the two replays'
+  golden dicts and fault logs are equal, and the controller's replay
+  reproduces its live event stream (``--only NAME`` narrows it);
+* ``--regen``  — re-record the golden traces. Re-record only for an
+  understood change of behaviour (controller policy, cost model, scenario
+  catalog, quality scoring), and review the diff: a re-record that makes a
+  check pass without one hides a regression.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 from typing import Dict, List
 
 from repro_torch import resolve_device
 from repro_torch.scenarios import (ScenarioRunner, diff_golden, get_scenario,
-                                   golden_dict, golden_variant,
+                                   golden_dict, golden_path, golden_variant,
                                    scenario_names)
 from repro_torch.scenarios.registry import GOLDEN_SCALE
 
@@ -63,14 +70,40 @@ def run(scale: float = 1.0, device="cuda") -> List[Dict]:
     return rows
 
 
+def regen(only: str = "", device="cuda") -> List[str]:
+    """Re-record golden traces at the golden size; returns written paths."""
+    device = resolve_device(device)
+    written = []
+    for name in scenario_names():
+        if only and name != only:
+            continue
+        spec = golden_variant(name)
+        report = ScenarioRunner(spec, device=device).simulate()
+        path = golden_path(name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(golden_dict(report, spec), f, indent=2, sort_keys=True)
+            f.write("\n")
+        written.append(path)
+    return written
+
+
 def check(only: str = "", device="cuda") -> List[str]:
     """Replay each scenario's golden variant twice; returns human-readable
-    failures (empty = both runs equal and the controller's replay
-    deterministic)."""
+    failures (empty = the first run equals its recorded trace, both runs
+    are equal and the controller's replay is deterministic)."""
     device = resolve_device(device)
     failures: List[str] = []
     names = [only] if only else scenario_names()
     for name in names:
+        path = golden_path(name)
+        if not os.path.exists(path):
+            failures.append(f"{name}: no golden trace at {path} (run "
+                            f"PYTHONPATH=src python -m repro_torch.experiments"
+                            f".scenarios --regen --device cpu --only {name})")
+            continue
+        with open(path) as f:
+            expected = json.load(f)
         spec = golden_variant(name)
         first = ScenarioRunner(spec, device=device).simulate()
         again = ScenarioRunner(spec, device=device).simulate()
@@ -81,8 +114,10 @@ def check(only: str = "", device="cuda") -> List[str]:
         if first.fault_events != again.fault_events:
             failures.append(f"{name}: fault log differs between identical "
                             f"runs")
-        for d in diff_golden(golden_dict(first, spec),
-                             golden_dict(again, spec)):
+        recorded = golden_dict(first, spec)
+        for d in diff_golden(expected, recorded):
+            failures.append(f"{name}: against {path}: {d}")
+        for d in diff_golden(recorded, golden_dict(again, spec)):
             failures.append(f"{name}: {d}")
     return failures
 
@@ -93,24 +128,32 @@ def main(argv=None) -> int:
                     help="golden-size scenarios; JSON to stdout")
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--only", default="",
-                    help="restrict --check/sweep to one scenario")
+                    help="restrict --check/--regen/sweep to one scenario")
     ap.add_argument("--check", action="store_true",
-                    help="replay every golden variant twice, exit nonzero "
-                         "on any difference")
+                    help="replay every golden variant twice against its "
+                         "recorded trace, exit nonzero on any difference")
+    ap.add_argument("--regen", action="store_true",
+                    help="re-record golden traces (review the diff!)")
     ap.add_argument("--out", default="", help="optional JSON output path")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     if args.only and args.only not in scenario_names():
         ap.error(f"unknown scenario {args.only!r}; "
                  f"registered: {', '.join(scenario_names())}")
+    if args.regen:
+        for path in regen(args.only, args.device):
+            print(f"wrote {path}")
+        print("golden traces re-recorded — review `git diff "
+              "src/repro_torch/scenarios/golden/` before committing")
+        return 0
     if args.check:
         failures = check(args.only, args.device)
         for f in failures:
             print(f"CHECK FAILED: {f}")
         if not failures:
             names = [args.only] if args.only else scenario_names()
-            print(f"CHECK OK: {len(names)} golden scenario variant(s) "
-                  f"replayed bit-for-bit")
+            print(f"CHECK OK: {len(names)} golden scenario trace(s) "
+                  f"reproduced bit-for-bit")
         return 1 if failures else 0
     scale = GOLDEN_SCALE if args.smoke else args.scale
     if args.only:

@@ -19,15 +19,16 @@ quality weight (gold-context hit × answer F1 — ``metrics.quality``), so a
 knob-ladder "win" that held latency by degrading recall is charged for it.
 
 The pipeline is built on ``device`` (``None`` means the card).
-``golden_dict`` gives the stable, diff-reviewable subset of a report that
-the reference pins in its golden traces; the reference's golden-trace files
-stay with the reference: this package never reads or writes them, and
-holds its reports to a live reference run or to a second run of its own
-(``diff_golden``).
+``golden_dict`` gives the stable, diff-reviewable subset of a report that a
+golden trace pins. The port records its own golden traces, on the CPU, in
+its own directory (``GOLDEN_DIR``, ``golden_path``); the reference's
+recorded files stay with the reference, and this package never reads or
+writes them. ``diff_golden`` holds a replay to a recorded trace.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -374,7 +375,17 @@ class ScenarioRunner:
             qs, ground_truth=ans, gold_chunks=golds).traces
 
 
-# -- golden dicts ------------------------------------------------------------
+# -- golden traces -----------------------------------------------------------
+
+# one source of truth for both enforcement gates (pytest + the scenarios
+# study's --check): the port's own directory, never the reference's
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "golden")
+
+
+def golden_path(name: str) -> str:
+    return os.path.join(GOLDEN_DIR, f"{name}.json")
+
 
 def golden_dict(report: ScenarioReport, spec: ScenarioSpec) -> Dict[str, object]:
     """The stable, diff-reviewable subset a golden trace pins: the scenario
@@ -402,8 +413,8 @@ def golden_dict(report: ScenarioReport, spec: ScenarioSpec) -> Dict[str, object]
 
 
 def diff_golden(expected: Dict, actual: Dict) -> List[str]:
-    """Human-readable mismatches between two golden dicts (empty list ==
-    the same run)."""
+    """Human-readable mismatches between a recorded golden trace and a
+    fresh replay (empty list == regression-free)."""
     out: List[str] = []
     for key in sorted(set(expected) | set(actual)):
         if key not in expected:

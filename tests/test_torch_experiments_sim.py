@@ -12,6 +12,7 @@ within ``SIM_TOL``), each golden variant's ``golden_dict`` equal to the
 reference's.
 """
 import json
+import os
 
 import pytest
 
@@ -24,6 +25,8 @@ import test_torch_experiments_figures  # noqa: E402,F401  (the reference's path)
 
 from benchmarks import chaos as bchaos  # noqa: E402
 from benchmarks import scenarios as bscenarios  # noqa: E402
+from repro.scenarios.runner import (  # noqa: E402
+    GOLDEN_DIR as J_GOLDEN_DIR)
 from repro.scenarios.runner import (  # noqa: E402
     GOLDEN_SUMMARY_KEYS as J_GOLDEN_KEYS)
 from repro.scenarios import ScenarioRunner as JRunner  # noqa: E402
@@ -77,8 +80,13 @@ def test_golden_helpers_are_the_references():
     assert GOLDEN_SUMMARY_KEYS == J_GOLDEN_KEYS
     assert {"GOLDEN_SUMMARY_KEYS", "golden_dict", "diff_golden"} <= set(
         tscenarios_pkg.__all__)
-    # no recorder: the port never reads or writes the reference's goldens
-    assert not {"GOLDEN_DIR", "golden_path"} & set(dir(tscenarios_pkg))
+    # the port's recorder writes its own directory, never the reference's
+    assert {"GOLDEN_DIR", "golden_path"} <= set(tscenarios_pkg.__all__)
+    assert callable(tscenarios.regen)
+    assert os.path.realpath(tscenarios_pkg.GOLDEN_DIR) != os.path.realpath(
+        J_GOLDEN_DIR)
+    assert os.path.dirname(tscenarios_pkg.golden_path("steady")) == \
+        tscenarios_pkg.GOLDEN_DIR
     a = {"x": 1, "y": [1, 2], "z": {"k": 0.5}}
     for b in (dict(a), {"x": 1, "y": [1, 3], "w": 0},
               {"y": [1, 2], "z": {"k": 0.25}}):

@@ -11,7 +11,6 @@ answer must be equal, and the quality metrics agree within 1e-9.
 import ast
 import json
 import os
-import pathlib
 import subprocess
 import sys
 
@@ -287,14 +286,14 @@ def test_chip_smoke_fails_without_a_card():
 
 
 def test_port_passes_lock_and_clock_lint():
-    """The port keeps the reference's ``# guarded-by:`` / ``# locked-by:``
-    discipline (the linter takes files, not directories)."""
-    from repro.analysis.core import run_passes
-    files = sorted(str(p) for p in pathlib.Path(
-        ROOT, "src", "repro_torch").rglob("*.py"))
-    findings, _ = run_passes(os.path.abspath(ROOT), paths=files,
-                             passes=["lock-discipline", "clock-purity"])
-    assert findings == []
+    """The port's own linter (``repro_torch.analysis``) finds nothing in
+    ``src/repro_torch`` with all four passes: the reference's
+    ``# guarded-by:`` / ``# locked-by:`` discipline and deterministic
+    zones, the port's registry, specs, scenario catalog and experiment
+    table (conformance) and its gauge schema."""
+    from repro_torch.analysis.core import PASS_NAMES, run_passes
+    findings, _ = run_passes(os.path.abspath(ROOT), passes=PASS_NAMES)
+    assert findings == [], "\n".join(f.render() for f in findings)
 
 
 def test_db_without_device_needs_cuda(monkeypatch):
