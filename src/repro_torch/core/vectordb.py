@@ -40,6 +40,7 @@ kernels' plain versions (``repro_torch.kernels.ops``).
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from dataclasses import dataclass
@@ -55,6 +56,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import topk_search as kts
 from repro_torch.kernels.ref import NEG, pad_cols, padded_width, stable_topk
+from repro_torch.obs.tracer import Phases, active_tracer
 
 KERNEL_LADDER = ("off", "op", "fused")
 QUANTS = ("none", "sq8", "pq")
@@ -315,6 +317,9 @@ class TorchVectorDB(DBInstance):
         self.buckets: Optional[torch.Tensor] = None      # guarded-by: _mu
         self.bucket_live: Optional[torch.Tensor] = None  # guarded-by: _mu
         self.indexed = np.zeros((cap,), dtype=bool)      # guarded-by: _mu
+        # slots below it hold no fresh row: a build indexes every live slot
+        # below ``n_slots``, and a slot never turns live again once removed
+        self._fresh_lo = 0                               # guarded-by: _mu
         # quantized state (device tensors), made at build_index
         self.sq_codes: Optional[torch.Tensor] = None     # guarded-by: _mu
         self.sq_scale: Optional[torch.Tensor] = None     # guarded-by: _mu
@@ -332,12 +337,20 @@ class TorchVectorDB(DBInstance):
             "insert_time_s": 0.0, "build_time_s": 0.0, "search_time_s": 0.0,
             "flat_fill": 0.0,
         }
+        # optional obs.Tracer: the phase spans of each search, insert and
+        # removal on the "db" lane (without one, obs.active_tracer gives the
+        # process tracer while a torch profiler runs); a traced call's
+        # spans share its number in ``_calls`` as their ``req``
+        self.tracer = None
+        self._calls = itertools.count(1)
 
     # -- writes ------------------------------------------------------------
 
     def insert(self, vectors, chunks: Sequence[Chunk]) -> None:
         """Insert rows (numpy array or tensor ``[n, dim]``) with payloads."""
         t0 = time.perf_counter()
+        tr = active_tracer(self.tracer)
+        ph = None if tr is None else Phases(tr, next(self._calls))
         n = len(chunks)
         rows = torch.as_tensor(vectors, dtype=torch.float32)
         if tuple(rows.shape) != (n, self.cfg.dim):
@@ -362,16 +375,22 @@ class TorchVectorDB(DBInstance):
             self.counters["inserts"] += n
             self.counters["insert_time_s"] += time.perf_counter() - t0
             if self._main_built() and self.cfg.use_hybrid:
-                self._maybe_rebuild()
+                self._maybe_rebuild(ph)
+        if ph is not None:
+            ph.close("db.insert", "n", n)
 
     def remove(self, doc_id: int) -> int:
+        tr = active_tracer(self.tracer)
+        ph = None if tr is None else Phases(tr, next(self._calls))
         with self._mu:
             slots = self.doc_slots.pop(doc_id, [])
             for s in slots:
                 self.live[s] = False
                 self.chunks.pop(s, None)
             self.counters["removals"] += len(slots)
-            return len(slots)
+        if ph is not None:
+            ph.close("db.remove", "n", len(slots))
+        return len(slots)
 
     def update(self, doc_id: int, vectors, chunks: Sequence[Chunk]) -> None:
         """Replace a document's chunks (delete + insert semantics)."""
@@ -412,6 +431,7 @@ class TorchVectorDB(DBInstance):
             self.vectors = wide(state["vectors"], torch.float32)
             self.live = np.asarray(state["live"], dtype=bool).copy()
             self.indexed = np.asarray(state["indexed"], dtype=bool).copy()
+            self._fresh_lo = 0
             self.n_slots = int(state["n_slots"])
             self.chunks = dict(state["chunks"])
             self.doc_slots = {k: list(v) for k, v in
@@ -465,6 +485,7 @@ class TorchVectorDB(DBInstance):
                 self._build_packed_locked()
         self.indexed[:] = False
         self.indexed[live_idx] = True
+        self._fresh_lo = self.n_slots
         self.counters["rebuilds"] += 1
         self.counters["build_time_s"] += time.perf_counter() - t0
 
@@ -535,30 +556,45 @@ class TorchVectorDB(DBInstance):
         self.pq_codebook = cb
         self.pq_codes = codes
 
-    def _maybe_rebuild(self):  # locked-by: _mu
+    def _maybe_rebuild(self, ph: Optional[Phases] = None):  # locked-by: _mu
         # only called with self._mu held (insert path)
         fresh = int((self.live & ~self.indexed).sum())
         self.counters["flat_fill"] = fresh / max(self.cfg.flat_capacity, 1)
         if fresh >= self.cfg.rebuild_threshold * self.cfg.flat_capacity:
+            if ph is not None:
+                ph.mark()
             self._build_index_locked()
+            if ph is not None:
+                ph.lap("db.rebuild", "fresh", fresh)
 
     # -- search ------------------------------------------------------------
 
     def search(self, vectors, k: int) -> List[SearchResult]:
         t0 = time.perf_counter()
+        tr = active_tracer(self.tracer)
+        ph = None if tr is None else Phases(tr, next(self._calls))
         q = torch.as_tensor(vectors, dtype=torch.float32).to(
             self.device).contiguous()
-        scores, idx = self.search_arrays(q, k)
+        if ph is not None:
+            ph.lap("db.upload_q")
+        scores, idx = self._search_arrays(q, k, None, self._kernel, ph)
+        # the host waits here for the device's lists
         scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
+        if ph is not None:
+            ph.lap("db.copy_out")
         with self._mu:   # concurrent retrieval replicas share the counters
             self.counters["searches"] += len(vectors)
             if self._kernel == "fused":
                 self.counters["fused_searches"] += len(vectors)
             self.counters["search_time_s"] += time.perf_counter() - t0
-        return [SearchResult(chunk_ids=idx[i], scores=scores[i])
-                for i in range(len(vectors))]
+        out = [SearchResult(chunk_ids=idx[i], scores=scores[i])
+               for i in range(len(vectors))]
+        if ph is not None:
+            ph.lap("db.results")
+            ph.close("db.search", "n", len(vectors), "k", k)
+        return out
 
-    def _snapshot(self) -> Dict[str, object]:
+    def _snapshot(self, ph: Optional[Phases] = None) -> Dict[str, object]:
         """Grab a consistent view of all search-relevant index state.
 
         Mask arrays are copied (writers flip their bits in place); index
@@ -567,7 +603,8 @@ class TorchVectorDB(DBInstance):
         snapshot belong to slots that are non-live in the copied masks.
         """
         with self._mu:
-            return {
+            wait_ms = None if ph is None else ph.elapsed_ms()
+            snap = {
                 "built": self._main_built(),
                 "live": self.live.copy(),
                 "indexed": self.indexed.copy(),
@@ -579,7 +616,11 @@ class TorchVectorDB(DBInstance):
                 "pq_codes": self.pq_codes, "pq_codebook": self.pq_codebook,
                 "packed": self.packed,
                 "nprobe": self.cfg.nprobe,
+                "fresh_lo": self._fresh_lo,
             }
+        if ph is not None:
+            ph.lap("db.snapshot", "wait_ms", wait_ms)
+        return snap
 
     def _mask(self, m: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(m).to(self.device)
@@ -594,64 +635,116 @@ class TorchVectorDB(DBInstance):
         ``rung`` overrides the configured ladder rung for this call, so the
         kernel rungs can be held against ``off`` on one state.
         """
-        cfg = self.cfg
+        tr = active_tracer(self.tracer)
+        ph = None if tr is None else Phases(tr, next(self._calls))
         rung = self._kernel if rung is None else kernel_ladder(rung)
+        return self._search_arrays(q, k, snap, rung, ph)
+
+    def _search_arrays(self, q: torch.Tensor, k: int,
+                       snap: Optional[Dict[str, object]], rung: str,
+                       ph: Optional[Phases]
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``search_arrays`` with the phases ``db.snapshot``, ``db.masks``,
+        ``db.main``, ``db.fresh`` and ``db.merge`` recorded on ``ph``."""
+        cfg = self.cfg
         if snap is None:
-            snap = self._snapshot()
+            snap = self._snapshot(ph)
         live, indexed = snap["live"], snap["indexed"]
-        main_live = live & indexed if cfg.use_hybrid else live
         qw = pad_cols(q, self.width)   # the queries at the device width
         if not snap["built"]:
             # index never built: brute-force everything (cold start)
-            return _flat_search(qw, snap["vectors"], self._mask(live), k,
-                                rung)
-        s_main, i_main = self._search_main(q, main_live, k, snap, rung)
+            mask = self._mask(live)
+            if ph is not None:
+                ph.lap("db.masks", "which", "main", "bytes", live.nbytes)
+            out = _flat_search(qw, snap["vectors"], mask, k, rung)
+            if ph is not None:
+                ph.lap("db.main", "op",
+                       "plain" if rung == "off" else "topk_search")
+            return out
+        main_live = live & indexed if cfg.use_hybrid else live
+        s_main, i_main = self._search_main(q, main_live, k, snap, rung, ph)
         if not cfg.use_hybrid:
             return s_main, i_main
         fresh = live & ~indexed
         if not fresh.any():
+            if ph is not None:
+                ph.lap("db.masks", "which", "fresh", "bytes", 0)
+                ph.extra = ("fresh", 0)
             return s_main, i_main
+        fresh_t = self._mask(fresh)
+        if ph is not None:
+            ph.lap("db.masks", "which", "fresh", "bytes", fresh.nbytes)
+            # counted outside every phase: it is the tracing's own work
+            ph.extra = ("fresh", int(np.count_nonzero(
+                fresh[snap["fresh_lo"]:])))
+            ph.mark()
         # linear scan of the temp flat buffer (the paper's freshness path)
-        s_fl, i_fl = _flat_search(qw, snap["vectors"], self._mask(fresh), k,
-                                  rung)
-        return merge_topk(s_main, i_main, s_fl, i_fl, k)
+        s_fl, i_fl = _flat_search(qw, snap["vectors"], fresh_t, k, rung)
+        if ph is not None:
+            ph.lap("db.fresh")
+        out = merge_topk(s_main, i_main, s_fl, i_fl, k)
+        if ph is not None:
+            ph.lap("db.merge")
+        return out
 
     def _search_main(self, q, main_live: np.ndarray, k: int,
-                     snap: Dict[str, object], rung: str):
+                     snap: Dict[str, object], rung: str,
+                     ph: Optional[Phases] = None):
         """The main index's top-k of ``q`` (at ``dim`` or ``width``): the
         PQ paths take it at ``dim`` (their tables split the true row into
         subspaces), every other path at ``width``, against the padded
-        device rows."""
+        device rows. ``ph`` records ``db.masks`` (the mask's arithmetic
+        and upload) and ``db.main`` (the entry point's call, named by
+        ``op``)."""
         cfg = self.cfg
         q, qw = q[:, :cfg.dim], pad_cols(q, self.width)
         live = self._mask(main_live)
+        if ph is not None:
+            ph.lap("db.masks", "which", "main", "bytes", main_live.nbytes)
         if cfg.index_type == "flat":
             if cfg.quant == "sq8" and snap["sq_codes"] is not None:
-                return _sq8_flat_search(qw, snap["sq_codes"],
-                                        snap["sq_scale"], live, k, rung)
-            return _flat_search(qw, snap["vectors"], live, k, rung)
-        nprobe = min(int(snap["nprobe"]), cfg.nlist)
-        packed = snap["packed"]
-        pq = cfg.quant == "pq"
-        cent = snap["centroids"]
-        if pq:
-            cent = cent[:, :cfg.dim].contiguous()
-        if rung == "fused" and packed is not None:
-            # ok recomputed per search on the device from the snapshot's
-            # mask: a tombstone lands as ok=0 on its packed row
-            slot = packed["slot"]
-            ok = (slot >= 0) & live[slot.clamp(min=0)]
-            if pq and "codes" in packed:
-                return kops.pq_topk(q, snap["pq_codebook"], cent,
-                                    packed["codes"], slot, ok, nprobe, k)
-            return kops.ivf_topk(qw, cent, packed["vecs"], slot, ok, nprobe,
-                                 k)
-        if pq and snap["pq_codes"] is not None:
-            return _pq_ivf_search(q, snap["pq_codes"], snap["pq_codebook"],
-                                  live, cent, snap["buckets"],
-                                  snap["bucket_live"], nprobe, k)
-        return _ivf_search(qw, snap["vectors"], live, cent, snap["buckets"],
-                           snap["bucket_live"], nprobe, k)
+                op = ("sq8_topk" if rung == "fused" else "quant_score"
+                      if rung == "op" else "plain")
+                out = _sq8_flat_search(qw, snap["sq_codes"],
+                                       snap["sq_scale"], live, k, rung)
+            else:
+                op = "plain" if rung == "off" else "topk_search"
+                out = _flat_search(qw, snap["vectors"], live, k, rung)
+        else:
+            nprobe = min(int(snap["nprobe"]), cfg.nlist)
+            packed = snap["packed"]
+            pq = cfg.quant == "pq"
+            cent = snap["centroids"]
+            if pq:
+                cent = cent[:, :cfg.dim].contiguous()
+            if rung == "fused" and packed is not None:
+                # ok recomputed per search on the device from the
+                # snapshot's mask: a tombstone lands as ok=0 on its packed
+                # row
+                slot = packed["slot"]
+                ok = (slot >= 0) & live[slot.clamp(min=0)]
+                if pq and "codes" in packed:
+                    op = "pq_topk"
+                    out = kops.pq_topk(q, snap["pq_codebook"], cent,
+                                       packed["codes"], slot, ok, nprobe, k)
+                else:
+                    op = "ivf_topk"
+                    out = kops.ivf_topk(qw, cent, packed["vecs"], slot, ok,
+                                        nprobe, k)
+            elif pq and snap["pq_codes"] is not None:
+                op = "plain"
+                out = _pq_ivf_search(q, snap["pq_codes"],
+                                     snap["pq_codebook"], live, cent,
+                                     snap["buckets"], snap["bucket_live"],
+                                     nprobe, k)
+            else:
+                op = "plain"
+                out = _ivf_search(qw, snap["vectors"], live, cent,
+                                  snap["buckets"], snap["bucket_live"],
+                                  nprobe, k)
+        if ph is not None:
+            ph.lap("db.main", "op", op)
+        return out
 
     # -- misc --------------------------------------------------------------
 

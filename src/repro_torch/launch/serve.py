@@ -256,7 +256,8 @@ def main(argv=None):
             # lock-step / staged paths: batch-level stage spans; the elastic
             # executor records richer per-item spans itself (never both)
             attach_pipeline(tracer, pipe)
-        if hasattr(pipe.db, "tracer"):   # sharded DB: fan-out/merge spans
+        if hasattr(pipe.db, "tracer"):
+            # the DB's phase spans (a sharded DB: its fan-out and merge)
             pipe.db.tracer = tracer
         eng = getattr(pipe.llm, "engine", None)
         if eng is not None:   # token-level instants (clones inherit it)

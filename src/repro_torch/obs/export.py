@@ -49,6 +49,8 @@ def chrome_trace_doc(tracer: Tracer,
         args = dict(s.args)
         if s.req >= 0:
             args["req"] = s.req
+        if s.thread:
+            args["thread"] = s.thread
         events.append({"name": s.name, "cat": s.cat or "span", "ph": "X",
                        "ts": s.t0 * 1e6, "dur": max(s.dur, 0.0) * 1e6,
                        "pid": _PID, "tid": tids[s.tid], "args": args})
@@ -89,9 +91,12 @@ def write_jsonl(path: str, tracer: Tracer,
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
         for s in tracer.spans():
-            f.write(json.dumps({
-                "type": "span", "name": s.name, "cat": s.cat, "tid": s.tid,
-                "req": s.req, "t0": s.t0, "t1": s.t1, "args": s.args}) + "\n")
+            row = {"type": "span", "name": s.name, "cat": s.cat,
+                   "tid": s.tid, "req": s.req, "t0": s.t0, "t1": s.t1,
+                   "args": s.args}
+            if s.thread:
+                row["thread"] = s.thread
+            f.write(json.dumps(row) + "\n")
         for e in tracer.instants():
             f.write(json.dumps({
                 "type": "instant", "name": e.name, "cat": e.cat,

@@ -125,10 +125,6 @@ class MetricsRegistry:
             pts = list(self._points)
         return sorted(pts, key=lambda p: p.t)
 
-    def series(self, name: str) -> List[MetricPoint]:
-        with self._lock:
-            return [p for p in self._points if p.name == name]
-
     def counter_value(self, name: str) -> float:
         with self._lock:
             return self._counters.get(name, 0.0)
@@ -141,7 +137,3 @@ class MetricsRegistry:
         return {"n": float(len(xs)), "mean": sum(xs) / len(xs),
                 "p50": percentile(xs, 50), "p95": percentile(xs, 95),
                 "p99": percentile(xs, 99)}
-
-    def histogram_names(self) -> List[str]:
-        with self._lock:
-            return sorted(self._hist)

@@ -68,6 +68,7 @@ from repro_torch.distributed.collectives import (corpus_group,
                                                  make_sharded_topk)
 from repro_torch.distributed.sharding import active_mesh, mesh_shape
 from repro_torch.kernels.ref import NEG, pad_cols
+from repro_torch.obs.tracer import active_tracer
 
 
 def doc_shard(doc_id: int, n_shards: int) -> int:
@@ -156,6 +157,9 @@ class ShardedVectorDB(DBInstance):
         self._mesh_fns: Dict[Tuple[int, int], Tuple[Callable, int]] = {}  # guarded-by: _mu
         self._mesh_arrays: Optional[Tuple[int, torch.Tensor, torch.Tensor]] = None  # guarded-by: _mu
         # optional obs.Tracer: fan-out/merge spans on the "db" thread lane
+        # (the reference's spans). Without one, obs.active_tracer gives the
+        # process tracer while a torch profiler runs, on which the shards'
+        # phase spans also land, inside each ``db.shard_scan``
         self.tracer = None
 
     def _shard_cfg(self) -> DBConfig:
@@ -281,11 +285,12 @@ class ShardedVectorDB(DBInstance):
         with self._mu:
             self.counters["searches"] += len(vectors)
             self.counters["search_time_s"] += dt
-        tr = self.tracer
+        tr = active_tracer(self.tracer)
         if tr is not None:
             te = tr.now()
             tr.add_span("db.search", te - dt, te, cat="db", tid="db",
-                        n=len(vectors), k=k, shards=self.cfg.n_shards)
+                        thread=threading.get_native_id(), n=len(vectors),
+                        k=k, shards=self.cfg.n_shards)
         return [SearchResult(chunk_ids=idx[i], scores=scores[i])
                 for i in range(len(vectors))]
 
@@ -358,17 +363,16 @@ class ShardedVectorDB(DBInstance):
     def _merge_search(self, q, k: int, snaps, rung=None):
         """Per-shard local top-k → global ids → pairwise merge reduction,
         on the device."""
-        tr = self.tracer
+        tr = active_tracer(self.tracer)
         per: List[Tuple[torch.Tensor, torch.Tensor]] = []
         for sid, (sh, snap) in enumerate(zip(self.shards, snaps)):
             kl = min(k, sh.cfg.capacity)
-            ts = time.perf_counter()
+            ts = None if tr is None else tr.now()
             s, i = sh.search_arrays(q, kl, snap, rung=rung)
             if tr is not None:
-                dts = time.perf_counter() - ts
-                te = tr.now()
-                tr.add_span("db.shard_scan", te - dts, te, cat="db",
-                            tid="db", shard=sid)
+                tr.add_span("db.shard_scan", ts, tr.now(), cat="db",
+                            tid="db", thread=threading.get_native_id(),
+                            shard=sid)
             # flat scans keep dead-slot ids at NEG score; mask them out so
             # they never shadow a real winner from another shard
             valid = (s > NEG / 2) & (i >= 0)
@@ -389,7 +393,7 @@ class ShardedVectorDB(DBInstance):
         if tr is not None:
             te = tr.now()
             tr.add_span("db.merge", te - dtm, te, cat="db", tid="db",
-                        shards=len(per))
+                        thread=threading.get_native_id(), shards=len(per))
         return s, gi
 
     # -- payloads / stats --------------------------------------------------

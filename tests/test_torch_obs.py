@@ -144,3 +144,66 @@ def test_stopped_monitor_lets_its_gauges_go():
     del mon, held
     gc.collect()
     assert ref() is None
+
+
+def _tiny_db():
+    from repro_torch.core import registry
+    from repro_torch.core.interfaces import Chunk
+
+    rng = np.random.default_rng(5)
+    rows = rng.standard_normal((96, 8)).astype(np.float32)
+    db = registry.create("vectordb", "torch_fused", index_type="ivf", dim=8,
+                         capacity=160, nlist=4, nprobe=2, flat_capacity=48,
+                         device="cpu")
+    db.insert(rows, [Chunk(-1, i // 4, "") for i in range(96)])
+    db.build_index()
+    db.insert(rows[:4] + 0.01, [Chunk(-1, 900, "") for _ in range(4)])
+    return db, rows[:6]
+
+
+def test_process_tracer_records_while_a_profiler_runs():
+    """Without a tracer of its own a DB records on ``PROCESS_TRACER`` only
+    while a torch profiler session runs, on the profiler's own clock: its
+    spans start between the session's first and last event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    db, q = _tiny_db()
+    mine = obs.Tracer()
+    assert obs.active_tracer(None) is None
+    assert obs.active_tracer(mine) is mine
+    n0 = len(obs.PROCESS_TRACER.spans())
+    db.search(q, 3)
+    assert len(obs.PROCESS_TRACER.spans()) == n0
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        assert obs.active_tracer(None) is obs.PROCESS_TRACER
+        assert obs.active_tracer(mine) is mine
+        torch.ones(4).sum()
+        db.search(q, 3)
+        db.remove(900)
+        torch.ones(4).sum()
+    assert obs.active_tracer(None) is None
+    got = obs.PROCESS_TRACER.spans()[n0:]
+    db.search(q, 3)
+    assert len(obs.PROCESS_TRACER.spans()) == n0 + len(got)
+    names = [s.name for s in got]
+    assert names.count("db.search") == 1 and names[-1] == "db.remove"
+    assert {"db.snapshot", "db.masks", "db.main", "db.fresh", "db.merge",
+            "db.results"} <= set(names)
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.start_ns() > 0]
+    first = min(e.start_ns() for e in events)
+    last = max(e.start_ns() + e.duration_ns() for e in events)
+    for s in got:
+        assert first <= s.t0 * 1e9 <= last, (s.name, first, s.t0, last)
+
+
+def test_bounded_tracer_drops_its_oldest_spans():
+    tr = obs.Tracer(clock=obs.VirtualClock(), max_spans=3)
+    for i in range(5):
+        tr.add_span(f"s{i}", float(i), i + 0.5, thread=7)
+    assert [s.name for s in tr.spans()] == ["s2", "s3", "s4"]
+    assert len(obs.PROCESS_TRACER._spans) <= obs.tracer.PROCESS_MAX_SPANS \
+        == 1 << 18
+    doc = obs.chrome_trace_doc(tr)
+    assert [e["args"]["thread"] for e in doc["traceEvents"]
+            if e["ph"] == "X"] == [7, 7, 7]

@@ -350,6 +350,31 @@ def test_stats_gauges_and_spans_match_jax():
         "db.merge", "db.search"]
 
 
+def test_shard_phases_land_inside_their_shard_scans_under_a_profiler():
+    """With no tracer of its own, the sharded DB and its shards record on
+    the process tracer while a torch profiler runs: each ``db.shard_scan``
+    holds its shard's ``db.masks`` and ``db.main`` phases."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+
+    _, tdb = _pair("ivf", "none", n_shards=2)
+    vecs = _corpus()
+    tdb.insert(vecs, _chunks(Chunk, N))
+    n0 = len(obs.PROCESS_TRACER.spans())
+    with profile(activities=[ProfilerActivity.CPU]):
+        tdb.search(_queries(vecs), K)
+    sp = obs.PROCESS_TRACER.spans()[n0:]
+    scans = [s for s in sp if s.name == "db.shard_scan"]
+    assert [s.args["shard"] for s in scans] == [0, 1]
+    assert [s.name for s in sp][-2:] == ["db.merge", "db.search"]
+    for scan in scans:
+        inside = [s.name for s in sp if s.thread == scan.thread
+                  and scan.t0 <= s.t0 and s.t1 <= scan.t1
+                  and s is not scan]
+        assert {"db.masks", "db.main"} <= set(inside), inside
+
+
 def test_registered_as_torch_sharded_on_the_device_given():
     db = registry.create("vectordb", "torch_sharded", n_shards=2,
                          index_type="flat", dim=DIM, capacity=256,

@@ -6,6 +6,8 @@ and after the same mutations. Tolerance (``repro_torch.kernels.parity``):
 scores within 1e-5 (fp32, the summation order differs), ids equal outside
 groups of near-tied scores. TF32 is off for every fp32 product.
 """
+import threading
+
 import numpy as np
 import pytest
 
@@ -454,3 +456,89 @@ def test_own_index_build_recall_near_jax(case):
                                 for a, e in zip(ids, exact)])
     assert recall["jax"] - margin <= recall["port"] <= recall["jax"] + 0.03, \
         recall
+
+
+# -- the DB's phase spans (repro_torch.obs) ----------------------------------
+
+PHASES = ["db.search", "db.upload_q", "db.snapshot", "db.masks", "db.main",
+          "db.masks", "db.fresh", "db.merge", "db.copy_out", "db.results"]
+
+
+def _fresh_fused_db(index_type, quant):
+    """A tiny ``torch_fused`` DB on the CPU: a built index, one removed
+    document, and 10 rows in the freshness buffer."""
+    db = registry.create("vectordb", "torch_fused", index_type=index_type,
+                         quant=quant, dim=DIM, capacity=N + 96, nlist=4,
+                         nprobe=2, flat_capacity=48, device="cpu")
+    db.insert(_corpus(), _chunks(Chunk, N))
+    db.build_index()
+    db.remove(2)
+    db.insert(_corpus(10, seed=3), _chunks(Chunk, 10, doc0=900))
+    return db
+
+
+@pytest.mark.parametrize("index_type,quant,op", [("ivf", "none", "ivf_topk"),
+                                                 ("flat", "sq8", "sq8_topk")])
+def test_traced_search_emits_its_phases(index_type, quant, op):
+    """With a tracer attached a search records its phases in order, all
+    with the call's ``req`` and inside its ``db.search``, each with a self
+    time >= 0; with none (and no profiler) nothing is recorded anywhere,
+    and the lists are bit-identical to the traced search's."""
+    from repro_torch import obs
+
+    db = _fresh_fused_db(index_type, quant)
+    q = _queries()
+    n_process = len(obs.PROCESS_TRACER.spans())
+    plain = db.search(q, 5)
+    assert len(obs.PROCESS_TRACER.spans()) == n_process
+    db.tracer = obs.Tracer(clock=obs.EpochClock())
+    traced = db.search(q, 5)
+    for a, b in zip(plain, traced):
+        assert np.array_equal(a.chunk_ids, b.chunk_ids)
+        assert np.array_equal(a.scores, b.scores)
+    sp = sorted(db.tracer.spans(), key=lambda s: (s.t0, -s.t1))
+    assert [s.name for s in sp] == PHASES
+    call = sp[0]
+    assert call.args == {"n": len(q), "k": 5, "fresh": 10} and \
+        db.stats()["fresh"] == 10
+    assert {s.req for s in sp} == {call.req} and call.req > 0
+    assert {s.tid for s in sp} == {"db"}
+    assert {s.thread for s in sp} == {threading.get_native_id()}
+    for s in sp[1:]:
+        assert call.t0 <= s.t0 <= s.t1 <= call.t1
+    for a, b in zip(sp[1:], sp[2:]):
+        assert a.t1 <= b.t0
+    assert [s.args["which"] for s in sp if s.name == "db.masks"] == \
+        ["main", "fresh"]
+    assert next(s for s in sp if s.name == "db.main").args == {"op": op}
+    assert next(s for s in sp if s.name == "db.snapshot").args[
+        "wait_ms"] >= 0
+    selfs = obs.self_times(sp)
+    assert all(t >= 0 for t in selfs)
+    assert selfs[0] == pytest.approx(
+        call.dur - sum(s.dur for s in sp[1:]), abs=1e-9)
+
+
+def test_traced_writes_and_the_rebuild_inside_an_insert():
+    """``db.insert`` and ``db.remove`` span each write; the insert that
+    crosses the buffer's threshold holds its ``db.rebuild``."""
+    from repro_torch import obs
+
+    db = TorchVectorDB(DBConfig(dim=DIM, capacity=N + 96, nlist=4, nprobe=2,
+                                flat_capacity=48, use_kernel="fused"),
+                       device="cpu")
+    db.insert(_corpus(), _chunks(Chunk, N))
+    db.build_index()
+    db.tracer = obs.Tracer(clock=obs.EpochClock())
+    db.insert(_corpus(30, seed=9), _chunks(Chunk, 30, doc0=500))
+    assert db.remove(500) == 4
+    db.insert(_corpus(10, seed=8), _chunks(Chunk, 10, doc0=600))  # 36 >= 36
+    assert db.counters["rebuilds"] == 2
+    sp = sorted(db.tracer.spans(), key=lambda s: (s.t0, -s.t1))
+    assert [(s.name, s.args) for s in sp] == [
+        ("db.insert", {"n": 30}), ("db.remove", {"n": 4}),
+        ("db.insert", {"n": 10}), ("db.rebuild", {"fresh": 36})]
+    ins, rebuild = sp[2], sp[3]
+    assert ins.req == rebuild.req and ins.t0 <= rebuild.t0 <= rebuild.t1 \
+        <= ins.t1
+    assert len({s.req for s in sp}) == 3
